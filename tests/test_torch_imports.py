@@ -1,0 +1,100 @@
+"""The port stands alone: no file of doorman_tpu_torch/ nor chip_smoke.py
+imports jax, ml_dtypes or anything of the JAX package (an AST scan of
+every import statement), and the entry points run on the CUDA device by
+default — on a machine without a GPU they raise unless the caller asks
+for device="cpu"."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "doorman_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "doorman_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (
+            isinstance(node, ast.Call)
+            and getattr(node.func, "id", getattr(node.func, "attr", ""))
+            in ("import_module", "__import__")
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+        ):
+            yield str(node.args[0].value)
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) > 20
+    bad = []
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            if top in FORBIDDEN:
+                bad.append(f"{path.relative_to(ROOT)}: {mod}")
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("entry", ["solver", "server", "cmd", "device"])
+def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
+    entry, tmp_path
+):
+    import asyncio
+
+    import numpy as np
+
+    from doorman_tpu_torch import native
+    from doorman_tpu_torch.cmd import server as cmd_server
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer
+    from doorman_tpu_torch.solver.resident import ResidentDenseSolver
+    from doorman_tpu_torch.utils.backend import resolve_device
+
+    if not native.native_available():
+        pytest.skip("native engine unavailable")
+    engine = native.StoreEngine()
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(
+        "resources:\n  - identifier_glob: '*'\n    capacity: 10\n"
+        "    algorithm: {kind: FAIR_SHARE, lease_length: 60,"
+        " refresh_interval: 5}\n"
+    )
+    make = {
+        "solver": lambda **kw: ResidentDenseSolver(
+            engine, dtype=np.float64, **kw
+        ),
+        "server": lambda **kw: CapacityServer("s", TrivialElection(), **kw),
+        "device": lambda **kw: resolve_device(**kw),
+        "cmd": lambda **kw: asyncio.run(asyncio.wait_for(cmd_server.serve(
+            cmd_server.make_parser().parse_args(
+                ["--config", f"file:{cfg}", "--port", "0",
+                 "--host", "127.0.0.1"]
+                + (["--device", kw["device"]] if kw else [])
+            )
+        ), timeout=0.5)),
+    }[entry]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    if entry == "cmd":
+        # Serves until cancelled: the CPU server starting is the pass.
+        with pytest.raises(asyncio.TimeoutError):
+            make(device="cpu")
+    else:
+        got = make(device="cpu")
+        dev = got if entry == "device" else got.device
+        assert dev == torch.device("cpu")
