@@ -10,8 +10,11 @@ store, ticking the resident fused + scoped solve at the bench's full
 size (10,000 resources x 100 clients = 1M leases, bucket K = 128, 5%
 demand churn and 20% delivery per tick) at f32 and briefly at f64,
 answering GetCapacity / ReleaseCapacity / Discovery over loopback gRPC —
-and the delta-tracked full tick, and checks what comes out. Kernel launch
-counters are zeroed just before each path is driven and read just after.
+then the same server with PRIORITY_BANDS resources in capacity groups
+beside lane resources (the BatchSolver's grouped solve, kernel K3, in
+the same tick as the resident K1 solve), and the delta-tracked full
+tick, and checks what comes out. Kernel launch counters are zeroed just
+before each path is driven and read just after.
 
 Prints one line per phase, the card's name and power limit, one JSON line
 of per-kernel measurements, and last the JSON result line. Exits non-zero
@@ -55,6 +58,24 @@ LANES = (
     ("pf", 2, "logutil", 0.06),
 )
 CAP_TIERS = (1_500.0, 3_500.0, 5_000.0, 20_000.0)
+
+# The priority slice: 10,000 PRIORITY_BANDS resources x 100 clients, 80%
+# of them in 16 capacity groups of 500 whose caps are 25% of their
+# members' summed capacity (every group binds), beside 1,000 lane
+# resources x 100 clients.
+N_PRIO = 10_000
+N_PRIO_LANE = 1_000
+N_GROUPS = 16
+GROUP_SIZE = 500
+GROUP_SHARE = 0.25
+PRIORITIES = (0, 1, 5, 10)  # wire priorities: 4 bands
+PRIO_TICKS = 10
+PRIO_F64_TICKS = 4
+# Grouped solve, K3 vs the plain solve: the reference's own
+# kernel-vs-XLA bound (tests/test_pallas_priority.py), relative to the
+# row's capacity (the theta bisection turns an ulp of usage into a
+# different feasible theta).
+K3_SOLVE_RTOL = 1e-5
 
 
 def say(msg: str) -> None:
@@ -236,10 +257,121 @@ def phase_kernels(torch):
     return worst
 
 
+# -- phase 3b: K3 parity ----------------------------------------------------
+
+def _put(torch, arr, dtype=None):
+    t = torch.from_numpy(arr).to(DEVICE)
+    return t.to(dtype) if dtype is not None else t
+
+
+def _k3_tables(torch, rng, R, K, dtype):
+    """Banded-fill inputs: every row padded past its clients, 4 bands,
+    capacities leaving rows both fitting and overloaded."""
+    import numpy as np
+
+    n = rng.integers(1, K + 1, R)
+    act = np.arange(K)[None, :] < n[:, None]
+    wants = rng.random((R, K)) * 100 * act
+    weights = rng.integers(1, 4, (R, K)).astype(np.float64) * act
+    band = (rng.integers(0, 4, (R, K)) * act).astype(np.int32)
+    cap = rng.random(R) * 80 * n + 5
+    return (_put(torch, wants, dtype), _put(torch, weights, dtype),
+            _put(torch, band), _put(torch, act), _put(torch, cap, dtype))
+
+
+def _k3_rel(torch, got, want, wants, active, cap):
+    scale = torch.maximum(
+        cap, torch.where(active, wants, 0).amax(1)
+    )[:, None].double().clamp_min(1e-30)
+    return ((got.double() - want.double()).abs() / scale).max().item()
+
+
+def phase_kernels_k3(torch):
+    """K3 against its plain version on the same CUDA tensors (K = 8, 128,
+    4096; f32 and f64), repeat launches bit-identical; the grouped
+    solve_priority through K3 against the plain solve, two calls
+    bit-identical. Comparison launches: not counted."""
+    import numpy as np
+
+    from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
+    from doorman_tpu_torch.solver import dense_cuda
+    from doorman_tpu_torch.solver.priority import (
+        PriorityBatch,
+        _alloc_banded,
+        solve_priority,
+    )
+    from doorman_tpu_torch.solver.priority_cuda import alloc_banded_k3
+
+    saved = dict(dense_cuda.LAUNCHES)
+    rng = np.random.default_rng(2025)
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    for K in (8, 128, 4096):
+        R = 96 if K == 4096 else 1024
+        for dtype in (torch.float32, torch.float64):
+            w, wt, band, act, cap = _k3_tables(torch, rng, R, K, dtype)
+            g1 = alloc_banded_k3(w, wt, band, act, cap, 4)
+            g2, tot = alloc_banded_k3(w, wt, band, act, cap, 4, totals=True)
+            plain = _alloc_banded(w, wt, band, act, cap, 4)
+            torch.cuda.synchronize()
+            tag = f"K={K} {str(dtype)[6:]}"
+            check(torch.equal(g1, g2), f"K3 not deterministic ({tag})")
+            check(bool(torch.isfinite(g1).all()), f"K3 non-finite ({tag})")
+            bound = F32_PARITY_REL_BOUND if dtype == torch.float32 else F64_RTOL
+            err = _k3_rel(torch, g1, plain, w, act, cap)
+            check(err <= bound, f"K3 vs plain {err:.3g} > {bound:g} ({tag})")
+            # The row totals feed the group usage: a tree sum of up to K
+            # grants, held to the grouped solve's bound at f32.
+            terr = _k3_rel(torch, tot[:, None], g1.double().sum(1)[:, None],
+                           w, act, cap)
+            tbound = K3_SOLVE_RTOL if dtype == torch.float32 else F64_RTOL
+            check(terr <= tbound, f"K3 row totals off by {terr:.3g} ({tag})")
+            over = (torch.where(act, w, 0).sum(1) > cap).float().mean().item()
+            check(0.05 < over < 0.95, f"K3 parity input degenerate ({tag})")
+            worst[dtype] = max(worst[dtype], err)
+            say(f"phase kernels-K3: {tag} R={R}: K3 vs plain max rel err "
+                f"{err:.3g} (bound {bound:g}), repeat bit-identical, row "
+                f"totals within {terr:.3g}, {over:.0%} rows overloaded")
+    # The grouped solve: two groups, caps 50% and 25% of their members'
+    # capacity (bench.py's TPU gate), K = 128.
+    solve_err = {}
+    for dtype in (torch.float32, torch.float64):
+        R, K = 1024, 128
+        w, wt, band, act, cap = _k3_tables(torch, rng, R, K, dtype)
+        group = rng.choice(np.array([-1, 0, 1], np.int32), R)
+        cap_h = cap.double().cpu().numpy()
+        gcap = np.asarray([cap_h[group == 0].sum() * 0.5,
+                           cap_h[group == 1].sum() * 0.25])
+        batch = PriorityBatch(
+            wants=w, weights=wt, band=band, active=act, capacity=cap,
+            group=_put(torch, group), group_cap=_put(torch, gcap, dtype),
+        )
+        k1 = solve_priority(batch, 4, use_kernel=True)
+        k2 = solve_priority(batch, 4, use_kernel=True)
+        plain = solve_priority(batch, 4, use_kernel=False)
+        torch.cuda.synchronize()
+        tag = str(dtype)[6:]
+        check(torch.equal(k1, k2), f"grouped solve not deterministic ({tag})")
+        scale = cap.double().clamp_min(1e-30)[:, None]
+        err = ((k1.double() - plain.double()).abs() / scale).max().item()
+        check(err <= K3_SOLVE_RTOL,
+              f"grouped solve K3 vs plain {err:.3g} > {K3_SOLVE_RTOL:g} ({tag})")
+        usage = [k1.double().sum(1)[_put(torch, group == g)].sum().item()
+                 for g in (0, 1)]
+        check(all(u <= c * (1 + 1e-6) for u, c in zip(usage, gcap)),
+              f"grouped solve exceeds a group cap ({tag}): {usage} {gcap}")
+        solve_err[tag] = err
+        say(f"phase kernels-K3: grouped solve_priority {tag} R={R} K={K} "
+            f"2 groups: K3 vs plain {err:.3g} of capacity (bound "
+            f"{K3_SOLVE_RTOL:g}), two calls bit-identical, group usage "
+            f"{usage[0]:.6g}/{gcap[0]:.6g} {usage[1]:.6g}/{gcap[1]:.6g}")
+    dense_cuda.LAUNCHES.update(saved)
+    return worst, solve_err
+
+
 # -- phase 4: the server slice ----------------------------------------------
 
-def _config_yaml(lease_length=3600, refresh=5):
-    lines = ["resources:"]
+def _lane_templates(lease_length=3600, refresh=5):
+    lines = []
     for prefix, kind, variant, _share in LANES:
         for t, cap in enumerate(CAP_TIERS):
             params = (
@@ -253,6 +385,11 @@ def _config_yaml(lease_length=3600, refresh=5):
                 f" refresh_interval: {refresh}, learning_mode_duration: 0"
                 f"{params}}}"
             )
+    return lines
+
+
+def _config_yaml(lease_length=3600, refresh=5):
+    lines = ["resources:"] + _lane_templates(lease_length, refresh)
     lines.append(
         "  - identifier_glob: '*'\n    capacity: 1000\n"
         f"    algorithm: {{kind: 0, lease_length: {lease_length},"
@@ -261,12 +398,12 @@ def _config_yaml(lease_length=3600, refresh=5):
     return "\n".join(lines) + "\n"
 
 
-def _resource_ids(rng):
+def _resource_ids(rng, n=N_RES):
     import numpy as np
 
     shares = np.array([lane[3] for lane in LANES])
-    lane = rng.choice(len(LANES), N_RES, p=shares / shares.sum())
-    tier = rng.integers(0, len(CAP_TIERS), N_RES)
+    lane = rng.choice(len(LANES), n, p=shares / shares.sum())
+    tier = rng.integers(0, len(CAP_TIERS), n)
     return [f"{LANES[l][0]}.t{t}.r{i}" for i, (l, t) in enumerate(zip(lane, tier))]
 
 
@@ -510,9 +647,280 @@ async def _servers(torch, card):
     return out
 
 
+# -- phase 4b: PRIORITY_BANDS with capacity groups beside lane resources ------
+
+def _prio_layout(rng):
+    """(resource ids, capacities, group ids, group caps) of the
+    PRIORITY_BANDS resources: 16 groups of 500, the rest uncoupled; each
+    group's cap is GROUP_SHARE of its members' summed capacity."""
+    import numpy as np
+
+    tier = rng.integers(0, len(CAP_TIERS), N_PRIO)
+    group = np.full(N_PRIO, -1, np.int64)
+    group[: N_GROUPS * GROUP_SIZE] = np.repeat(np.arange(N_GROUPS), GROUP_SIZE)
+    rng.shuffle(group)
+    cap = np.asarray(CAP_TIERS)[tier]
+    gcap = np.asarray([GROUP_SHARE * cap[group == g].sum()
+                       for g in range(N_GROUPS)])
+    ids = [f"p.g{g}.t{t}.r{i}" if g >= 0 else f"p.u.t{t}.r{i}"
+           for i, (g, t) in enumerate(zip(group, tier))]
+    return ids, cap, group, gcap
+
+
+def _prio_yaml(gcap, lease_length=3600, refresh=5):
+    algo = (f"{{kind: PRIORITY_BANDS, lease_length: {lease_length}, "
+            f"refresh_interval: {refresh}, learning_mode_duration: 0}}")
+    lines = ["groups:"]
+    for g, c in enumerate(gcap):
+        lines.append(f"  - name: g{g}\n    capacity: {float(c)!r}")
+    lines.append("resources:")
+    for t, cap in enumerate(CAP_TIERS):
+        for g in range(N_GROUPS):
+            lines.append(
+                f"  - identifier_glob: 'p.g{g}.t{t}.*'\n    capacity: {cap}\n"
+                f"    capacity_group: g{g}\n    algorithm: {algo}"
+            )
+        lines.append(f"  - identifier_glob: 'p.u.t{t}.*'\n    capacity: {cap}\n"
+                     f"    algorithm: {algo}")
+    lines += _lane_templates(lease_length, refresh)
+    lines.append(
+        "  - identifier_glob: '*'\n    capacity: 1000\n"
+        f"    algorithm: {{kind: 0, lease_length: {lease_length},"
+        f" refresh_interval: {refresh}, learning_mode_duration: 0}}"
+    )
+    return "\n".join(lines) + "\n"
+
+
+def _populate_prio(server, rng, ids):
+    """100 clients on each resource through the engine's bulk upsert:
+    the PRIORITY_BANDS leases (the first N_PRIO resources) with 1-3
+    subclients and wire priorities from PRIORITIES, the lane leases as
+    in the lane phase."""
+    import numpy as np
+
+    res = [server.get_or_create_resource(r) for r in ids]
+    engine = server._store_engine
+    rids = np.repeat([r.store._rid for r in res], N_CLIENTS).astype(np.int32)
+    cids = np.fromiter(
+        (engine.client_handle(f"c{i}.{c}")
+         for i in range(len(ids)) for c in range(N_CLIENTS)),
+        np.int64, count=len(ids) * N_CLIENTS,
+    )
+    n, n_prio = len(rids), N_PRIO * N_CLIENTS
+    sub = np.ones(n, np.int32)
+    sub[:n_prio] = rng.integers(1, 4, n_prio)
+    prio = np.zeros(n, np.int64)
+    prio[:n_prio] = rng.choice(np.asarray(PRIORITIES), n_prio)
+    now = time.time()
+    engine.bulk_assign(
+        rids, cids, np.full(n, now + 3600.0), np.full(n, 5.0), np.zeros(n),
+        rng.integers(0, 100, n).astype(np.float64), sub, prio,
+    )
+    return (res, rids.reshape(len(ids), N_CLIENTS),
+            cids.reshape(len(ids), N_CLIENTS))
+
+
+def _churn_prio(engine, rng, rids, cids):
+    """5% of the priority and 5% of the lane resources refresh with new
+    demand (priorities and subclients kept)."""
+    import numpy as np
+
+    pick = np.concatenate([
+        rng.choice(N_PRIO, N_PRIO // 20, replace=False),
+        N_PRIO + rng.choice(N_PRIO_LANE, N_PRIO_LANE // 20, replace=False),
+    ])
+    n = len(pick) * N_CLIENTS
+    engine.bulk_refresh(
+        rids[pick].ravel(), cids[pick].ravel(),
+        np.full(n, time.time() + 3600.0), np.full(n, 5.0),
+        rng.integers(0, 100, n).astype(np.float64),
+    )
+
+
+async def _prio_requests(torch, server, port, resources):
+    """GetCapacity over loopback for clients of priority resources
+    (served from the store), a newcomer's first response on a priority
+    resource (the scalar priority_bands), and its release."""
+    import grpc
+
+    from doorman_tpu_torch.proto import doorman_pb2 as pb
+    from doorman_tpu_torch.proto.grpc_api import CapacityStub
+
+    async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
+        stub = CapacityStub(ch)
+        served = 0
+        for i in (0, 17, N_PRIO // 2, N_PRIO - 1):
+            res = resources[i]
+            client = f"c{i}.3"
+            lease = res.store.get(client)
+            req = pb.GetCapacityRequest(client_id=client)
+            r = req.resource.add()
+            r.resource_id, r.wants, r.priority = res.id, lease.wants, lease.priority
+            r.has.capacity = lease.has
+            out = await stub.GetCapacity(req)
+            got = out.response[0]
+            check(got.resource_id == res.id, "GetCapacity: wrong resource")
+            check(got.gets.capacity == lease.has,
+                  f"GetCapacity {res.id}: served {got.gets.capacity}, "
+                  f"store holds {lease.has}")
+            served += 1
+        res = resources[1]
+        req = pb.GetCapacityRequest(client_id="newcomer")
+        r = req.resource.add()
+        r.resource_id, r.wants, r.priority = res.id, 7.0, 10
+        out = await stub.GetCapacity(req)
+        cap = out.response[0].gets.capacity
+        check(0.0 <= cap <= 7.0, f"priority first response {cap} outside "
+              "[0, wants]")
+        await stub.ReleaseCapacity(pb.ReleaseCapacityRequest(
+            client_id="newcomer", resource_id=[res.id]))
+        check(not res.store.has_client("newcomer"), "release did not drop")
+        return served + 1
+
+
+async def _drive_prio(torch, dtype_name, ticks, seed):
+    import numpy as np
+
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer
+    from doorman_tpu_torch.solver import dense_cuda
+
+    rng = np.random.default_rng(seed)
+    prio_ids, cap, group, gcap = _prio_layout(rng)
+    ids = prio_ids + _resource_ids(rng, N_PRIO_LANE)
+    server = CapacityServer(
+        "smoke-prio", TrivialElection(), mode="batch", native_store=True,
+        solver_dtype=dtype_name, fused_tick=True, scoped_solve=True,
+        tick_pipeline_depth=3, tick_interval=1.0, device=DEVICE,
+    )
+    port = await server.start(0, host="127.0.0.1", tick_loop=False)
+    try:
+        await server.load_config(parse_yaml_config(_prio_yaml(gcap)))
+        t = time.perf_counter()
+        resources, rids, cids = _populate_prio(server, rng, ids)
+        say(f"phase server[prio {dtype_name}]: {N_PRIO} PRIORITY_BANDS "
+            f"resources in {N_GROUPS} groups of {GROUP_SIZE} (+"
+            f"{N_PRIO - N_GROUPS * GROUP_SIZE} uncoupled) and {N_PRIO_LANE} "
+            f"lane resources, {server._store_engine.total_leases} leases "
+            f"populated in {time.perf_counter() - t:.1f}s")
+        dense_cuda.reset_launches()  # the main path starts here
+        walls = []
+        for _ in range(ticks):
+            _churn_prio(server._store_engine, rng, rids, cids)
+            t = time.perf_counter()
+            await server.tick_once()
+            walls.append(time.perf_counter() - t)
+        await server.flush_ticks()
+        torch.cuda.synchronize()
+        launches = dict(dense_cuda.LAUNCHES)  # read just after
+        served = await _prio_requests(torch, server, port, resources)
+        return dict(server=server, resources=resources, walls=walls,
+                    launches=launches, served=served, cap=cap, group=group,
+                    gcap=gcap, ticks=ticks)
+    finally:
+        await server.stop()
+
+
+def _check_prio(torch, run):
+    """The store of record against the solve's grants, the group caps
+    and resource capacities in the store, and sampled uncoupled rows
+    against the f64 numpy oracle."""
+    import numpy as np
+
+    from doorman_tpu_torch.algorithms.priority import priority_alloc
+    from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
+    from doorman_tpu_torch.solver.priority import alloc_evaluations
+
+    server, resources = run["server"], run["resources"]
+    solver = server._solver
+    snap = solver.last_snapshot
+    launches = run["launches"]
+    per_tick = alloc_evaluations(solver._tdtype, True)
+    check(solver.ticks == run["ticks"],
+          f"BatchSolver ticks {solver.ticks} != {run['ticks']}")
+    check(launches["k3"] == per_tick * run["ticks"],
+          f"K3 launches {launches['k3']} != {per_tick} x {run['ticks']}")
+    check(launches["k1"] > 0, "K1 never launched beside the priority part")
+    prio_res = resources[:N_PRIO]
+    check(snap.resource_ids == [r.id for r in prio_res],
+          "the priority snapshot's rows are not the priority resources")
+    engine = server._store_engine
+    name = engine.client_name
+    gets = snap.gets
+    starts = np.searchsorted(snap.ridx, np.arange(N_PRIO + 1))
+    rng = np.random.default_rng(11)
+    mism = 0
+    for i in rng.choice(N_PRIO, min(200, N_PRIO), replace=False):
+        store = prio_res[i].store
+        for e in range(starts[i], starts[i + 1]):
+            if store.get(name(int(snap.cids[e]))).has != float(
+                gets[i, snap.pos[e]]
+            ):
+                mism += 1
+    check(mism == 0, f"{mism} sampled store grants differ from the solve")
+    ridx, _c, _w, has, _s, _p = engine.pack([r.store for r in prio_res])
+    per_res = np.bincount(ridx, weights=has, minlength=N_PRIO)
+    over = per_res - run["cap"] * (1 + 1e-6)
+    check((over <= 0).all(), f"resource capacity exceeded by {over.max():.6g}")
+    ratios = []
+    for g in range(N_GROUPS):
+        usage = per_res[run["group"] == g].sum()
+        check(usage <= run["gcap"][g] * (1 + 1e-6),
+              f"group g{g}: usage {usage:.9g} > cap {run['gcap'][g]:.9g}")
+        ratios.append(usage / run["gcap"][g])
+    # Each cap is a quarter of its members' capacity: every group binds.
+    check(min(ratios) > 0.999, f"a group's cap does not bind: {min(ratios)}")
+    b = snap.batch
+    w = b.wants.double().cpu().numpy()
+    wt = b.weights.double().cpu().numpy()
+    bd = b.band.cpu().numpy()
+    a = b.active.cpu().numpy()
+    c = b.capacity.double().cpu().numpy()
+    uncoupled = np.nonzero(b.group.cpu().numpy() < 0)[0]
+    worst = 0.0
+    for r in rng.choice(uncoupled, min(200, len(uncoupled)), replace=False):
+        m = a[r]
+        want = priority_alloc(c[r], w[r, m], wt[r, m], bd[r, m])
+        scale = max(c[r], float(w[r, m].max()))
+        worst = max(worst, float(np.abs(gets[r, m] - want).max()) / scale)
+    check(worst <= F32_PARITY_REL_BOUND,
+          f"uncoupled rows vs f64 oracle {worst:.3g}")
+    return min(ratios), max(ratios), worst, snap.num_bands
+
+
+async def _prio_servers(torch, card):
+    out = {}
+    for dtype_name, ticks, seed in (
+        ("f32", PRIO_TICKS, 5), ("f64", PRIO_F64_TICKS, 6),
+    ):
+        run = await _drive_prio(torch, dtype_name, ticks, seed)
+        lo, hi, oracle_err, nb = _check_prio(torch, run)
+        p50, p95 = _pcts(run["walls"][1:])
+        solver = run["server"]._solver
+        say(f"phase server[prio {dtype_name}]: {ticks} ticks with 5% churn, "
+            f"tick wall p50 {p50:.2f} ms p95 {p95:.2f} ms, launches "
+            f"{run['launches']} ({run['launches']['k3'] // ticks} K3 per "
+            f"tick), {nb} bands, store == solve grants on 200 sampled rows, "
+            f"group usage / cap in [{lo:.9f}, {hi:.9f}], resource caps "
+            f"held, uncoupled rows vs f64 oracle {oracle_err:.3g}, "
+            f"{run['served']} requests answered; card {card}")
+        say(f"phase server[prio {dtype_name}]: BatchSolver ms per tick: " +
+            ", ".join(f"{k} {v * 1000.0 / ticks:.3f}"
+                      for k, v in solver.phase_s.items()) +
+            "; resident host phase ms per tick: " + ", ".join(
+                f"{k} {v * 1000.0 / ticks:.3f}"
+                for k, v in run["server"]._resident.phase_s.items() if v > 0))
+        out[dtype_name] = dict(p50=p50, p95=p95, **run)
+    return out
+
+
 def phase_server(torch, card):
-    # One event loop for both servers (gRPC's asyncio binding is per loop).
-    return asyncio.run(_servers(torch, card))
+    # One event loop for every server (gRPC's asyncio binding is per loop).
+    async def both():
+        return await _servers(torch, card), await _prio_servers(torch, card)
+
+    return asyncio.run(both())
 
 
 # -- phase 5: the tracked path ----------------------------------------------
@@ -603,6 +1011,87 @@ def _ops(torch, batch):
     per = torch.where(batch.learning, 1.0, per)
     # Every lane of the row is visited (padding lanes too).
     return float((per * K).sum().item())
+
+
+def _k3_ops(torch, wants, weights, band, active, eff_cap, num_bands, gets):
+    """Floating-point operations one K3 launch needs on these inputs,
+    counted per lane element and band: the band mask, its sum, the share
+    and the running remainder (9); a band that overflows its remaining
+    capacity adds the level finder — ratio and max (4), the bisection (3
+    per step), the two snap steps (10). Every lane of the row is visited
+    (padding lanes too)."""
+    K = wants.shape[1]
+    it = 30 if wants.dtype == torch.float32 else 48
+    remaining = eff_cap.double()
+    per_row = torch.zeros_like(remaining)
+    for rank in range(num_bands):
+        m = active & (band == rank)
+        over = torch.where(m, wants, 0).double().sum(1) > remaining
+        per_row += 9.0 + torch.where(over, 14.0 + 3.0 * it, 0.0).double()
+        remaining = (
+            remaining - torch.where(m, gets, 0).double().sum(1)
+        ).clamp_min(0.0)
+    return float((per_row * K).sum().item())
+
+
+def _k3_entry(torch, prio, parity, solve_err):
+    """K3 on the f32 priority server's own tables, at a representative
+    theta evaluation (grouped rows at theta = 0.5): against the plain
+    version, timed beside it, and the whole grouped solve of one tick
+    (K3 path against the plain solve, timed)."""
+    from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
+    from doorman_tpu_torch.solver import dense_cuda
+    from doorman_tpu_torch.solver.priority import (
+        _alloc_banded,
+        alloc_evaluations,
+        solve_priority,
+    )
+    from doorman_tpu_torch.solver.priority_cuda import alloc_banded_k3
+
+    snap = prio["server"]._solver.last_snapshot
+    b, nb = snap.batch, snap.num_bands
+    wants = torch.where(b.active, b.wants, 0)
+    weights = torch.where(b.active, b.weights, 0)
+    half = torch.where(b.group >= 0, 0.5, 1.0).to(b.capacity.dtype)
+    eff = b.capacity * half
+    args = (wants, weights, b.band, b.active, eff, nb)
+    saved = dict(dense_cuda.LAUNCHES)
+    k3 = alloc_banded_k3(*args)
+    plain = _alloc_banded(*args)
+    rel = _k3_rel(torch, k3, plain, wants, b.active, eff)
+    check(rel <= F32_PARITY_REL_BOUND, f"K3 vs plain {rel:.3g} (server)")
+    err = (k3.double() - plain.double()).abs().max().item()
+    ks = solve_priority(b, nb, use_kernel=True)
+    ps = solve_priority(b, nb, use_kernel=False)
+    srel = ((ks.double() - ps.double()).abs()
+            / b.capacity.double().clamp_min(1e-30)[:, None]).max().item()
+    check(srel <= K3_SOLVE_RTOL, f"grouped solve vs plain {srel:.3g} (server)")
+    ms = _time_ms(torch, lambda: alloc_banded_k3(*args))
+    pms = _time_ms(torch, lambda: _alloc_banded(*args), reps=3)
+    solve_ms = _time_ms(
+        torch, lambda: solve_priority(b, nb, use_kernel=True), reps=3
+    )
+    dense_cuda.LAUNCHES.update(saved)  # comparison and timing launches
+    R, K = wants.shape
+    it = wants.element_size()
+    nbytes = R * K * (2 * it + 4 + 1) + R * K * it + R * it
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = _k3_ops(torch, *args, plain) / H100_F32_FLOPS * 1e3
+    return {
+        "name": "K3 banded water-fill", "route": "cuda",
+        "source": "doorman_tpu_torch/csrc/dense_solve.cu",
+        "replaces": "doorman_tpu/solver/pallas_priority.py:32",
+        "launches": int(prio["launches"]["k3"]), "max_abs_err": err,
+        "ms": ms, "plain_ms": pms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "shape": [R, K], "dtype": str(wants.dtype),
+        "num_bands": nb,
+        "launches_per_tick": alloc_evaluations(wants.dtype, True),
+        "solve_priority_ms": solve_ms, "server_rel_err": rel,
+        "server_solve_rel_err": srel,
+        "parity_rel_err": {str(k)[6:]: v for k, v in parity.items()},
+        "solve_rel_err": solve_err,
+    }
 
 
 def kernel_line(torch, server, tracked_launches, main_launches, worst):
@@ -710,19 +1199,25 @@ def main() -> int:
         name, card = phase_device(torch)
         phase_build()
         worst = phase_kernels(torch)
-        servers = phase_server(torch, card)
+        worst3, solve_err = phase_kernels_k3(torch)
+        servers, prio = phase_server(torch, card)
         tracked = phase_tracked(torch, servers["f32"]["server"])
         line = kernel_line(
             torch, servers["f32"]["server"], tracked,
             servers["f32"]["launches"], worst,
         )
+        line["kernels"].append(_k3_entry(torch, prio["f32"], worst3, solve_err))
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     say(f"summary: f32 tick wall p50 {servers['f32']['p50']:.2f} ms p95 "
         f"{servers['f32']['p95']:.2f} ms, f64 p50 {servers['f64']['p50']:.2f}"
         f" ms p95 {servers['f64']['p95']:.2f} ms at {N_RES * N_CLIENTS} "
-        f"leases; total {time.perf_counter() - t0:.1f}s")
+        f"leases; priority + lane server f32 p50 {prio['f32']['p50']:.2f} ms "
+        f"p95 {prio['f32']['p95']:.2f} ms, f64 p50 {prio['f64']['p50']:.2f} "
+        f"ms p95 {prio['f64']['p95']:.2f} ms at "
+        f"{(N_PRIO + N_PRIO_LANE) * N_CLIENTS} leases; total "
+        f"{time.perf_counter() - t0:.1f}s")
     say(card)
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {

@@ -14,6 +14,7 @@ from doorman_tpu_torch.algorithms.scalar import (  # noqa: F401
     learn,
     max_min_fair,
     no_algorithm,
+    priority_bands,
     proportional_fairness,
     proportional_share,
     proportional_topup,

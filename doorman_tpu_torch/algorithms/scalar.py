@@ -249,6 +249,52 @@ def fair_share(config: pb.Algorithm) -> Algorithm:
     return algo
 
 
+def priority_bands(config: pb.Algorithm) -> Algorithm:
+    """Priority-banded weighted max-min (the scalar form of
+    doorman_tpu_torch.solver.priority): recompute the whole resource's
+    allocation — every stored lease plus this request — with clients
+    served in descending wire-priority bands, and grant the requester its
+    share. Cross-resource capacity groups are enforced by the batched
+    tick solve only; this per-request form sees one resource at a time."""
+    import numpy as np
+
+    from doorman_tpu_torch.algorithms.priority import priority_alloc
+
+    length, interval = _params(config)
+
+    def algo(store: LeaseStore, capacity: float, r: Request) -> Lease:
+        entries = {
+            c: (l.wants, float(l.subclients), l.priority)
+            for c, l in store.items()
+        }
+        entries[r.client] = (r.wants, float(r.subclients), r.priority)
+        clients = list(entries)
+        wants = np.array([entries[c][0] for c in clients], np.float64)
+        weights = np.array([entries[c][1] for c in clients], np.float64)
+        prios = [entries[c][2] for c in clients]
+        # Dense band ranks: larger wire priority = more important = lower
+        # band index.
+        levels = sorted(set(prios), reverse=True)
+        rank = {p: i for i, p in enumerate(levels)}
+        bands = np.array([rank[p] for p in prios], np.int64)
+        gets = priority_alloc(capacity, wants, weights, bands)
+        # Only the requester's lease is reassigned here, so clamp to the
+        # capacity not promised to others — a preempting high-priority
+        # client converges as the displaced leases refresh (the same
+        # incremental discipline as the other scalar forms; the batched
+        # tick reassigns everyone at once and needs no clamp).
+        available = max(
+            capacity - store.sum_has + store.get(r.client).has, 0.0
+        )
+        grant = min(float(gets[clients.index(r.client)]), available)
+        return store.assign(
+            r.client, length, interval, grant, r.wants, r.subclients,
+            priority=r.priority,
+        )
+
+    return algo
+
+
 def _portfolio_algorithm(config: pb.Algorithm, solve) -> Algorithm:
     """Per-request form shared by the fairness-portfolio lanes
     (MAX_MIN_FAIR / BALANCED_FAIRNESS / PROPORTIONAL_FAIRNESS): like
@@ -329,6 +375,7 @@ _FACTORIES = {
     pb.Algorithm.STATIC: static,
     pb.Algorithm.PROPORTIONAL_SHARE: proportional_share,
     pb.Algorithm.FAIR_SHARE: fair_share,
+    pb.Algorithm.PRIORITY_BANDS: priority_bands,
 }
 
 

@@ -1,5 +1,6 @@
-// Dense lane-solve kernels for Hopper (sm_90a): K1 (the lane solve) and
-// K2 (the lane solve fused with the delivered-grant delta epilogue).
+// Dense solve kernels for Hopper (sm_90a): K1 (the lane solve), K2 (the
+// lane solve fused with the delivered-grant delta epilogue) and K3 (the
+// banded water-fill of the priority solve, further below).
 //
 // Replaces the TPU Pallas kernels doorman_tpu/solver/pallas_dense.py
 // `_kernel` (K1, reached through solve_dense_pallas) and `_fused_kernel`
@@ -488,6 +489,130 @@ int launch(Inputs in, const void* rows, void* out, const void* prev,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- K3: the banded water-fill (solver/priority.py `_alloc_banded`).
+//
+// Replaces the TPU Pallas kernel doorman_tpu/solver/pallas_priority.py
+// `_make_kernel(num_bands)` (reached through alloc_banded_pallas); the
+// wrapper is solver/priority_cuda.py `alloc_banded_k3`. Per row r, for
+// rank 0..num_bands-1: mask m = active & band == rank; if the band's
+// wants fit the remaining capacity every member gets its wants, else
+// min(wants, level * weight) at the band's weighted max-min level
+// (waterfill_level above); remaining = max(remaining - sum(share), 0).
+//
+// What bounds it: the bytes — wants, weights, band and active are read
+// once and the grants written once; the band loop and each overflowing
+// band's 30/48-step bisection re-read shared memory only. The group-cap
+// bisection of solve_priority launches it 38 (f32) or 66 (f64) times a
+// tick, one launch per theta evaluation.
+//
+// Design: K1's — one block per row, the row staged once in dynamic
+// shared memory (5*K*sizeof(T) + 6*K bytes: wants and weights, the
+// band-masked copies the level finder reads, the grants, the band ranks,
+// the active and band masks; 185 KB at f64 and K = 4096, above 48 KB
+// after the opt-in), fixed-order block reductions and no atomics, so
+// repeat launches are bit-identical. The band loop runs to the run-time
+// num_bands, and the level is computed only for a band that does not
+// fit: the reference computes it for every band but selects it only
+// there, so skipping it is byte-identical. With `totals` the block also
+// writes its row's grant total, summed in the block's fixed order (the
+// group usage of solve_priority).
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+    banded_fill_kernel(const T* __restrict__ wants,
+                       const T* __restrict__ weights,
+                       const int32_t* __restrict__ band,
+                       const uint8_t* __restrict__ active,
+                       const T* __restrict__ eff_cap, T* __restrict__ gets,
+                       T* __restrict__ totals, int K, int num_bands) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int64_t b = blockIdx.x;
+  T* wa = reinterpret_cast<T*>(smem);  // wants, active-masked
+  T* wt = wa + K;                      // weights, active-masked
+  Row<T> r;
+  r.K = K;
+  r.w = wt + K;  // the band's wants
+  r.s = r.w + K;  // the band's weights
+  r.g = r.s + K;  // grants
+  r.h = nullptr;
+  r.red = r.g + K;
+  int32_t* bnd = reinterpret_cast<int32_t*>(r.red + kRedSlots);
+  uint8_t* act = reinterpret_cast<uint8_t*>(bnd + K);
+  r.a = act + K;  // the band mask
+  r.fixed = nullptr;
+
+  const T zero = T(0);
+  const int64_t off = b * K;
+  for (int j = threadIdx.x; j < K; j += blockDim.x) {
+    const uint8_t a = active[off + j] != 0;
+    act[j] = a;
+    wa[j] = a ? wants[off + j] : zero;
+    wt[j] = a ? weights[off + j] : zero;
+    bnd[j] = band[off + j];
+    r.g[j] = zero;
+  }
+  T remaining = eff_cap[b];
+  for (int rank = 0; rank < num_bands; ++rank) {
+    T sumw = zero;
+    for (int j = threadIdx.x; j < K; j += blockDim.x) {
+      const uint8_t m = act[j] && bnd[j] == rank;
+      r.a[j] = m;
+      r.w[j] = m ? wa[j] : zero;
+      r.s[j] = m ? wt[j] : zero;
+      sumw += r.w[j];
+    }
+    // block_sum's barrier also publishes the masked copies.
+    sumw = block_sum(sumw, r.red);
+    const bool fits = sumw <= remaining;
+    const T level = fits ? zero : waterfill_level(r, remaining);
+    T taken = zero;
+    for (int j = threadIdx.x; j < K; j += blockDim.x) {
+      const T w = r.w[j];
+      const T share =
+          r.a[j] ? (fits ? w : nmin(w, level * r.s[j])) : zero;
+      r.g[j] = r.g[j] + share;
+      taken += share;
+    }
+    remaining = nmax(remaining - block_sum(taken, r.red), zero);
+  }
+  T* out = gets + off;
+  T total = zero;
+  for (int j = threadIdx.x; j < K; j += blockDim.x) {
+    out[j] = r.g[j];
+    total += r.g[j];
+  }
+  if (totals != nullptr) {
+    total = block_sum(total, r.red);
+    if (threadIdx.x == 0) totals[b] = total;
+  }
+}
+
+template <typename T>
+size_t k3_smem_for(int K) {
+  return 5 * static_cast<size_t>(K) * sizeof(T) + kRedSlots * sizeof(T) +
+         6 * static_cast<size_t>(K);
+}
+
+template <typename T>
+int launch_k3(const void* wants, const void* weights, const void* band,
+              const void* active, const void* eff_cap, void* gets,
+              void* totals, int n_rows, int K, int num_bands, void* stream) {
+  if (n_rows <= 0 || K <= 0) return 0;
+  auto kernel = banded_fill_kernel<T>;
+  const size_t smem = k3_smem_for<T>(K);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<n_rows, threads_for(K), smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(wants), static_cast<const T*>(weights),
+      static_cast<const int32_t*>(band), static_cast<const uint8_t*>(active),
+      static_cast<const T*>(eff_cap), static_cast<T*>(gets),
+      static_cast<T*>(totals), K, num_bands);
+  return static_cast<int>(cudaGetLastError());
+}
+
 Inputs make_inputs(const void* wants, const void* has, const void* sub,
                    const void* act, const void* cap, const void* kind,
                    const void* learn, const void* statc) {
@@ -532,9 +657,22 @@ Inputs make_inputs(const void* wants, const void* has, const void* sub,
         stream);                                                            \
   }
 
+// K3: grants of every row of [n_rows, K] into gets, and (when totals is
+// not null) each row's grant total into totals[n_rows].
+#define DSK_K3(NAME, T)                                                      \
+  extern "C" int NAME(const void* wants, const void* weights,               \
+                      const void* band, const void* active,                 \
+                      const void* eff_cap, void* gets, void* totals,        \
+                      int n_rows, int K, int num_bands, void* stream) {     \
+    return launch_k3<T>(wants, weights, band, active, eff_cap, gets,         \
+                        totals, n_rows, K, num_bands, stream);               \
+  }
+
 DSK_K1(dsk_k1_f32, float)
 DSK_K1(dsk_k1_f64, double)
 DSK_K2(dsk_k2_f32_f32, float, float)
 DSK_K2(dsk_k2_f32_bf16, float, __nv_bfloat16)
 DSK_K2(dsk_k2_f64_f64, double, double)
 DSK_K2(dsk_k2_f64_bf16, double, __nv_bfloat16)
+DSK_K3(dsk_k3_f32, float)
+DSK_K3(dsk_k3_f64, double)

@@ -268,6 +268,62 @@ class StoreEngine:
         """Largest per-resource lease count (one O(R) C call)."""
         return self._lib.dm_max_leases(self._ptr)
 
+    def pack(self, order: List["NativeLeaseStore"]) -> Tuple[
+        np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray,
+        np.ndarray,
+    ]:
+        """Resource-major edge dump following `order`: returns
+        (ridx, cid, wants, has, subclients, priority) with ridx the
+        position of the edge's resource in `order` — the solver's
+        segment id."""
+        cap = self._lib.dm_total_leases(self._ptr)
+        ridx = np.empty(cap, np.int32)
+        cid = np.empty(cap, np.int64)
+        wants = np.empty(cap, np.float64)
+        has = np.empty(cap, np.float64)
+        sub = np.empty(cap, np.float64)
+        prio = np.empty(cap, np.int64)
+        handles = np.asarray([s._rid for s in order], np.int32)
+        n = self._lib.dm_pack(
+            self._ptr,
+            handles.ctypes.data_as(_I32P), len(order),
+            ridx.ctypes.data_as(_I32P), cid.ctypes.data_as(_I64P),
+            wants.ctypes.data_as(_F64P), has.ctypes.data_as(_F64P),
+            sub.ctypes.data_as(_F64P), prio.ctypes.data_as(_I64P), cap,
+        )
+        return ridx[:n], cid[:n], wants[:n], has[:n], sub[:n], prio[:n]
+
+    def apply(
+        self,
+        order_rids: np.ndarray,  # [n_seg] engine rids; -1 skips a segment
+        ridx: np.ndarray,  # [E] segment per edge
+        cid: np.ndarray,  # [E]
+        gets: np.ndarray,  # [E]
+        keep_has: "np.ndarray | None" = None,  # [n_seg] bool
+    ) -> np.ndarray:
+        """Bulk grant write-back (grants ONLY — expiry/refresh are
+        client-driven, see dm_apply); returns a bool mask of edges
+        applied (False: client released or resource gone mid-solve).
+        Segments flagged in keep_has leave has untouched (learning)."""
+        order_rids = np.ascontiguousarray(order_rids, np.int32)
+        ridx = np.ascontiguousarray(ridx, np.int32)
+        cid = np.ascontiguousarray(cid, np.int64)
+        gets = np.ascontiguousarray(gets, np.float64)
+        if keep_has is None:
+            keep_has = np.zeros(len(order_rids), np.uint8)
+        keep_has = np.ascontiguousarray(keep_has, np.uint8)
+        applied = np.zeros(len(ridx), np.uint8)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        self._lib.dm_apply(
+            self._ptr,
+            order_rids.ctypes.data_as(_I32P), len(order_rids),
+            ridx.ctypes.data_as(_I32P), cid.ctypes.data_as(_I64P),
+            gets.ctypes.data_as(_F64P), len(ridx),
+            keep_has.ctypes.data_as(u8p),
+            applied.ctypes.data_as(u8p),
+        )
+        return applied.astype(bool)
+
     def bulk_assign(
         self,
         rids: np.ndarray,  # [n] engine resource handles per lease

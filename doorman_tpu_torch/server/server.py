@@ -1,18 +1,22 @@
 """The capacity server, batch mode on the native store (port of
-doorman_tpu/server/server.py, the resident path).
+doorman_tpu/server/server.py, the resident path and the BatchSolver's
+priority part).
 
 Requests only record demand (GetCapacity serves the last solved grant,
 ReleaseCapacity drops the lease); a background tick solves ALL resources
-at once on the device through the resident solver
-(solver.resident.ResidentDenseSolver), whose grants land back in the
-native store. Brand-new clients and resources in learning mode are
-answered by the scalar first-response algorithm (core.resource.decide).
+at once on the device, and the grants land back in the native store.
+Lane resources tick through the resident solver
+(solver.resident.ResidentDenseSolver); PRIORITY_BANDS resources, with
+their capacity groups, tick through the BatchSolver
+(solver.batch.BatchSolver) in the same executor call. Brand-new clients
+and resources in learning mode are answered by the scalar first-response
+algorithm (core.resource.decide).
 
 What this port carries: batch mode, the native store, the fused tick
-(scoped by default), the trivial election, and the Discovery /
-GetCapacity / ReleaseCapacity RPCs on the reference's wire service
-(doorman_tpu.Capacity). Not yet ported, and refused loudly rather than
-served another way: immediate mode, PRIORITY_BANDS and capacity groups,
+(scoped by default), PRIORITY_BANDS and capacity groups, the trivial
+election, and the Discovery / GetCapacity / ReleaseCapacity RPCs on the
+reference's wire service (doorman_tpu.Capacity). Not yet ported, and
+refused loudly rather than served another way: immediate mode, lane
 resources wider than DENSE_MAX_K clients, the round-trip tick, the
 intermediate-server role (GetServerCapacity) and stream push
 (WatchCapacity).
@@ -36,7 +40,7 @@ import numpy as np
 from doorman_tpu_torch import native
 from doorman_tpu_torch.algorithms import Request
 from doorman_tpu_torch.algorithms.kinds import AlgoKind
-from doorman_tpu_torch.core.resource import Resource, algo_kind_for
+from doorman_tpu_torch.core.resource import Resource
 from doorman_tpu_torch.proto import doorman_pb2 as pb
 from doorman_tpu_torch.proto.grpc_api import (
     CapacityServicer,
@@ -44,6 +48,7 @@ from doorman_tpu_torch.proto.grpc_api import (
 )
 from doorman_tpu_torch.server import config as config_mod
 from doorman_tpu_torch.server.election import Election
+from doorman_tpu_torch.solver.batch import BatchSolver
 from doorman_tpu_torch.solver.engine import PipelinedTicker
 from doorman_tpu_torch.solver.resident import (
     DENSE_MAX_K,
@@ -117,6 +122,12 @@ class CapacityServer(CapacityServicer):
         self._tick_pipeline_depth = max(int(tick_pipeline_depth), 1)
         self._resident: Optional[ResidentDenseSolver] = None
         self._resident_pipe = PipelinedTicker(self._tick_pipeline_depth)
+        # The PRIORITY_BANDS resources' solver (lazily created), and the
+        # tick's lane / priority partition, recomputed when the config
+        # epoch or the resource count moves.
+        self._solver: Optional[BatchSolver] = None
+        self._partition_key = None
+        self._partition: "tuple[list, list]" = ([], [])
         # Bumped whenever templates / learning windows change outside the
         # stores; the resident solver caches its config reads against it.
         self._config_epoch = 0
@@ -170,20 +181,10 @@ class CapacityServer(CapacityServicer):
         """Install a new ResourceRepository (validating it); the first load
         also enters the election."""
         config_mod.validate_repository(repo)
-        if repo.groups:
-            raise _not_ported("capacity groups (they need PRIORITY_BANDS)")
-        for tpl in repo.resources:
-            if (
-                tpl.HasField("algorithm")
-                and algo_kind_for(tpl) == AlgoKind.PRIORITY_BANDS
-            ):
-                raise _not_ported(
-                    f"the PRIORITY_BANDS algorithm (template "
-                    f"{tpl.identifier_glob!r})"
-                )
         first_time = self.config is None
         self.config = repo
         self._config_epoch += 1
+        self._push_groups()
         if first_time:
             self.is_configured.set()
             await self.election.run(
@@ -263,6 +264,37 @@ class CapacityServer(CapacityServicer):
     # The batch tick
     # ------------------------------------------------------------------
 
+    def _get_solver(self) -> BatchSolver:
+        """The PRIORITY_BANDS resources' batch solver (lazily created)."""
+        if self._solver is None:
+            dtype = np.float64 if self.solver_dtype == "f64" else np.float32
+            self._solver = BatchSolver(
+                clock=self._clock, dtype=dtype, device=self.device
+            )
+            self._push_groups()
+        return self._solver
+
+    def _push_groups(self) -> None:
+        """Hand the config's capacity groups to the batch solver."""
+        if self._solver is not None and self.config is not None:
+            self._solver.set_groups(
+                {g.name: g.capacity for g in self.config.groups}
+            )
+
+    def _partitioned(self, resources: List[Resource]):
+        """(lane resources, PRIORITY_BANDS resources) in registry order.
+        A PRIORITY_BANDS row never enters the resident tables: their lane
+        solve has no priority lane and would grant it 0."""
+        key = (self._config_epoch, len(resources))
+        if key != self._partition_key:
+            prio = int(AlgoKind.PRIORITY_BANDS)
+            self._partition = (
+                [r for r in resources if r._decide_kind != prio],
+                [r for r in resources if r._decide_kind == prio],
+            )
+            self._partition_key = key
+        return self._partition
+
     def _resident_solver(self) -> ResidentDenseSolver:
         """The device-resident tick solver (lazily created)."""
         if self._resident is None:
@@ -279,7 +311,13 @@ class CapacityServer(CapacityServicer):
 
     @property
     def _ticks_done(self) -> int:
-        return self._resident.ticks if self._resident is not None else 0
+        """Applied batch ticks (the serving condition for store-backed
+        grants). max, not sum: a mixed config advances both counters on
+        every tick_once."""
+        ticks = self._solver.ticks if self._solver is not None else 0
+        if self._resident is not None:
+            ticks = max(ticks, self._resident.ticks)
+        return ticks
 
     async def tick_once(self) -> None:
         """Run one batched solve over all resources. Serialized: two ticks
@@ -291,21 +329,34 @@ class CapacityServer(CapacityServicer):
     async def _tick_once_locked(self) -> None:
         if not self.resources:
             return
-        resources = list(self.resources.values())
-        # Resolved here, on the event loop, so solver, resources and
+        lane_res, prio_res = self._partitioned(
+            list(self.resources.values())
+        )
+        # Resolved here, on the event loop, so solvers, resources and
         # epoch stay mutually consistent under a mastership flip.
-        solver = self._resident_solver()
+        resident = self._resident_solver() if lane_res else None
+        solver = self._get_solver() if prio_res else None
         epoch = self._config_epoch
         pipe = self._resident_pipe
+        if not lane_res:
+            pipe.drop()
 
         def run_tick():
-            try:
-                pipe.step(solver, resources, epoch)
-            except ResidentOverflow as e:
-                raise _not_ported(
-                    f"resources wider than DENSE_MAX_K={DENSE_MAX_K} "
-                    "clients (the wide resident solver)"
-                ) from e
+            if lane_res:
+                try:
+                    pipe.step(resident, lane_res, epoch)
+                except ResidentOverflow as e:
+                    raise _not_ported(
+                        f"lane resources wider than DENSE_MAX_K="
+                        f"{DENSE_MAX_K} clients (the wide resident solver)"
+                    ) from e
+            if prio_res:
+                # PRIORITY_BANDS resources tick through the BatchSolver
+                # (group caps couple only these rows, so the two solves
+                # are independent).
+                snap = solver.prepare(prio_res)
+                gets = solver.solve(snap)
+                solver.apply(prio_res, snap, gets, return_grants=False)
 
         ctx = contextvars.copy_context()
         await asyncio.get_running_loop().run_in_executor(None, ctx.run, run_tick)
@@ -415,6 +466,7 @@ class CapacityServer(CapacityServicer):
 
     def status(self) -> dict:
         solver = self._resident
+        prio = self._solver
         return {
             "id": self.id,
             "mode": self.mode,
@@ -431,4 +483,9 @@ class CapacityServer(CapacityServicer):
             ),
             "scope": solver.scope_status() if solver is not None else None,
             "phase_s": dict(solver.phase_s) if solver is not None else {},
+            "priority": None if prio is None else {
+                "ticks": prio.ticks,
+                "last_tick_seconds": prio.last_tick_seconds,
+                "phase_s": dict(prio.phase_s),
+            },
         }

@@ -1,10 +1,12 @@
-"""The dense lane-solve kernels K1 and K2 on the card: build, bind, launch.
+"""The dense solve kernels on the card: build, bind, launch.
 
 K1 (`solve_dense_k1`) is the lane solve of solver.dense.solve_dense;
 K2 (`fused_tick_k2`) is K1 fused with the delivered-grant delta
 epilogue of solver.dense.fused_tick_plain. Both are hand-written CUDA
 C++ for sm_90a in csrc/dense_solve.cu (it replaces the TPU kernels of
 doorman_tpu/solver/pallas_dense.py and says what bounds it and how).
+The same library carries K3, the banded water-fill, whose wrapper is
+solver.priority_cuda.alloc_banded_k3.
 
 The source is compiled with nvcc at first use into the package's
 `_build/` directory as a shared library with a plain C interface, and
@@ -43,7 +45,7 @@ BUILD_DIR = _PKG / "_build"
 LIBRARY = BUILD_DIR / "libdense_solve.so"
 
 # Kernel launches since process start (or the caller's last reset).
-LAUNCHES = {"k1": 0, "k2": 0}
+LAUNCHES = {"k1": 0, "k2": 0, "k3": 0}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -113,6 +115,10 @@ def _load():
                 fn = getattr(lib, name)
                 fn.restype = _I
                 fn.argtypes = [_P] * 13 + [_I, _I, _P]
+            for name in ("dsk_k3_f32", "dsk_k3_f64"):
+                fn = getattr(lib, name)
+                fn.restype = _I
+                fn.argtypes = [_P] * 7 + [_I, _I, _I, _P]
             _lib = lib
         return _lib
 

@@ -145,13 +145,32 @@ def test_port_server_answers_like_the_reference_over_loopback():
 
 
 def test_port_server_refuses_what_is_not_ported():
+    """Immediate mode is still refused; a grouped PRIORITY_BANDS config
+    now loads, and the BatchSolver refuses the lane resources whose part
+    of it is not ported."""
+    from doorman_tpu_torch.solver.batch import BatchSolver
+
     with pytest.raises(NotImplementedError, match="not yet ported"):
         TServer("x", TElection(), mode="immediate", device="cpu")
     server = TServer("x", TElection(), device="cpu")
     bands = t_parse(
-        "resources:\n  - identifier_glob: '*'\n    capacity: 10\n"
+        "groups:\n  - name: up\n    capacity: 15\n"
+        "resources:\n  - identifier_glob: 'p*'\n    capacity: 10\n"
+        "    capacity_group: up\n"
         "    algorithm: {kind: PRIORITY_BANDS, lease_length: 60,"
         " refresh_interval: 5}\n"
+        "  - identifier_glob: '*'\n    capacity: 10\n"
+        "    algorithm: {kind: FAIR_SHARE, lease_length: 60,"
+        " refresh_interval: 5}\n"
     )
-    with pytest.raises(NotImplementedError, match="PRIORITY_BANDS"):
-        asyncio.run(server.load_config(bands))
+
+    async def load():
+        await server.load_config(bands)
+        return server.get_or_create_resource("lane0")
+
+    lane = asyncio.run(load())
+    assert server.config is bands
+    assert server._get_solver()._group_caps == {"up": 15.0}
+    solver = BatchSolver(dtype=np.float64, device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        solver.tick([lane])
