@@ -13,8 +13,11 @@ answering GetCapacity / ReleaseCapacity / Discovery over loopback gRPC —
 then the same server with PRIORITY_BANDS resources in capacity groups
 beside lane resources (the BatchSolver's grouped solve, kernel K3, in
 the same tick as the resident K1 solve), and the delta-tracked full
-tick, and checks what comes out. Kernel launch counters are zeroed just
-before each path is driven and read just after.
+tick, and checks what comes out. K3's two layouts (a warp per row up to
+256 lanes, a block per row above) are each held against the plain
+version at widths on both sides of that line, and against each other.
+Kernel launch counters are zeroed just before each path is driven and
+read just after.
 
 Prints one line per phase, the card's name and power limit, one JSON line
 of per-kernel measurements, and last the JSON result line. Exits non-zero
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -141,6 +145,25 @@ def phase_build():
     say("phase build: " + ", ".join(
         f"{k} {v:.1f}s" for k, v in sorted(secs.items())
     ) + f" (wall {time.perf_counter() - t0:.1f}s)")
+    # K3's registers and spills as ptxas reported them; the warp layout
+    # holds its row in registers and must not spill.
+    k3 = {}
+    for entry, use in dense_cuda.ptxas_usage().items():
+        m = re.search(r"(banded_fill_warp_kernel|banded_fill_kernel)I([fd])"
+                      r"(?:Li(\d+)E)?", entry)
+        if m:
+            layout = "warp" if "warp" in m.group(1) else "block"
+            name = f"{layout} {'f32' if m.group(2) == 'f' else 'f64'}" + (
+                f" V={m.group(3)}" if m.group(3) else "")
+            k3[name] = use
+    say("phase build: K3 ptxas " + ", ".join(
+        f"{n} {u['registers']} registers, {u['spill_stores']}/"
+        f"{u['spill_loads']} B spilled" for n, u in sorted(k3.items())))
+    check(len(k3) == 10, f"ptxas reported {sorted(k3)} for K3")
+    spills = [n for n, u in k3.items() if n.startswith("warp")
+              and (u["spill_stores"] or u["spill_loads"])]
+    check(not spills, f"K3 warp layout spills: {spills}")
+    return k3
 
 
 # -- phase 3: kernel parity -------------------------------------------------
@@ -266,15 +289,24 @@ def _put(torch, arr, dtype=None):
 
 def _k3_tables(torch, rng, R, K, dtype):
     """Banded-fill inputs: every row padded past its clients, 4 bands,
-    capacities leaving rows both fitting and overloaded."""
+    capacities leaving rows both fitting and overloaded; row 0 wholly
+    inactive, row 1 of capacity 0, rows 2-3 with no member in bands 1
+    and 3, rows 4-5 full and below any one client's wants (every band
+    overflows)."""
     import numpy as np
 
     n = rng.integers(1, K + 1, R)
+    n[4:6] = K
     act = np.arange(K)[None, :] < n[:, None]
     wants = rng.random((R, K)) * 100 * act
     weights = rng.integers(1, 4, (R, K)).astype(np.float64) * act
     band = (rng.integers(0, 4, (R, K)) * act).astype(np.int32)
     cap = rng.random(R) * 80 * n + 5
+    act[0] = False
+    wants[0] = weights[0] = band[0] = 0
+    cap[1] = 0.0
+    band[2:4] = (band[2:4] // 2) * 2
+    cap[4:6] = wants[4:6].min(1) / 2
     return (_put(torch, wants, dtype), _put(torch, weights, dtype),
             _put(torch, band), _put(torch, act), _put(torch, cap, dtype))
 
@@ -286,11 +318,26 @@ def _k3_rel(torch, got, want, wants, active, cap):
     return ((got.double() - want.double()).abs() / scale).max().item()
 
 
+def _widest_k3_row(torch, dtype):
+    """The widest row K3's block layout stages in shared memory, as
+    priority_cuda._check admits it."""
+    from doorman_tpu_torch.solver.priority_cuda import SMEM_LIMIT, k3_smem_bytes
+
+    it = torch.empty((), dtype=dtype).element_size()
+    K = (SMEM_LIMIT - 64 * it) // (5 * it + 6)
+    check(k3_smem_bytes(K, it) <= SMEM_LIMIT < k3_smem_bytes(K + 1, it),
+          f"widest K3 row miscounted ({K} at {dtype})")
+    return K
+
+
 def phase_kernels_k3(torch):
-    """K3 against its plain version on the same CUDA tensors (K = 8, 128,
-    4096; f32 and f64), repeat launches bit-identical; the grouped
-    solve_priority through K3 against the plain solve, two calls
-    bit-identical. Comparison launches: not counted."""
+    """K3 against its plain version on the same CUDA tensors — the warp
+    layout at K = 8, 100, 128, 256, the block layout at K = 257, 4096 and
+    the widest row it admits; f32 and f64; 1 and 4 bands — with repeat
+    launches bit-identical and the row totals checked; the two layouts
+    against each other on one K = 128 table; the grouped solve_priority
+    through K3 against the plain solve, two calls bit-identical.
+    Comparison launches: not counted."""
     import numpy as np
 
     from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
@@ -300,37 +347,70 @@ def phase_kernels_k3(torch):
         _alloc_banded,
         solve_priority,
     )
-    from doorman_tpu_torch.solver.priority_cuda import alloc_banded_k3
+    from doorman_tpu_torch.solver.priority_cuda import (
+        _launch_layout,
+        alloc_banded_k3,
+        k3_layout,
+    )
 
     saved = dict(dense_cuda.LAUNCHES)
     rng = np.random.default_rng(2025)
-    worst = {torch.float32: 0.0, torch.float64: 0.0}
-    for K in (8, 128, 4096):
-        R = 96 if K == 4096 else 1024
-        for dtype in (torch.float32, torch.float64):
+    worst = {}
+    for dtype in (torch.float32, torch.float64):
+        bound = F32_PARITY_REL_BOUND if dtype == torch.float32 else F64_RTOL
+        # The row totals feed the group usage: a tree sum of up to K
+        # grants, held to the grouped solve's bound at f32.
+        tbound = K3_SOLVE_RTOL if dtype == torch.float32 else F64_RTOL
+        for K in (8, 100, 128, 256, 257, 4096, _widest_k3_row(torch, dtype)):
+            R = 1024 if K <= 257 else (96 if K == 4096 else 32)
+            layout = k3_layout(K)
             w, wt, band, act, cap = _k3_tables(torch, rng, R, K, dtype)
-            g1 = alloc_banded_k3(w, wt, band, act, cap, 4)
-            g2, tot = alloc_banded_k3(w, wt, band, act, cap, 4, totals=True)
-            plain = _alloc_banded(w, wt, band, act, cap, 4)
-            torch.cuda.synchronize()
-            tag = f"K={K} {str(dtype)[6:]}"
-            check(torch.equal(g1, g2), f"K3 not deterministic ({tag})")
-            check(bool(torch.isfinite(g1).all()), f"K3 non-finite ({tag})")
-            bound = F32_PARITY_REL_BOUND if dtype == torch.float32 else F64_RTOL
-            err = _k3_rel(torch, g1, plain, w, act, cap)
-            check(err <= bound, f"K3 vs plain {err:.3g} > {bound:g} ({tag})")
-            # The row totals feed the group usage: a tree sum of up to K
-            # grants, held to the grouped solve's bound at f32.
-            terr = _k3_rel(torch, tot[:, None], g1.double().sum(1)[:, None],
-                           w, act, cap)
-            tbound = K3_SOLVE_RTOL if dtype == torch.float32 else F64_RTOL
-            check(terr <= tbound, f"K3 row totals off by {terr:.3g} ({tag})")
             over = (torch.where(act, w, 0).sum(1) > cap).float().mean().item()
-            check(0.05 < over < 0.95, f"K3 parity input degenerate ({tag})")
-            worst[dtype] = max(worst[dtype], err)
-            say(f"phase kernels-K3: {tag} R={R}: K3 vs plain max rel err "
-                f"{err:.3g} (bound {bound:g}), repeat bit-identical, row "
-                f"totals within {terr:.3g}, {over:.0%} rows overloaded")
+            for nb in (1, 4):
+                g1, t1 = alloc_banded_k3(w, wt, band, act, cap, nb, totals=True)
+                g2, t2 = alloc_banded_k3(w, wt, band, act, cap, nb, totals=True)
+                g3 = alloc_banded_k3(w, wt, band, act, cap, nb)
+                plain = _alloc_banded(w, wt, band, act, cap, nb)
+                torch.cuda.synchronize()
+                tag = f"K={K} {str(dtype)[6:]} {nb} band(s) {layout} layout"
+                check(torch.equal(g1, g2) and torch.equal(g1, g3)
+                      and torch.equal(t1, t2), f"K3 not deterministic ({tag})")
+                check(bool(torch.isfinite(g1).all()), f"K3 non-finite ({tag})")
+                err = _k3_rel(torch, g1, plain, w, act, cap)
+                check(err <= bound, f"K3 vs plain {err:.3g} > {bound:g} ({tag})")
+                check(not bool(g1[:2].any()),
+                      f"K3 grants on an inactive or zero-capacity row ({tag})")
+                terr = _k3_rel(torch, t1[:, None], g1.double().sum(1)[:, None],
+                               w, act, cap)
+                check(terr <= tbound, f"K3 row totals off by {terr:.3g} ({tag})")
+                check(0.05 < over < 0.95, f"K3 parity input degenerate ({tag})")
+                worst[(str(dtype)[6:], layout)] = max(
+                    worst.get((str(dtype)[6:], layout), 0.0), err)
+                say(f"phase kernels-K3: {tag} R={R}: vs plain max rel err "
+                    f"{err:.3g} (bound {bound:g}), repeat bit-identical, row "
+                    f"totals within {terr:.3g}, {over:.0%} rows overloaded")
+        # The two layouts on one K = 128 table: within the same bounds
+        # (not bit-equal: their sums run in other orders).
+        w, wt, band, act, cap = _k3_tables(torch, rng, 1024, 128, dtype)
+        for nb in (1, 4):
+            gw, tw = _launch_layout("warp", w, wt, band, act, cap, nb, True)
+            gb, tb = _launch_layout("block", w, wt, band, act, cap, nb, True)
+            gb2, _tb2 = _launch_layout("block", w, wt, band, act, cap, nb, True)
+            plain = _alloc_banded(w, wt, band, act, cap, nb)
+            torch.cuda.synchronize()
+            tag = f"K=128 {str(dtype)[6:]} {nb} band(s)"
+            check(torch.equal(gb, gb2), f"K3 block layout not deterministic ({tag})")
+            lerr = _k3_rel(torch, gw, gb, w, act, cap)
+            berr = _k3_rel(torch, gb, plain, w, act, cap)
+            terr = _k3_rel(torch, tw[:, None], tb[:, None], w, act, cap)
+            check(berr <= bound, f"K3 block layout vs plain {berr:.3g} ({tag})")
+            check(lerr <= bound, f"K3 warp vs block layout {lerr:.3g} ({tag})")
+            check(terr <= tbound, f"K3 warp vs block row totals {terr:.3g} ({tag})")
+            worst[(str(dtype)[6:], "block")] = max(
+                worst.get((str(dtype)[6:], "block"), 0.0), berr)
+            say(f"phase kernels-K3: {tag}: warp vs block layout {lerr:.3g}, "
+                f"block vs plain {berr:.3g} (bound {bound:g}), row totals "
+                f"{terr:.3g}")
     # The grouped solve: two groups, caps 50% and 25% of their members'
     # capacity (bench.py's TPU gate), K = 128.
     solve_err = {}
@@ -979,11 +1059,17 @@ def phase_tracked(torch, server):
 
 # -- the kernels' JSON line --------------------------------------------------
 
-def _time_ms(torch, fn, reps=20):
+def _time_ms(torch, fn, reps=20, queued=False):
+    """Mean ms a call between two CUDA events, after two warm-up calls.
+    `queued` first holds the card in a spin of about 10 ms, so that all
+    `reps` launches are enqueued before the first runs: the events then
+    time the kernels back to back, without the host's enqueue cost."""
     fn()
     fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(20_000_000)
     a.record()
     for _ in range(reps):
         fn()
@@ -1034,11 +1120,13 @@ def _k3_ops(torch, wants, weights, band, active, eff_cap, num_bands, gets):
     return float((per_row * K).sum().item())
 
 
-def _k3_entry(torch, prio, parity, solve_err):
+def _k3_entry(torch, prio, parity, solve_err, registers):
     """K3 on the f32 priority server's own tables, at a representative
     theta evaluation (grouped rows at theta = 0.5): against the plain
-    version, timed beside it, and the whole grouped solve of one tick
-    (K3 path against the plain solve, timed)."""
+    version, timed beside it and beside the block-per-row layout
+    launched on the same tables (in turns: block, warp, warp, block),
+    and the whole grouped solve of one tick (K3 path against the plain
+    solve, timed)."""
     from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
     from doorman_tpu_torch.solver import dense_cuda
     from doorman_tpu_torch.solver.priority import (
@@ -1046,7 +1134,11 @@ def _k3_entry(torch, prio, parity, solve_err):
         alloc_evaluations,
         solve_priority,
     )
-    from doorman_tpu_torch.solver.priority_cuda import alloc_banded_k3
+    from doorman_tpu_torch.solver.priority_cuda import (
+        _launch_layout,
+        alloc_banded_k3,
+        k3_layout,
+    )
 
     snap = prio["server"]._solver.last_snapshot
     b, nb = snap.batch, snap.num_bands
@@ -1066,13 +1158,31 @@ def _k3_entry(torch, prio, parity, solve_err):
     srel = ((ks.double() - ps.double()).abs()
             / b.capacity.double().clamp_min(1e-30)[:, None]).max().item()
     check(srel <= K3_SOLVE_RTOL, f"grouped solve vs plain {srel:.3g} (server)")
-    ms = _time_ms(torch, lambda: alloc_banded_k3(*args))
+    R, K = wants.shape
+    check(k3_layout(K) == "warp", f"the server's K = {K} is not a warp row")
+    block = _launch_layout("block", *args, False)[0]
+    brel = _k3_rel(torch, block, plain, wants, b.active, eff)
+    check(brel <= F32_PARITY_REL_BOUND, f"K3 block layout vs plain {brel:.3g}")
+
+    def run_warp():
+        return alloc_banded_k3(*args)
+
+    def run_block():
+        return _launch_layout("block", *args, False)
+
+    turns = [_time_ms(torch, fn, reps=50, queued=True)
+             for fn in (run_block, run_warp, run_warp, run_block)]
+    ms = (turns[1] + turns[2]) / 2
+    block_ms = (turns[0] + turns[3]) / 2
+    check(ms < block_ms,
+          f"K3 warp layout {ms:.4f} ms not below the block layout's "
+          f"{block_ms:.4f} ms")
+    wrapper_ms = _time_ms(torch, run_warp)
     pms = _time_ms(torch, lambda: _alloc_banded(*args), reps=3)
     solve_ms = _time_ms(
         torch, lambda: solve_priority(b, nb, use_kernel=True), reps=3
     )
     dense_cuda.LAUNCHES.update(saved)  # comparison and timing launches
-    R, K = wants.shape
     it = wants.element_size()
     nbytes = R * K * (2 * it + 4 + 1) + R * K * it + R * it
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
@@ -1088,9 +1198,12 @@ def _k3_entry(torch, prio, parity, solve_err):
         "num_bands": nb,
         "launches_per_tick": alloc_evaluations(wants.dtype, True),
         "solve_priority_ms": solve_ms, "server_rel_err": rel,
-        "server_solve_rel_err": srel,
-        "parity_rel_err": {str(k)[6:]: v for k, v in parity.items()},
-        "solve_rel_err": solve_err,
+        "server_solve_rel_err": srel, "layout": k3_layout(K),
+        "block_ms": block_ms, "turns_ms": turns, "wrapper_ms": wrapper_ms,
+        "block_rel_err": brel,
+        "parity_rel_err": {f"{d} {lay}": v for (d, lay), v in parity.items()},
+        "solve_rel_err": solve_err, "registers": {
+            n: u["registers"] for n, u in sorted(registers.items())},
     }
 
 
@@ -1197,7 +1310,7 @@ def main() -> int:
     t0 = time.perf_counter()
     try:
         name, card = phase_device(torch)
-        phase_build()
+        registers = phase_build()
         worst = phase_kernels(torch)
         worst3, solve_err = phase_kernels_k3(torch)
         servers, prio = phase_server(torch, card)
@@ -1206,7 +1319,9 @@ def main() -> int:
             torch, servers["f32"]["server"], tracked,
             servers["f32"]["launches"], worst,
         )
-        line["kernels"].append(_k3_entry(torch, prio["f32"], worst3, solve_err))
+        line["kernels"].append(
+            _k3_entry(torch, prio["f32"], worst3, solve_err, registers)
+        )
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,6 +1,8 @@
 // Dense solve kernels for Hopper (sm_90a): K1 (the lane solve), K2 (the
 // lane solve fused with the delivered-grant delta epilogue) and K3 (the
-// banded water-fill of the priority solve, further below).
+// banded water-fill of the priority solve, further below, in two
+// layouts: a warp per row for rows of up to 256 lanes, a block per row
+// above).
 //
 // Replaces the TPU Pallas kernels doorman_tpu/solver/pallas_dense.py
 // `_kernel` (K1, reached through solve_dense_pallas) and `_fused_kernel`
@@ -493,7 +495,9 @@ int launch(Inputs in, const void* rows, void* out, const void* prev,
 //
 // Replaces the TPU Pallas kernel doorman_tpu/solver/pallas_priority.py
 // `_make_kernel(num_bands)` (reached through alloc_banded_pallas); the
-// wrapper is solver/priority_cuda.py `alloc_banded_k3`. Per row r, for
+// wrapper is solver/priority_cuda.py `alloc_banded_k3`, which launches
+// this block-per-row layout for rows wider than kWarpMaxK lanes and
+// banded_fill_warp_kernel (below) up to that width. Per row r, for
 // rank 0..num_bands-1: mask m = active & band == rank; if the band's
 // wants fit the remaining capacity every member gets its wants, else
 // min(wants, level * weight) at the band's weighted max-min level
@@ -613,6 +617,197 @@ int launch_k3(const void* wants, const void* weights, const void* band,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- K3 for narrow rows: one warp per row.
+//
+// The same function as banded_fill_kernel (the TPU kernel it replaces is
+// doorman_tpu/solver/pallas_priority.py:32 `_make_kernel`), for rows of
+// up to kWarpMaxK = 256 lanes; priority_cuda.k3_layout picks the layout
+// from K.
+//
+// What bounds it on this card: not the bytes. One launch over a
+// 10,000 x 128 f32 table reads 22 MB once (0.0065 ms at 3.35 TB/s, and
+// across the grouped solve's 38 launches the table stays in the 50 MB
+// L2). The time goes to a chain of dependent reductions: each band that
+// overflows runs a max, 30 (f32) or 48 (f64) bisection sums and two
+// paired snap sums. In the block-per-row layout each is a block
+// reduction with two __syncthreads and a round trip through shared
+// memory — some 300 barriers a row with 4 bands, on 128 threads that
+// hold one element each. Here each is V elementwise steps and five
+// shuffles; what is left is issuing those instructions. On an H100
+// 80GB HBM3 at 700 W, chip_smoke.py timed this layout at 0.0735 ms and
+// the block layout at 0.2504 ms on the same 10,000 x 128 f32 tables.
+//
+// Design: one warp per row, kRowsPerBlock = 8 rows to a 256-thread
+// block, grid = ceil(R / 8). Lane l holds elements j = l + 32 v,
+// 0 <= v < V, V = ceil(K / 32) rounded up to 1, 2, 4 or 8 (a template
+// parameter), so each v is one coalesced load for the warp. Registers
+// only: the lane's band ranks (-1 for an inactive lane or one past K,
+// so the band mask is one compare), its grants, and the current band's
+// masked wants and weights, read from memory when the band comes up —
+// each element belongs to one band, so each is still read once, and the
+// row's wants and weights need no registers of their own (holding them
+// too, ptxas spills at f64 V = 4). Every reduction — the band sum, the
+// max ratio, each bisection sum, the two snaps' paired sums, the taken
+// share, the row total — is the lane's left-to-right partial over v
+// followed by warp_sum / warp_max's xor butterfly, which leaves the
+// same value on every lane in a fixed order: no shared memory, no
+// __syncthreads, no atomics, so repeat launches are bit-identical, and
+// every branch on a reduced value is uniform across the warp. The level
+// finder repeats waterfill_level's arithmetic step for step
+// (NaN-propagating nmin/nmax, -fmad=false) and runs only for a band
+// that overflows; against banded_fill_kernel only the order of the sums
+// differs. Lanes past K hold zeros and are kept out of the bisection
+// sums (whose min(w, mid * s) is NaN for a zero weight once mid
+// overflows, as the plain version's is on a real lane).
+//
+// Wide rows keep banded_fill_kernel: a warp holding a row of 4,096 f64
+// lanes would need 128 values a lane for each array, far past the 255
+// registers a thread may have, while the block layout stages up to
+// 227 KB of the row in shared memory.
+//
+// Registers (ptxas -v for sm_90a, printed by chip_smoke.py's build
+// phase): 30, 30, 40 and 64 at f32 for V = 1, 2, 4, 8; 40, 48, 62 and
+// 100 at f64; no spills. At 40 (the main path's f32 V = 4) six blocks,
+// 48 warps, fit on an SM, and 10,000 rows take about 1.6 waves.
+constexpr int kWarpMaxK = 256;
+constexpr int kRowsPerBlock = 8;
+
+// waterfill_level on one warp's registers: w and s are the band's
+// masked wants and weights; bit v of `members` says whether element v
+// is in the band, bit v of `inside` whether it lies within the row.
+template <typename T, int V>
+__device__ __forceinline__ T warp_waterfill_level(const T (&w)[V],
+                                                  const T (&s)[V],
+                                                  uint32_t members,
+                                                  uint32_t inside, T cap) {
+  const T zero = T(0), tiny = Num<T>::tiny();
+  T mr = -INFINITY;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const T ratio = s[v] > zero ? w[v] / nmax(s[v], tiny) : zero;
+    mr = nmax(mr, (members >> v) & 1u ? ratio : T(-INFINITY));
+  }
+  T max_ratio = warp_max(mr);
+  if (!isfinite(max_ratio)) max_ratio = zero;
+  T lo = zero, hi = nmax(max_ratio, zero);
+  for (int it = 0; it < Num<T>::kBisect; ++it) {
+    const T mid = (lo + hi) * T(0.5);
+    T acc = zero;
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      acc += (inside >> v) & 1u ? nmin(w[v], mid * s[v]) : zero;
+    if (warp_sum(acc) < cap) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  T level = hi;
+  for (int it = 0; it < kRefineIters; ++it) {
+    T sat_w = zero, unsat = zero;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const bool sat = w[v] <= level * s[v];
+      sat_w += sat ? w[v] : zero;
+      unsat += sat ? zero : s[v];
+    }
+    sat_w = warp_sum(sat_w);
+    unsat = warp_sum(unsat);
+    const T exact = unsat > zero ? (cap - sat_w) / nmax(unsat, tiny) : level;
+    level = nmax(exact, zero);
+  }
+  return level;
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kRowsPerBlock * 32)
+    banded_fill_warp_kernel(const T* __restrict__ wants,
+                            const T* __restrict__ weights,
+                            const int32_t* __restrict__ band,
+                            const uint8_t* __restrict__ active,
+                            const T* __restrict__ eff_cap,
+                            T* __restrict__ gets, T* __restrict__ totals,
+                            int n_rows, int K, int num_bands) {
+  const int64_t b =
+      static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
+  // The whole warp leaves together, so every shuffle below is full-warp.
+  if (b >= n_rows) return;
+  const int lane = threadIdx.x & 31;
+  const T zero = T(0);
+  const int64_t off = b * K;
+  T g[V];
+  int32_t bd[V];
+  uint32_t inside = 0;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int j = lane + 32 * v;
+    const bool a = j < K && active[off + j] != 0;
+    inside |= static_cast<uint32_t>(j < K) << v;
+    bd[v] = a ? band[off + j] : -1;
+    g[v] = zero;
+  }
+  T remaining = eff_cap[b];
+  for (int rank = 0; rank < num_bands; ++rank) {
+    // The band's wants and weights are read when its rank comes up:
+    // an element belongs to one band, so each is read once.
+    T w[V], s[V];
+    uint32_t members = 0;
+    T sumw = zero;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const bool m = bd[v] == rank;
+      members |= static_cast<uint32_t>(m) << v;
+      w[v] = m ? wants[off + lane + 32 * v] : zero;
+      s[v] = m ? weights[off + lane + 32 * v] : zero;
+      sumw += w[v];
+    }
+    const bool fits = warp_sum(sumw) <= remaining;
+    const T level = fits ? zero
+                         : warp_waterfill_level<T, V>(w, s, members, inside,
+                                                      remaining);
+    T taken = zero;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const T share = (members >> v) & 1u
+                          ? (fits ? w[v] : nmin(w[v], level * s[v]))
+                          : zero;
+      g[v] = g[v] + share;
+      taken += share;
+    }
+    remaining = nmax(remaining - warp_sum(taken), zero);
+  }
+  T total = zero;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    if ((inside >> v) & 1u) gets[off + lane + 32 * v] = g[v];
+    total += g[v];
+  }
+  if (totals != nullptr) {
+    total = warp_sum(total);
+    if (lane == 0) totals[b] = total;
+  }
+}
+
+template <typename T>
+int launch_k3_warp(const void* wants, const void* weights, const void* band,
+                   const void* active, const void* eff_cap, void* gets,
+                   void* totals, int n_rows, int K, int num_bands,
+                   void* stream) {
+  if (n_rows <= 0 || K <= 0) return 0;
+  if (K > kWarpMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = K <= 32   ? banded_fill_warp_kernel<T, 1>
+                : K <= 64  ? banded_fill_warp_kernel<T, 2>
+                : K <= 128 ? banded_fill_warp_kernel<T, 4>
+                           : banded_fill_warp_kernel<T, 8>;
+  const int grid = (n_rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  kernel<<<grid, kRowsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(wants), static_cast<const T*>(weights),
+      static_cast<const int32_t*>(band), static_cast<const uint8_t*>(active),
+      static_cast<const T*>(eff_cap), static_cast<T*>(gets),
+      static_cast<T*>(totals), n_rows, K, num_bands);
+  return static_cast<int>(cudaGetLastError());
+}
+
 Inputs make_inputs(const void* wants, const void* has, const void* sub,
                    const void* act, const void* cap, const void* kind,
                    const void* learn, const void* statc) {
@@ -658,14 +853,16 @@ Inputs make_inputs(const void* wants, const void* has, const void* sub,
   }
 
 // K3: grants of every row of [n_rows, K] into gets, and (when totals is
-// not null) each row's grant total into totals[n_rows].
-#define DSK_K3(NAME, T)                                                      \
+// not null) each row's grant total into totals[n_rows]; LAUNCH is the
+// block-per-row layout (launch_k3) or the warp-per-row one
+// (launch_k3_warp, K <= 256).
+#define DSK_K3(NAME, LAUNCH, T)                                              \
   extern "C" int NAME(const void* wants, const void* weights,               \
                       const void* band, const void* active,                 \
                       const void* eff_cap, void* gets, void* totals,        \
                       int n_rows, int K, int num_bands, void* stream) {     \
-    return launch_k3<T>(wants, weights, band, active, eff_cap, gets,         \
-                        totals, n_rows, K, num_bands, stream);               \
+    return LAUNCH<T>(wants, weights, band, active, eff_cap, gets, totals,    \
+                     n_rows, K, num_bands, stream);                          \
   }
 
 DSK_K1(dsk_k1_f32, float)
@@ -674,5 +871,7 @@ DSK_K2(dsk_k2_f32_f32, float, float)
 DSK_K2(dsk_k2_f32_bf16, float, __nv_bfloat16)
 DSK_K2(dsk_k2_f64_f64, double, double)
 DSK_K2(dsk_k2_f64_bf16, double, __nv_bfloat16)
-DSK_K3(dsk_k3_f32, float)
-DSK_K3(dsk_k3_f64, double)
+DSK_K3(dsk_k3_block_f32, launch_k3, float)
+DSK_K3(dsk_k3_block_f64, launch_k3, double)
+DSK_K3(dsk_k3_warp_f32, launch_k3_warp, float)
+DSK_K3(dsk_k3_warp_f64, launch_k3_warp, double)

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -53,8 +54,12 @@ NVCC_FLAGS = [
     # Each elementwise expression rounds exactly as the plain version's:
     # no fused multiply-add contraction, no fast math.
     "-fmad=false",
+    # ptxas's report of each kernel's registers and spills, kept beside
+    # the library (PTXAS_LOG, read by ptxas_usage).
+    "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 ]
+PTXAS_LOG = BUILD_DIR / "libdense_solve.ptxas.txt"
 
 _lock = threading.Lock()
 _lib = None
@@ -94,11 +99,39 @@ def build() -> Path:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
             )
+        PTXAS_LOG.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, LIBRARY)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return LIBRARY
+
+
+def ptxas_usage(text: "str | None" = None) -> dict:
+    """{kernel entry (mangled name): {"registers", "spill_stores",
+    "spill_loads"}} from ptxas's `-v` report (`text`, or the last
+    build's PTXAS_LOG); spills are in bytes."""
+    if text is None:
+        text = PTXAS_LOG.read_text()
+    out, entry = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {"registers": None, "spill_stores": None,
+                          "spill_loads": None}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[entry]["spill_stores"] = int(m.group(1))
+            out[entry]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+    return out
 
 
 def _load():
@@ -115,7 +148,8 @@ def _load():
                 fn = getattr(lib, name)
                 fn.restype = _I
                 fn.argtypes = [_P] * 13 + [_I, _I, _P]
-            for name in ("dsk_k3_f32", "dsk_k3_f64"):
+            for name in ("dsk_k3_block_f32", "dsk_k3_block_f64",
+                         "dsk_k3_warp_f32", "dsk_k3_warp_f64"):
                 fn = getattr(lib, name)
                 fn.restype = _I
                 fn.argtypes = [_P] * 7 + [_I, _I, _I, _P]

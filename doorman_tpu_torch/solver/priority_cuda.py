@@ -8,6 +8,12 @@ version; given CUDA tensors it launches K3 (hand-written CUDA C++ for
 sm_90a in csrc/dense_solve.cu, built and bound by solver.dense_cuda)
 and raises on a build or launch failure — nothing falls back. Each
 launch adds one to dense_cuda.LAUNCHES["k3"].
+
+K3 has two layouts, chosen from the row width by `k3_layout`: rows of
+up to WARP_MAX_K lanes run one warp per row with the row in registers
+(`banded_fill_warp_kernel`); wider rows run one block per row with the
+row staged in shared memory (`banded_fill_kernel`), which bounds the
+width `_check` admits.
 """
 
 from __future__ import annotations
@@ -21,12 +27,22 @@ from doorman_tpu_torch.utils.backend import require_hopper
 
 # Dynamic shared memory one block may use on Hopper (227 KB).
 SMEM_LIMIT = 232_448
+# The widest row the warp-per-row layout takes (csrc/dense_solve.cu
+# kWarpMaxK: 8 elements a lane).
+WARP_MAX_K = 256
+
+
+def k3_layout(K: int) -> str:
+    """"warp" (one warp per row, the row in registers) for rows of up to
+    WARP_MAX_K lanes, "block" (one block per row, the row in shared
+    memory) above."""
+    return "warp" if K <= WARP_MAX_K else "block"
 
 
 def k3_smem_bytes(K: int, itemsize: int) -> int:
-    """Shared memory K3 stages one row in (csrc/dense_solve.cu
-    k3_smem_for): five [K] value arrays, 64 reduction slots, the [K]
-    band ranks and two [K] masks."""
+    """Shared memory K3's block layout stages one row in
+    (csrc/dense_solve.cu k3_smem_for): five [K] value arrays, 64
+    reduction slots, the [K] band ranks and two [K] masks."""
     return 5 * K * itemsize + 64 * itemsize + 6 * K
 
 
@@ -76,20 +92,34 @@ def alloc_banded_k3(
     if dev.type != "cuda":
         raise ValueError(f"no K3 kernel for device {dev}")
     _check(wants, weights, band, active, eff_cap)
-    R, K = wants.shape
     require_hopper(dev)
+    gets, tot = _launch_layout(
+        k3_layout(wants.shape[1]), wants, weights, band, active, eff_cap,
+        num_bands, totals,
+    )
+    dense_cuda.LAUNCHES["k3"] += 1
+    return (gets, tot) if totals else gets
+
+
+def _launch_layout(layout, wants, weights, band, active, eff_cap,
+                   num_bands, totals):
+    """One launch of K3's `layout` ("warp" or "block") on tensors that
+    `_check` passed: (gets, row totals or None). Counts nothing: the
+    wrapper counts its own launch, and a comparison of the two layouts
+    calls this directly."""
+    R, K = wants.shape
+    dev = wants.device
     lib = dense_cuda._load()
     gets = torch.empty((R, K), dtype=wants.dtype, device=dev)
     tot = (
         torch.empty(R, dtype=wants.dtype, device=dev) if totals else None
     )
-    fn = getattr(lib, f"dsk_k3_{dense_cuda._DT[wants.dtype]}")
+    fn = getattr(lib, f"dsk_k3_{layout}_{dense_cuda._DT[wants.dtype]}")
     err = fn(
         wants.data_ptr(), weights.data_ptr(), band.data_ptr(),
         active.data_ptr(), eff_cap.data_ptr(), gets.data_ptr(),
         tot.data_ptr() if tot is not None else None,
         R, K, int(num_bands), torch.cuda.current_stream(dev).cuda_stream,
     )
-    dense_cuda._raise_on(err, "K3")
-    dense_cuda.LAUNCHES["k3"] += 1
-    return (gets, tot) if totals else gets
+    dense_cuda._raise_on(err, f"K3 ({layout} layout)")
+    return gets, tot
