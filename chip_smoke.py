@@ -13,11 +13,13 @@ answering GetCapacity / ReleaseCapacity / Discovery over loopback gRPC —
 then the same server with PRIORITY_BANDS resources in capacity groups
 beside lane resources (the BatchSolver's grouped solve, kernel K3, in
 the same tick as the resident K1 solve), and the delta-tracked full
-tick, and checks what comes out. K3's two layouts (a warp per row up to
-256 lanes, a block per row above) are each held against the plain
-version at widths on both sides of that line, and against each other.
-Kernel launch counters are zeroed just before each path is driven and
-read just after.
+tick, and checks what comes out. Every kernel has two layouts (a warp
+per row up to 256 lanes, a block per row above); each layout of K1, K2
+and K3 is held against the plain version at widths on both sides of
+that line, and the two against each other. Kernel launch counters are
+zeroed just before each path is driven and read just after. Last, the
+f32 lane server runs again on four churn seeds with K1/K2 in each
+layout, and the rows left in the scoped tick's frontier are reported.
 
 Prints one line per phase, the card's name and power limit, one JSON line
 of per-kernel measurements, and last the JSON result line. Exits non-zero
@@ -29,7 +31,6 @@ from __future__ import annotations
 
 import asyncio
 import json
-import re
 import subprocess
 import sys
 import threading
@@ -145,25 +146,29 @@ def phase_build():
     say("phase build: " + ", ".join(
         f"{k} {v:.1f}s" for k, v in sorted(secs.items())
     ) + f" (wall {time.perf_counter() - t0:.1f}s)")
-    # K3's registers and spills as ptxas reported them; the warp layout
-    # holds its row in registers and must not spill.
-    k3 = {}
+    # Every kernel entry's registers and spills as ptxas reported them;
+    # the warp layouts hold their rows in registers and must not spill.
+    usage, unknown = {}, []
     for entry, use in dense_cuda.ptxas_usage().items():
-        m = re.search(r"(banded_fill_warp_kernel|banded_fill_kernel)I([fd])"
-                      r"(?:Li(\d+)E)?", entry)
-        if m:
-            layout = "warp" if "warp" in m.group(1) else "block"
-            name = f"{layout} {'f32' if m.group(2) == 'f' else 'f64'}" + (
-                f" V={m.group(3)}" if m.group(3) else "")
-            k3[name] = use
-    say("phase build: K3 ptxas " + ", ".join(
-        f"{n} {u['registers']} registers, {u['spill_stores']}/"
-        f"{u['spill_loads']} B spilled" for n, u in sorted(k3.items())))
-    check(len(k3) == 10, f"ptxas reported {sorted(k3)} for K3")
-    spills = [n for n, u in k3.items() if n.startswith("warp")
+        label = dense_cuda.entry_label(entry)
+        if label is None:
+            unknown.append(entry)
+        else:
+            usage[label] = use
+    for kern in ("K1", "K2", "K3"):
+        say(f"phase build: {kern} ptxas " + ", ".join(
+            f"{n[3:]} {u['registers']} registers, {u['spill_stores']}/"
+            f"{u['spill_loads']} B spilled"
+            for n, u in sorted(usage.items()) if n.startswith(kern)))
+    # K1: 2 block + 8 warp (f32/f64, V = 1/2/4/8); K2: twice K1's, one
+    # per prev type; K3: 2 block + 8 warp.
+    counts = {k: sum(n.startswith(k) for n in usage) for k in ("K1", "K2", "K3")}
+    check(counts == {"K1": 10, "K2": 20, "K3": 10},
+          f"ptxas reported {counts} kernel entries; unlabelled: {unknown}")
+    spills = [n for n, u in usage.items() if " warp " in n
               and (u["spill_stores"] or u["spill_loads"])]
-    check(not spills, f"K3 warp layout spills: {spills}")
-    return k3
+    check(not spills, f"warp layout spills: {spills}")
+    return usage
 
 
 # -- phase 3: kernel parity -------------------------------------------------
@@ -175,6 +180,7 @@ def _parity_batch(torch, rng, R, K, dtype):
 
     n = rng.integers(1, K + 1, R)  # every row padded past its clients
     act = np.arange(K)[None, :] < n[:, None]
+    act[0] = False  # a wholly inactive row
     wants = rng.random((R, K)) * 100
     has = rng.random((R, K)) * 50
     sub = rng.integers(1, 4, (R, K)).astype(np.float64)
@@ -185,7 +191,7 @@ def _parity_batch(torch, rng, R, K, dtype):
     statc = rng.random(R) * 60
     return tables_from_numpy(
         wants * act, has * act, sub * act, act, cap, kind, learn, statc,
-        has * act, device="cuda", dtype=dtype,
+        has * act, device=DEVICE, dtype=dtype,
     )
 
 
@@ -227,35 +233,51 @@ def _check_k2(torch, batch, prev, delivered, where):
 
 
 def phase_kernels(torch):
+    """K1 and K2 against their plain versions on the same CUDA tensors —
+    the warp layout at K = 8, 100, 128, 256, the block layout at K = 257
+    and 4096, f32 and f64, every lane kind with fitting and overflowing
+    rows — with repeat launches bit-identical, the gather form equal to
+    the full form's rows, K2's grants equal to K1's and its changed /
+    prev_new exact for prev in the solve dtype and bfloat16; then the two
+    layouts against each other on one K = 128 table. Comparison
+    launches: not counted."""
     import numpy as np
 
     from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
     from doorman_tpu_torch.solver import dense_cuda
     from doorman_tpu_torch.solver.dense import solve_dense
 
+    saved = dict(dense_cuda.LAUNCHES)
     rng = np.random.default_rng(2024)
-    worst = {torch.float32: 0.0, torch.float64: 0.0}
-    for K in (8, 128, 4096):
+    worst = {}
+    for K in (8, 100, 128, 256, 257, 4096):
         R = 96 if K == 4096 else 1024
+        layout = dense_cuda.k1_layout(K)
         for dtype in (torch.float32, torch.float64):
+            tag = f"K={K} {str(dtype)[6:]} {layout} layout"
             batch, prev = _parity_batch(torch, rng, R, K, dtype)
             g1 = dense_cuda.solve_dense_k1(batch)
             g2 = dense_cuda.solve_dense_k1(batch)
             plain = solve_dense(batch)
             torch.cuda.synchronize()
-            check(torch.equal(g1, g2), f"K1 not deterministic (K={K} {dtype})")
-            check(bool(torch.isfinite(g1).all()), f"K1 non-finite (K={K})")
+            check(torch.equal(g1, g2), f"K1 not deterministic ({tag})")
+            check(bool(torch.isfinite(g1).all()), f"K1 non-finite ({tag})")
+            check(not bool(g1[0].any()), f"K1 grants on an inactive row ({tag})")
             err = _rel_err(torch, g1, plain, batch)
             bound = F32_PARITY_REL_BOUND if dtype == torch.float32 else F64_RTOL
-            check(err <= bound,
-                  f"K1 vs plain {err:.3g} > {bound:g} (K={K} {dtype})")
-            worst[dtype] = max(worst[dtype], err)
+            check(err <= bound, f"K1 vs plain {err:.3g} > {bound:g} ({tag})")
+            key = (str(dtype)[6:], layout)
+            worst[key] = max(worst.get(key, 0.0), err)
+            over = (torch.where(batch.active, batch.wants, 0).sum(1)
+                    > batch.capacity)
+            check(bool(over.any()) and not bool(over.all()),
+                  f"K1 parity input degenerate ({tag})")
             rows = torch.from_numpy(
                 rng.permutation(R)[: R // 3].astype(np.int32)
             ).cuda()
             check(torch.equal(dense_cuda.solve_dense_k1(batch, rows=rows),
                               g1[rows.long()]),
-                  f"K1 row-gather form disagrees (K={K})")
+                  f"K1 row-gather form disagrees ({tag})")
             delivered = torch.from_numpy(rng.random(R) < 0.5).cuda()
             for pdt in (dtype, torch.bfloat16):
                 p = prev.to(pdt)
@@ -264,19 +286,46 @@ def phase_kernels(torch):
                     batch, p, delivered
                 )
                 out = g1.to(pdt)
-                check(torch.equal(gets, g1), f"K2 gets != K1 (K={K} {pdt})")
+                check(torch.equal(gets, g1), f"K2 gets != K1 ({tag} {pdt})")
                 check(torch.equal(
                     changed, delivered & (out != p).any(dim=1)
-                ), f"K2 changed mask wrong (K={K} {pdt})")
+                ), f"K2 changed mask wrong ({tag} {pdt})")
                 check(torch.equal(
                     prev_new, torch.where(delivered[:, None], out, p)
-                ), f"K2 prev_new wrong (K={K} {pdt})")
+                ), f"K2 prev_new wrong ({tag} {pdt})")
                 check(bool(changed.any()) and not bool(changed.all()),
-                      f"K2 parity input degenerate (K={K})")
-            say(f"phase kernels: K={K} {str(dtype)[6:]} R={R}: K1 vs plain "
-                f"max rel err {err:.3g} (bound {bound:g}), repeat "
-                f"bit-identical, K2 gets==K1 and changed/prev_new exact "
-                f"for {str(dtype)[6:]} and bfloat16 prev")
+                      f"K2 parity input degenerate ({tag})")
+            say(f"phase kernels: {tag} R={R}: K1 vs plain max rel err "
+                f"{err:.3g} (bound {bound:g}), {over.float().mean().item():.0%}"
+                f" rows overloaded, repeat bit-identical, gather form == full"
+                f" rows, K2 gets==K1 and changed/prev_new exact for "
+                f"{str(dtype)[6:]} and bfloat16 prev")
+    # The two layouts on one K = 128 table: within the same bounds (not
+    # bit-equal: their sums run in other orders); each layout's K2 gets
+    # equal to its own K1.
+    for dtype in (torch.float32, torch.float64):
+        bound = F32_PARITY_REL_BOUND if dtype == torch.float32 else F64_RTOL
+        batch, prev = _parity_batch(torch, rng, 1024, 128, dtype)
+        delivered = torch.from_numpy(rng.random(1024) < 0.5).cuda()
+        gw = dense_cuda._launch_k1("warp", batch)
+        gb = dense_cuda._launch_k1("block", batch)
+        kw = dense_cuda._launch_k2("warp", batch, prev, delivered)[0]
+        kb = dense_cuda._launch_k2("block", batch, prev, delivered)[0]
+        plain = solve_dense(batch)
+        torch.cuda.synchronize()
+        tag = f"K=128 {str(dtype)[6:]}"
+        lerr = _rel_err(torch, gw, gb, batch)
+        berr = _rel_err(torch, gb, plain, batch)
+        check(berr <= bound, f"K1 block layout vs plain {berr:.3g} ({tag})")
+        check(lerr <= bound, f"K1 warp vs block layout {lerr:.3g} ({tag})")
+        check(torch.equal(kw, gw) and torch.equal(kb, gb),
+              f"K2 gets != K1 of the same layout ({tag})")
+        key = (str(dtype)[6:], "block")
+        worst[key] = max(worst.get(key, 0.0), berr)
+        say(f"phase kernels: {tag}: K1 warp vs block layout {lerr:.3g}, "
+            f"block vs plain {berr:.3g} (bound {bound:g}), each layout's K2 "
+            f"gets == its K1")
+    dense_cuda.LAUNCHES.update(saved)
     return worst
 
 
@@ -598,7 +647,7 @@ async def _drive_server(torch, dtype_name, ticks, quiet, seed):
             f"{server._store_engine.total_leases} leases populated in "
             f"{time.perf_counter() - t:.1f}s")
         dense_cuda.reset_launches()  # the main path starts here
-        walls, modes = [], []
+        walls, modes, scopes = [], [], []
         for i in range(ticks + quiet):
             if i < ticks:
                 _churn(server._store_engine, rng, rids, cids)
@@ -606,11 +655,12 @@ async def _drive_server(torch, dtype_name, ticks, quiet, seed):
             await server.tick_once()
             walls.append(time.perf_counter() - t)
             modes.append(server._resident.last_solve_mode)
+            scopes.append(server._resident.last_scope["rows"])
         await server.flush_ticks()
         torch.cuda.synchronize()
         launches = dict(dense_cuda.LAUNCHES)  # read just after
         served = await _requests(torch, server, port, resources)
-        return server, resources, walls, modes, launches, served
+        return server, resources, walls, modes, scopes, launches, served
     finally:
         await server.stop()
 
@@ -692,12 +742,26 @@ def _check_server_grants(torch, server, resources):
     return err, worst, settling
 
 
+def _frontier(server):
+    """(rows in the scope frontier, lane rows, {kind name: frontier
+    rows}) of a server's resident solver."""
+    import numpy as np
+
+    from doorman_tpu_torch.algorithms.kinds import AlgoKind
+
+    solver = server._resident
+    ids = solver._scope.ids()
+    kinds, counts = np.unique(solver._config.kind_h[ids], return_counts=True)
+    by_kind = {AlgoKind(int(k)).name: int(n) for k, n in zip(kinds, counts)}
+    return len(ids), solver._R, by_kind
+
+
 async def _servers(torch, card):
     out = {}
     for dtype_name, ticks, quiet, seed in (
         ("f32", TICKS, QUIET_TICKS, 1), ("f64", F64_TICKS, QUIET_TICKS, 2),
     ):
-        server, resources, walls, modes, launches, served = (
+        server, resources, walls, modes, scopes, launches, served = (
             await _drive_server(torch, dtype_name, ticks, quiet, seed)
         )
         check(launches["k1"] > 0, f"{dtype_name}: K1 never launched")
@@ -715,6 +779,17 @@ async def _servers(torch, card):
             f"{oracle_err:.3g}, {served} requests answered, store == "
             f"device grants on converged rows ({settling} of 400 sampled "
             f"still in scope); card {card}")
+        # The rows the scoped ticks solve: the churned rows' closure plus
+        # the frontier of rows not yet at their fixpoint (which the sum
+        # order of K1's layout may move: reported, not checked).
+        frontier, n_rows, by_kind = _frontier(server)
+        scoped = [n for n, m in zip(scopes, modes) if m == "scoped"]
+        say(f"phase server[{dtype_name}]: lane rows in scope: frontier "
+            f"after the quiet ticks {frontier} of {n_rows} "
+            f"({frontier / max(n_rows, 1):.1%}; {by_kind}); scoped ticks "
+            f"solved {sum(scoped) / max(len(scoped), 1):.0f} rows on "
+            f"average (last quiet tick {scopes[-1]}); {settling} of 400 "
+            f"sampled rows in scope")
         phases = server._resident.phase_s
         say(f"phase server[{dtype_name}]: host phase ms per tick: " + ", ".join(
             f"{k} {v * 1000.0 / len(walls):.3f}"
@@ -1057,6 +1132,58 @@ def phase_tracked(torch, server):
     return launches
 
 
+# -- phase 6: the scope frontier under each K1 layout -------------------------
+
+FRONTIER_SEEDS = (1, 2, 3, 4)
+
+
+def phase_frontier(torch):
+    """The f32 lane server again on churn seeds FRONTIER_SEEDS, once with
+    K1/K2 in the warp layout and once forced to the block layout, in
+    turns (block first on odd seeds). The two layouts add a row in
+    different orders, and the rows still in scope after the quiet ticks
+    — overloaded proportional rows whose grant moves by an ulp a tick —
+    depend on the last bits of those sums. Reported, not checked:
+    {layout: [(frontier rows, rows per scoped tick, churn tick p50 ms)
+    per seed]}."""
+    from doorman_tpu_torch.solver import dense_cuda
+
+    chosen = dense_cuda.k1_layout
+    out = {"warp": [], "block": []}
+
+    async def drive():
+        for seed in FRONTIER_SEEDS:
+            order = ("block", "warp") if seed % 2 else ("warp", "block")
+            for layout in order:
+                dense_cuda.k1_layout = lambda K, layout=layout: layout
+                try:
+                    server, _r, walls, modes, scopes, launches, _s = (
+                        await _drive_server(torch, "f32", TICKS, QUIET_TICKS,
+                                            seed))
+                finally:
+                    dense_cuda.k1_layout = chosen
+                check(launches["k1"] > 0, f"{layout}: K1 never launched")
+                frontier, n_rows, by_kind = _frontier(server)
+                scoped = [n for n, m in zip(scopes, modes) if m == "scoped"]
+                per_tick = sum(scoped) / max(len(scoped), 1)
+                p50, _p95 = _pcts(walls[2:TICKS])
+                out[layout].append((frontier, per_tick, p50))
+                say(f"phase frontier: seed {seed} K1 {layout} layout: "
+                    f"frontier {frontier} of {n_rows} ({by_kind}), scoped "
+                    f"ticks solved {per_tick:.0f} rows on average, churn "
+                    f"tick p50 {p50:.2f} ms")
+
+    asyncio.run(drive())
+    w = [f for f, _n, _t in out["warp"]]
+    b = [f for f, _n, _t in out["block"]]
+    faster = sum(tb < tw for (_f, _n, tw), (_g, _m, tb)
+                 in zip(out["warp"], out["block"]))
+    say(f"phase frontier: frontier rows warp {w} block {b} (warp larger on "
+        f"{sum(x > y for x, y in zip(w, b))} of {len(w)} seeds); churn tick "
+        f"p50 lower with the block layout on {faster} of {len(w)} seeds")
+    return out
+
+
 # -- the kernels' JSON line --------------------------------------------------
 
 def _time_ms(torch, fn, reps=20, queued=False):
@@ -1080,8 +1207,9 @@ def _time_ms(torch, fn, reps=20, queued=False):
 
 def _ops(torch, batch):
     """Floating-point operations the lane solve needs on these inputs,
-    counted per lane element by the row's lane and load (overloaded
-    iterative rows run their bounded loops; fitting rows do not)."""
+    per row ([R] float64), counted per lane element by the row's lane
+    and load (overloaded iterative rows run their bounded loops; fitting
+    rows do not)."""
     K = batch.wants.shape[1]
     n = batch.active.sum(dim=1).double()
     kind = batch.algo_kind
@@ -1096,7 +1224,28 @@ def _ops(torch, batch):
     per += torch.where((kind == 8) & over, 9 * 6.0 + 8 * 3.0 + 3.0, 0.0)
     per = torch.where(batch.learning, 1.0, per)
     # Every lane of the row is visited (padding lanes too).
-    return float((per * K).sum().item())
+    return per * K
+
+
+def _bytes(torch, batch):
+    """Bytes the lane solve must move on these inputs, per row ([R]
+    float64): the row's four per-row values and its whole active mask
+    are read; of the [R, K] arrays only those its lane reads, and only
+    at active elements — wants on every row but a learning one; has on
+    PROPORTIONAL_SHARE, PROPORTIONAL_TOPUP and learning rows;
+    subclients on PROPORTIONAL_TOPUP rows and on FAIR_SHARE,
+    BALANCED_FAIRNESS and PROPORTIONAL_FAIRNESS rows that overflow
+    (MAX_MIN_FAIR weighs every client 1); the row of grants is written."""
+    K = batch.wants.shape[1]
+    it = batch.wants.element_size()
+    kind, learn = batch.algo_kind, batch.learning
+    n = batch.active.sum(dim=1).double()
+    over = (torch.where(batch.active, batch.wants, 0).sum(1) > batch.capacity)
+    reads_has = learn | (kind == 2) | (kind == 4)
+    reads_sub = ~learn & (
+        (kind == 4) | (over & ((kind == 3) | (kind == 8) | (kind == 9))))
+    arrays = (~learn).double() + reads_has.double() + reads_sub.double()
+    return (2 * it + 4 + 1) + K + n * it * arrays + K * it
 
 
 def _k3_ops(torch, wants, weights, band, active, eff_cap, num_bands, gets):
@@ -1170,10 +1319,7 @@ def _k3_entry(torch, prio, parity, solve_err, registers):
     def run_block():
         return _launch_layout("block", *args, False)
 
-    turns = [_time_ms(torch, fn, reps=50, queued=True)
-             for fn in (run_block, run_warp, run_warp, run_block)]
-    ms = (turns[1] + turns[2]) / 2
-    block_ms = (turns[0] + turns[3]) / 2
+    ms, block_ms, turns = _turns(torch, run_block, run_warp)
     check(ms < block_ms,
           f"K3 warp layout {ms:.4f} ms not below the block layout's "
           f"{block_ms:.4f} ms")
@@ -1203,11 +1349,30 @@ def _k3_entry(torch, prio, parity, solve_err, registers):
         "block_rel_err": brel,
         "parity_rel_err": {f"{d} {lay}": v for (d, lay), v in parity.items()},
         "solve_rel_err": solve_err, "registers": {
-            n: u["registers"] for n, u in sorted(registers.items())},
+            n[3:]: u["registers"] for n, u in sorted(registers.items())
+            if n.startswith("K3")},
     }
 
 
-def kernel_line(torch, server, tracked_launches, main_launches, worst):
+def _turns(torch, run_block, run_warp, reps=50):
+    """(warp ms, block ms, [block, warp, warp, block] ms): the two
+    layouts timed in turns, each with its launches queued behind a spin
+    so that the host's enqueue is not timed."""
+    turns = [_time_ms(torch, fn, reps=reps, queued=True)
+             for fn in (run_block, run_warp, run_warp, run_block)]
+    return (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2, turns
+
+
+def kernel_line(torch, server, tracked_launches, main_launches, worst,
+                registers):
+    """K1 and K2 on the f32 lane server's own tables: against the plain
+    version, and timed. K1 over the whole table and over a scope of
+    ~1,000 gathered rows (the scoped tick's shape) and K2 over the whole
+    table are each timed in the warp layout the wrappers launch and in
+    the block layout on the same tensors, in turns (block, warp, warp,
+    block) with the launches queued behind a spin, as K3 is; `wrapper_ms`
+    is the wrapper timed without the spin, as K1/K2 were timed before
+    they had a warp layout."""
     from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
     from doorman_tpu_torch.solver import dense_cuda
     from doorman_tpu_torch.solver.dense import (
@@ -1224,15 +1389,21 @@ def kernel_line(torch, server, tracked_launches, main_launches, worst):
         learning=cfg.learn_d, static_capacity=cfg.statc_d,
     )
     R, K = batch.wants.shape
+    check(dense_cuda.k1_layout(K) == "warp",
+          f"the server's K = {K} is not a warp row")
     g = torch.Generator(device="cpu").manual_seed(4)
     delivered = (torch.rand(R, generator=g) < 0.2).cuda()
     # The server table's K1 grants, against the plain version.
     saved = dict(dense_cuda.LAUNCHES)
     k1 = dense_cuda.solve_dense_k1(batch)
+    k1_block = dense_cuda._launch_k1("block", batch)
     dense_cuda.LAUNCHES.update(saved)
     p1 = solve_dense(batch)
     rel1 = _rel_err(torch, k1, p1, batch)
     check(rel1 <= F32_PARITY_REL_BOUND, f"K1 vs plain {rel1:.3g} (server)")
+    brel1 = _rel_err(torch, k1_block, p1, batch)
+    check(brel1 <= F32_PARITY_REL_BOUND,
+          f"K1 block layout vs plain {brel1:.3g} (server)")
     err1 = (k1 - p1).abs().max().item()
     # K2 at the same shape, with prev = the resident has where a third
     # of the rows moved since their last delivery; f32 and bf16 prev.
@@ -1247,47 +1418,90 @@ def kernel_line(torch, server, tracked_launches, main_launches, worst):
         check(bool(chg.any()) and not bool(chg.all()),
               f"K2 changed mask degenerate ({pdt} prev)")
         err2 = max(err2, e)
+    # The scoped tick's shape: K1 over a scope of ~1,000 gathered rows.
+    scope = torch.randperm(R, generator=g)[:1024].to(torch.int32).cuda()
     saved = dict(dense_cuda.LAUNCHES)
-    k1_ms = _time_ms(torch, lambda: dense_cuda.solve_dense_k1(batch))
-    k2_ms = _time_ms(torch, lambda: dense_cuda.fused_tick_k2(batch, prev, delivered))
+    timing = {
+        "K1": _turns(
+            torch, lambda: dense_cuda._launch_k1("block", batch),
+            lambda: dense_cuda.solve_dense_k1(batch)),
+        "K1 scoped": _turns(
+            torch, lambda: dense_cuda._launch_k1("block", batch, scope),
+            lambda: dense_cuda.solve_dense_k1(batch, rows=scope)),
+        "K2": _turns(
+            torch, lambda: dense_cuda._launch_k2("block", batch, prev, delivered),
+            lambda: dense_cuda.fused_tick_k2(batch, prev, delivered)),
+    }
+    for name in ("K1", "K2"):
+        ms, block_ms, _t = timing[name]
+        check(ms < block_ms,
+              f"{name} warp layout {ms:.4f} ms not below the block layout's "
+              f"{block_ms:.4f} ms")
+    wrapper1_ms = _time_ms(torch, lambda: dense_cuda.solve_dense_k1(batch))
+    wrapper2_ms = _time_ms(
+        torch, lambda: dense_cuda.fused_tick_k2(batch, prev, delivered))
+    scope_wrapper_ms = _time_ms(
+        torch, lambda: dense_cuda.solve_dense_k1(batch, rows=scope))
     plain1_ms = _time_ms(torch, lambda: solve_dense(batch), reps=3)
     plain2_ms = _time_ms(
         torch, lambda: fused_tick_plain(batch, prev, delivered), reps=3
     )
-    # The scoped tick's shape: K1 over a scope of ~1,000 gathered rows.
-    scope = torch.randperm(R, generator=g)[:1024].to(torch.int32).cuda()
-    k1_scope_ms = _time_ms(
-        torch, lambda: dense_cuda.solve_dense_k1(batch, rows=scope)
-    )
     dense_cuda.LAUNCHES.update(saved)  # timing launches: not counted
-    it =batch.wants.element_size()
-    ops = _ops(torch, batch)
-    cols = R * (4 + 4 + 1 + 4)  # cap, kind, learning, static per row
-    bytes1 = R * K * (3 * it + 1) + cols + R * K * it
-    bytes2 = bytes1 + R * K * 2 * prev.element_size() + R + R
-    flops = H100_F32_FLOPS
+    # The bound: the bytes and operations these rows need (_bytes,
+    # _ops). `bound_all_inputs_ms` is the bytes bound with every input
+    # array read whole, as the block layout's bound was first counted.
+    it = batch.wants.element_size()
+    row_ops, row_bytes = _ops(torch, batch), _bytes(torch, batch)
+    prev_bytes = K * 2 * prev.element_size() + 2  # prev, prev_new, flags
+    all1 = R * K * (3 * it + 1) + R * (4 + 4 + 1 + 4) + R * K * it
+    sel = scope.long()
+    bounds = {
+        "K1": (row_bytes.sum().item(), row_ops.sum().item(), all1),
+        "K2": (row_bytes.sum().item() + R * prev_bytes,
+               row_ops.sum().item(), all1 + R * (prev_bytes - 2) + 2 * R),
+        "K1 scoped": (row_bytes[sel].sum().item() + 4 * len(sel),
+                      row_ops[sel].sum().item(), None),
+    }
+
+    def bound(key):
+        nbytes, ops, _all = bounds[key]
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = ops / H100_F32_FLOPS * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
     entries = []
-    for name, ms, pms, launches, nbytes, err, src, repl in (
-        ("K1 dense lane solve", k1_ms, plain1_ms, main_launches["k1"],
-         bytes1, err1, "doorman_tpu_torch/csrc/dense_solve.cu",
-         "doorman_tpu/solver/pallas_dense.py:40"),
-        ("K2 fused solve + delivered delta", k2_ms, plain2_ms,
-         tracked_launches["k2"], bytes2, err2,
-         "doorman_tpu_torch/csrc/dense_solve.cu",
+    for name, key, pms, launches, err, wrapper_ms, repl in (
+        ("K1 dense lane solve", "K1", plain1_ms, main_launches["k1"],
+         err1, wrapper1_ms, "doorman_tpu/solver/pallas_dense.py:40"),
+        ("K2 fused solve + delivered delta", "K2", plain2_ms,
+         tracked_launches["k2"], err2, wrapper2_ms,
          "doorman_tpu/solver/pallas_dense.py:57"),
     ):
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = ops / flops * 1e3
+        ms, block_ms, turns = timing[key]
+        bound_ms, bound_by = bound(key)
         entries.append({
-            "name": name, "route": "cuda", "source": src, "replaces": repl,
+            "name": name, "route": "cuda",
+            "source": "doorman_tpu_torch/csrc/dense_solve.cu",
+            "replaces": repl,
             "launches": int(launches), "max_abs_err": err, "ms": ms,
-            "plain_ms": pms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "plain_ms": pms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": bounds[key][0],
+            "bound_all_inputs_ms": bounds[key][2] / H100_BYTES_PER_S * 1e3,
             "library_ms": None, "shape": [R, K], "dtype": str(batch.wants.dtype),
+            "layout": dense_cuda.k1_layout(K), "block_ms": block_ms,
+            "turns_ms": turns, "wrapper_ms": wrapper_ms,
+            "registers": {n[3:]: u["registers"]
+                          for n, u in sorted(registers.items())
+                          if n.startswith(key)},
         })
-    entries[0]["scoped_ms"] = k1_scope_ms
-    entries[0]["scoped_rows"] = int(scope.numel())
-    entries[0]["parity_rel_err"] = {str(k)[6:]: v for k, v in worst.items()}
+    ms, block_ms, turns = timing["K1 scoped"]
+    entries[0].update(
+        scoped_ms=ms, scoped_block_ms=block_ms, scoped_turns_ms=turns,
+        scoped_bound_ms=bound("K1 scoped")[0],
+        scoped_wrapper_ms=scope_wrapper_ms, scoped_rows=int(scope.numel()),
+        block_rel_err=brel1,
+        parity_rel_err={f"{d} {lay}": v for (d, lay), v in worst.items()},
+    )
     return {"kernels": entries}
 
 
@@ -1317,11 +1531,12 @@ def main() -> int:
         tracked = phase_tracked(torch, servers["f32"]["server"])
         line = kernel_line(
             torch, servers["f32"]["server"], tracked,
-            servers["f32"]["launches"], worst,
+            servers["f32"]["launches"], worst, registers,
         )
         line["kernels"].append(
             _k3_entry(torch, prio["f32"], worst3, solve_err, registers)
         )
+        line["kernels"][0]["frontier_by_layout"] = phase_frontier(torch)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

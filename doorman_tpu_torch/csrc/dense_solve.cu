@@ -1,45 +1,70 @@
 // Dense solve kernels for Hopper (sm_90a): K1 (the lane solve), K2 (the
 // lane solve fused with the delivered-grant delta epilogue) and K3 (the
-// banded water-fill of the priority solve, further below, in two
-// layouts: a warp per row for rows of up to 256 lanes, a block per row
-// above).
+// banded water-fill of the priority solve, further below). Each comes in
+// two layouts: one warp per row for rows of up to kWarpMaxK = 256 lanes,
+// one block per row above; the wrappers pick the layout from the width
+// (solver/dense_cuda.py k1_layout for K1/K2, solver/priority_cuda.py
+// k3_layout for K3).
 //
-// Replaces the TPU Pallas kernels doorman_tpu/solver/pallas_dense.py
-// `_kernel` (K1, reached through solve_dense_pallas) and `_fused_kernel`
-// (K2, reached through fused_tick_pallas). Plain PyTorch versions:
-// doorman_tpu_torch/solver/dense.py `solve_dense` (K1) and
-// `fused_tick_plain` (K2); the wrappers live in solver/dense_cuda.py.
+// K1 and K2 replace the TPU Pallas kernels doorman_tpu/solver/
+// pallas_dense.py:40 `_kernel` (reached through solve_dense_pallas) and
+// :57 `_fused_kernel` (reached through fused_tick_pallas). Plain PyTorch
+// versions: doorman_tpu_torch/solver/dense.py `solve_dense` (K1) and
+// `fused_tick_plain` (K2).
 //
-// What it computes, per resource row r of a [R, K] table: the lane
+// What K1 computes, per resource row r of a [R, K] table: the lane
 // solve of solver/lanes.py `solve_lanes` — inactive lanes masked to 0,
 // then the lane of the row's algo_kind (NO_ALGORITHM, STATIC,
 // PROPORTIONAL_SHARE, PROPORTIONAL_TOPUP, FAIR_SHARE bisection + snap,
 // MAX_MIN_FAIR / PROPORTIONAL_FAIRNESS fills, BALANCED_FAIRNESS peel),
 // or the LEARN replay of `has` on learning rows. Every reduction is
-// within a row.
+// within a row. K2 adds, over the whole table, prev_new (prev advanced on
+// delivered rows) and changed[r] = delivered[r] and any(cast(gets) !=
+// prev) on the row.
 //
-// What bounds it: the bytes — each row's wants/has/subclients/active are
-// read from device memory once and its grants written once (K2 adds prev
-// read + prev_new write + one flag per row), while the iterative lanes
-// (up to 48 bisection passes, 16 fill passes, 8 peel rounds) re-read the
-// row from shared memory, never from device memory.
+// What bounds it on this card: not the bytes. The lane cell's 10,240 x
+// 128 f32 table is 22 MB with its grants (0.0067 ms at 3.35 TB/s). The
+// time goes to chains of dependent row reductions: an overflowing
+// FAIR_SHARE row runs a max, 30 (f32) or 48 (f64) bisection sums and two
+// paired snap sums; the fills 1 + 16 paired sums; BALANCED_FAIRNESS nine
+// rounds of a sum and a max and eight peel sums. In the block-per-row
+// layout each is a block reduction (a shuffle butterfly, a round trip
+// through shared memory, two __syncthreads and a serial walk over the
+// warp partials), on 128 threads that hold one element each.
 //
-// Design: one thread block per row. The row is staged in shared memory
-// (dynamic; 4*K*sizeof(T) + 2*K bytes, up to 136 KB at f64 and
-// K = 4096, above the 48 KB default only after the opt-in); thread t
-// owns lanes t, t + blockDim, ..., so every elementwise step touches
-// only the thread's own lanes. Reductions are a fixed-order tree —
-// per-thread left-to-right partials, an xor-butterfly across the warp,
-// then the warp partials summed in warp order by every thread — with no
-// atomics, so the same inputs give bit-identical grants on every launch
-// (the scoped tick's fixpoint test depends on it). The algorithm kind
-// is per row, so the block takes only its own lane: the where-chain of
-// the reference selects exactly that lane, so skipping the others is
-// byte-identical. Built with -fmad=false and without fast math: each
-// elementwise expression rounds as the plain version's does (the one
-// multiply-add the reference fuses is an explicit fma), and only the
-// order of a sum differs. min/max are written out to propagate NaN
-// as torch.minimum/maximum do (fminf/fmaxf would drop it).
+// Warp layout (dense_solve_warp_kernel, K <= 256): one warp per row,
+// kRowsPerBlock = 8 rows to a 256-thread block, grid = ceil(R / 8). Lane l
+// holds elements j = l + 32 v, 0 <= v < V, V = ceil(K / 32) rounded up to
+// 1, 2, 4 or 8 (a template parameter), so each v is one coalesced load
+// for the warp. The row lives in registers and the masks (active, inside
+// the row, the balanced peel's fixed set) in bitmasks. The algorithm kind
+// is the row's, so the whole warp takes one branch, and each branch loads
+// only the arrays its lane reads (the fair and fill lanes read the
+// subclients only when the row overflows). Every reduction is the lane's
+// left-to-right partial over v followed by warp_sum / warp_max's xor
+// butterfly: five shuffles, no shared memory, no __syncthreads, no
+// atomics, and every lane ends with the same bits, so every branch on a
+// reduced value is uniform and repeat launches are bit-identical (the
+// scoped tick's fixpoint test depends on it).
+//
+// Block layout (dense_solve_kernel, any K up to the table's width): one
+// thread block per row, the row staged in dynamic shared memory
+// (4*K*sizeof(T) + 2*K bytes, up to 136 KB at f64 and K = 4096, above the
+// 48 KB default after the opt-in); thread t owns lanes t, t + blockDim,
+// ..., and every reduction is a fixed-order tree — per-thread
+// left-to-right partials, the xor butterfly, then the warp partials
+// summed in warp order by every thread. A warp would need 128 values a
+// lane for each array of a 4,096-lane row, far past the 255 registers a
+// thread may have.
+//
+// Both layouts: the block or warp takes only its row's lane (the
+// where-chain of the reference selects exactly that lane, so skipping
+// the others is byte-identical). Built with -fmad=false and without fast
+// math: each elementwise expression rounds as the plain version's does
+// (the one multiply-add the reference fuses is an explicit fma), and only
+// the order of a sum differs between the layouts and the plain version.
+// min/max are written out to propagate NaN as torch.minimum/maximum do
+// (fminf/fmaxf would drop it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +79,8 @@ constexpr int kFillIters = 16;      // algorithms/tick.py FILL_ITERS
 constexpr int kBalancedRounds = 8;  // algorithms/tick.py BALANCED_ROUNDS
 constexpr int kRefineIters = 2;     // solver/lanes.py _REFINE_ITERS
 constexpr int kRedSlots = 64;       // two sums of up to 32 warps
+constexpr int kWarpMaxK = 256;      // the widest row of the warp layout
+constexpr int kRowsPerBlock = 8;    // warp layout: rows (warps) a block
 
 // algorithms/kinds.py AlgoKind
 enum : int {
@@ -491,6 +518,346 @@ int launch(Inputs in, const void* rows, void* out, const void* prev,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- K1/K2 for narrow rows: one warp per row (the layout the header
+// describes; dense_solve_kernel above keeps rows wider than kWarpMaxK).
+//
+// On an H100 80GB HBM3 at 700 W, chip_smoke.py timed K1 in this layout
+// at 0.0166 ms and in the block layout at 0.0409 ms on the lane
+// server's 10,240 x 128 f32 table (K2: 0.0195 and 0.0442 ms), against
+// a bound of 0.0067 ms (K2: 0.0098 ms) for the bytes.
+//
+// Registers (ptxas -v for sm_90a, printed by chip_smoke.py's build
+// phase; a spilling warp entry fails that phase): K1 28, 30, 40 and 64
+// at f32 for V = 1, 2, 4, 8 and 42, 50, 70 and 112 at f64; K2 26, 30,
+// 44, 65 and 44, 52, 68, 112, for either prev type; no spills. At 40
+// (the main path's f32 V = 4) six blocks, 48 warps, fit on an SM, and
+// 10,240 rows take about 1.6 waves.
+
+__device__ __forceinline__ bool bit(uint32_t mask, int v) {
+  return (mask >> v) & 1u;
+}
+
+// x[v] = p[lane + 32 v] where element v is active, else 0: an inactive
+// element is not read.
+template <typename T, int V>
+__device__ __forceinline__ void warp_load(const T* __restrict__ p, int lane,
+                                          uint32_t act, T (&x)[V]) {
+#pragma unroll
+  for (int v = 0; v < V; ++v) x[v] = bit(act, v) ? p[lane + 32 * v] : T(0);
+}
+
+// waterfill_level on one warp's registers: w and s are the masked wants
+// and weights (K1: the row's; K3: the band's); bit v of `members` says
+// whether element v takes part (K1: active; K3: in the band), bit v of
+// `inside` whether it lies within the row.
+template <typename T, int V>
+__device__ __forceinline__ T warp_waterfill_level(const T (&w)[V],
+                                                  const T (&s)[V],
+                                                  uint32_t members,
+                                                  uint32_t inside, T cap) {
+  const T zero = T(0), tiny = Num<T>::tiny();
+  T mr = -INFINITY;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const T ratio = s[v] > zero ? w[v] / nmax(s[v], tiny) : zero;
+    mr = nmax(mr, (members >> v) & 1u ? ratio : T(-INFINITY));
+  }
+  T max_ratio = warp_max(mr);
+  if (!isfinite(max_ratio)) max_ratio = zero;
+  T lo = zero, hi = nmax(max_ratio, zero);
+  for (int it = 0; it < Num<T>::kBisect; ++it) {
+    const T mid = (lo + hi) * T(0.5);
+    T acc = zero;
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      acc += (inside >> v) & 1u ? nmin(w[v], mid * s[v]) : zero;
+    if (warp_sum(acc) < cap) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  T level = hi;
+  for (int it = 0; it < kRefineIters; ++it) {
+    T sat_w = zero, unsat = zero;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const bool sat = w[v] <= level * s[v];
+      sat_w += sat ? w[v] : zero;
+      unsat += sat ? zero : s[v];
+    }
+    sat_w = warp_sum(sat_w);
+    unsat = warp_sum(unsat);
+    const T exact = unsat > zero ? (cap - sat_w) / nmax(unsat, tiny) : level;
+    level = nmax(exact, zero);
+  }
+  return level;
+}
+
+// iterfill_level on one warp's registers, with weights wt (the
+// subclients, or the active mask for MAX_MIN_FAIR). Elements past K hold
+// zeros and add +0 to both sums whatever the level.
+template <typename T, int V>
+__device__ __forceinline__ T warp_iterfill_level(const T (&w)[V],
+                                                 const T (&wt)[V], T cap) {
+  const T zero = T(0), tiny = Num<T>::tiny();
+  T sum_wt = zero;
+#pragma unroll
+  for (int v = 0; v < V; ++v) sum_wt += wt[v];
+  T level = cap / nmax(warp_sum(sum_wt), tiny);
+  for (int it = 0; it < kFillIters; ++it) {
+    T sat_w = zero, unsat_w = zero;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const bool sat = w[v] <= level * wt[v];
+      sat_w += sat ? w[v] : zero;
+      unsat_w += sat ? zero : wt[v];
+    }
+    sat_w = warp_sum(sat_w);
+    unsat_w = warp_sum(unsat_w);
+    const T level_new = (cap - sat_w) / nmax(unsat_w, tiny);
+    level = unsat_w > zero ? nmax(level, level_new) : level;
+  }
+  return level;
+}
+
+// balanced_fill on one warp's registers, the grants into g. Bit v of
+// `fixed` is the peeled set. An element past K is not active: it peels
+// like an inactive element (adding its zero wants) and is never written.
+template <typename T, int V>
+__device__ __forceinline__ void warp_balanced_fill(const T (&w)[V],
+                                                   const T (&s)[V],
+                                                   uint32_t act, T cap,
+                                                   T (&g)[V]) {
+  const T zero = T(0), one = T(1), tiny = Num<T>::tiny();
+  uint32_t fixed = 0;
+  auto ratio = [&](int v) -> T {
+    return (bit(act & ~fixed, v) && w[v] > zero) ? s[v] / nmax(w[v], tiny)
+                                                 : zero;
+  };
+  T remcap = cap;
+  T cap_ratio, max_ratio;
+  for (int round = 0; round <= kBalancedRounds; ++round) {
+    T X = zero, mr = -INFINITY;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const T livef = bit(act & ~fixed, v) ? one : zero;
+      X += livef * s[v];
+      mr = nmax(mr, ratio(v));
+    }
+    X = warp_sum(X);
+    max_ratio = nmax(warp_max(mr), zero);
+    cap_ratio = X / nmax(remcap, tiny);
+    if (round == kBalancedRounds) break;
+    // Peel against the ratios of the fixed set BEFORE this round.
+    const bool binding = max_ratio > cap_ratio;
+    T peeled = zero;
+    uint32_t peel_bits = 0;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const bool peel = ratio(v) >= max_ratio && binding;
+      peeled += peel ? w[v] : zero;
+      peel_bits |= static_cast<uint32_t>(peel) << v;
+    }
+    fixed |= peel_bits;
+    remcap = remcap - warp_sum(peeled);
+  }
+  const T theta = nmax(cap_ratio, max_ratio);
+  const T nu = one / nmax(theta, tiny);
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    g[v] = bit(fixed, v) ? w[v] : nmin(w[v], s[v] * nu);
+}
+
+// solve_row on one warp's registers: the row's grants into g (inactive
+// elements, and elements past K, 0). Each branch reads only the arrays
+// its lane uses, once; `off` is the row's offset in the [R, K] tables.
+template <typename T, int V>
+__device__ __forceinline__ void warp_solve_row(const Inputs& in, int64_t off,
+                                               int lane, uint32_t act,
+                                               uint32_t inside, T cap,
+                                               int kind, bool learn, T statc,
+                                               T (&g)[V]) {
+  const T zero = T(0), tiny = Num<T>::tiny();
+  const T* wants = static_cast<const T*>(in.wants) + off;
+  const T* has = static_cast<const T*>(in.has) + off;
+  const T* sub = static_cast<const T*>(in.sub) + off;
+  if (learn) {
+    // LEARN replays the (masked) reported grant whatever the lane.
+    warp_load(has, lane, act, g);
+    return;
+  }
+  T w[V];
+  warp_load(wants, lane, act, w);
+  auto row_total = [&](const T(&x)[V]) -> T {
+    T acc = zero;
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc += x[v];
+    return warp_sum(acc);
+  };
+  switch (kind) {
+    case kNoAlgorithm:
+#pragma unroll
+      for (int v = 0; v < V; ++v) g[v] = w[v];
+      break;
+    case kStatic:
+#pragma unroll
+      for (int v = 0; v < V; ++v) g[v] = nmin(statc, w[v]);
+      break;
+    case kProportionalShare: {
+      T h[V];
+      warp_load(has, lane, act, h);
+      const T sumw = row_total(w);
+      const T sum_has = row_total(h);
+      const bool under = sumw < cap;
+      const T scale = cap / nmax(sumw, tiny);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const T free_c = nmax(cap - (sum_has - h[v]), zero);
+        g[v] = under ? nmin(w[v], free_c) : nmin(w[v] * scale, free_c);
+      }
+      break;
+    }
+    case kProportionalTopup: {
+      T h[V], s[V];
+      warp_load(has, lane, act, h);
+      warp_load(sub, lane, act, s);
+      const bool fits = row_total(w) <= cap;
+      const T sum_has = row_total(h);
+      const T eq = cap / nmax(row_total(s), tiny);
+      // Elements past K are kept out: with a zero count eq is inf, and
+      // eq * 0 is NaN.
+      T extra_cap = zero, extra_need = zero;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const T equal = eq * s[v];
+        const bool under = w[v] < equal;
+        extra_cap += bit(inside, v) && under ? equal - w[v] : zero;
+        extra_need += bit(inside, v) && !under ? w[v] - equal : zero;
+      }
+      const T top = warp_sum(extra_cap) / nmax(warp_sum(extra_need), tiny);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const T equal = eq * s[v];
+        const T free_c = nmax(cap - (sum_has - h[v]), zero);
+        // The one fused multiply-add of the lane solve (see solve_row).
+        const T topped = fma(w[v] - equal, top, equal);
+        g[v] = (fits || w[v] <= equal) ? nmin(w[v], free_c)
+                                       : nmin(topped, free_c);
+      }
+      break;
+    }
+    case kFairShare:
+    case kMaxMinFair:
+    case kProportionalFairness:
+    case kBalancedFairness: {
+      if (row_total(w) <= cap) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) g[v] = w[v];
+        break;
+      }
+      // The row overflows: only now are its subclients read.
+      T s[V];
+      if (kind == kMaxMinFair) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) s[v] = bit(act, v) ? T(1) : zero;
+      } else {
+        warp_load(sub, lane, act, s);
+      }
+      if (kind == kBalancedFairness) {
+        warp_balanced_fill<T, V>(w, s, act, cap, g);
+        break;
+      }
+      const T level = kind == kFairShare
+                          ? warp_waterfill_level<T, V>(w, s, act, inside, cap)
+                          : warp_iterfill_level<T, V>(w, s, cap);
+#pragma unroll
+      for (int v = 0; v < V; ++v) g[v] = nmin(w[v], level * s[v]);
+      break;
+    }
+    default:
+      // A kind without a lane here (PRIORITY_BANDS) solves to 0.
+#pragma unroll
+      for (int v = 0; v < V; ++v) g[v] = zero;
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) g[v] = bit(act, v) ? g[v] : zero;
+}
+
+// K1 (kFused = false) and K2 (kFused = true) as dense_solve_kernel, one
+// warp per row: output row b is row rows[b] (or b when rows is null).
+// The launch bounds ask for one block an SM at least, which leaves ptxas
+// free to use up to 255 registers a thread: with the thread count alone
+// it held the f64 V = 4 K1 entry to 64 and spilled.
+template <typename T, typename P, bool kFused, int V>
+__global__ void __launch_bounds__(kRowsPerBlock * 32, 1)
+    dense_solve_warp_kernel(Inputs in, const int32_t* __restrict__ rows,
+                            T* __restrict__ out, const P* prev,
+                            const uint8_t* __restrict__ delivered,
+                            P* prev_out, uint8_t* __restrict__ changed,
+                            int n_rows, int K) {
+  const int b = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  // The whole warp leaves together, so every shuffle below is full-warp.
+  if (b >= n_rows) return;
+  const int lane = threadIdx.x & 31;
+  const int64_t src = rows != nullptr ? rows[b] : b;
+  const int64_t off = src * K;
+  uint32_t act = 0, inside = 0;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int j = lane + 32 * v;
+    const bool in_row = j < K;
+    inside |= static_cast<uint32_t>(in_row) << v;
+    act |= static_cast<uint32_t>(in_row && in.act[off + j] != 0) << v;
+  }
+  T g[V];
+  warp_solve_row<T, V>(in, off, lane, act, inside,
+                       static_cast<const T*>(in.cap)[src], in.kind[src],
+                       in.learn[src] != 0,
+                       static_cast<const T*>(in.statc)[src], g);
+  T* out_row = out + static_cast<int64_t>(b) * K;
+  if constexpr (!kFused) {
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      if (bit(inside, v)) out_row[lane + 32 * v] = g[v];
+  } else {
+    const P* prev_row = prev + off;
+    P* prev_new = prev_out + static_cast<int64_t>(b) * K;
+    const bool deliv = delivered[src] != 0;
+    bool diff = false;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (!bit(inside, v)) continue;
+      const int j = lane + 32 * v;
+      const P c = Cast<P, T>::to(g[v]);
+      const P p = prev_row[j];
+      diff |= Cast<P, T>::differ(c, p);
+      out_row[j] = g[v];
+      prev_new[j] = deliv ? c : p;
+    }
+    const bool any = __any_sync(0xffffffffu, diff);
+    if (lane == 0) changed[b] = (deliv && any) ? 1 : 0;
+  }
+}
+
+template <typename T, typename P, bool kFused>
+int launch_warp(Inputs in, const void* rows, void* out, const void* prev,
+                const void* delivered, void* prev_out, void* changed,
+                int n_rows, int K, void* stream) {
+  if (n_rows <= 0 || K <= 0) return 0;
+  if (K > kWarpMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = K <= 32   ? dense_solve_warp_kernel<T, P, kFused, 1>
+                : K <= 64  ? dense_solve_warp_kernel<T, P, kFused, 2>
+                : K <= 128 ? dense_solve_warp_kernel<T, P, kFused, 4>
+                           : dense_solve_warp_kernel<T, P, kFused, 8>;
+  const int grid = (n_rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  kernel<<<grid, kRowsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      in, static_cast<const int32_t*>(rows), static_cast<T*>(out),
+      static_cast<const P*>(prev), static_cast<const uint8_t*>(delivered),
+      static_cast<P*>(prev_out), static_cast<uint8_t*>(changed), n_rows, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---- K3: the banded water-fill (solver/priority.py `_alloc_banded`).
 //
 // Replaces the TPU Pallas kernel doorman_tpu/solver/pallas_priority.py
@@ -669,56 +1036,6 @@ int launch_k3(const void* wants, const void* weights, const void* band,
 // phase): 30, 30, 40 and 64 at f32 for V = 1, 2, 4, 8; 40, 48, 62 and
 // 100 at f64; no spills. At 40 (the main path's f32 V = 4) six blocks,
 // 48 warps, fit on an SM, and 10,000 rows take about 1.6 waves.
-constexpr int kWarpMaxK = 256;
-constexpr int kRowsPerBlock = 8;
-
-// waterfill_level on one warp's registers: w and s are the band's
-// masked wants and weights; bit v of `members` says whether element v
-// is in the band, bit v of `inside` whether it lies within the row.
-template <typename T, int V>
-__device__ __forceinline__ T warp_waterfill_level(const T (&w)[V],
-                                                  const T (&s)[V],
-                                                  uint32_t members,
-                                                  uint32_t inside, T cap) {
-  const T zero = T(0), tiny = Num<T>::tiny();
-  T mr = -INFINITY;
-#pragma unroll
-  for (int v = 0; v < V; ++v) {
-    const T ratio = s[v] > zero ? w[v] / nmax(s[v], tiny) : zero;
-    mr = nmax(mr, (members >> v) & 1u ? ratio : T(-INFINITY));
-  }
-  T max_ratio = warp_max(mr);
-  if (!isfinite(max_ratio)) max_ratio = zero;
-  T lo = zero, hi = nmax(max_ratio, zero);
-  for (int it = 0; it < Num<T>::kBisect; ++it) {
-    const T mid = (lo + hi) * T(0.5);
-    T acc = zero;
-#pragma unroll
-    for (int v = 0; v < V; ++v)
-      acc += (inside >> v) & 1u ? nmin(w[v], mid * s[v]) : zero;
-    if (warp_sum(acc) < cap) {
-      lo = mid;
-    } else {
-      hi = mid;
-    }
-  }
-  T level = hi;
-  for (int it = 0; it < kRefineIters; ++it) {
-    T sat_w = zero, unsat = zero;
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const bool sat = w[v] <= level * s[v];
-      sat_w += sat ? w[v] : zero;
-      unsat += sat ? zero : s[v];
-    }
-    sat_w = warp_sum(sat_w);
-    unsat = warp_sum(unsat);
-    const T exact = unsat > zero ? (cap - sat_w) / nmax(unsat, tiny) : level;
-    level = nmax(exact, zero);
-  }
-  return level;
-}
-
 template <typename T, int V>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
     banded_fill_warp_kernel(const T* __restrict__ wants,
@@ -827,35 +1144,40 @@ Inputs make_inputs(const void* wants, const void* has, const void* sub,
 
 // The C interface bound with ctypes. Every pointer is a device pointer
 // (tensor.data_ptr()), `stream` is the caller's cudaStream_t; the return
-// value is cudaGetLastError() after the launch (0 = launched).
-#define DSK_K1(NAME, T)                                                     \
+// value is cudaGetLastError() after the launch (0 = launched). LAUNCH is
+// a layout's launcher: the block-per-row one (launch, launch_k3) or the
+// warp-per-row one (launch_warp, launch_k3_warp; K <= 256).
+//
+// K1: grants of rows `rows` (or of every row when rows is null) into
+// out[n_rows, K].
+#define DSK_K1(NAME, LAUNCH, T)                                             \
   extern "C" int NAME(const void* wants, const void* has, const void* sub, \
                       const void* act, const void* cap, const void* kind,  \
                       const void* learn, const void* statc,                \
                       const void* rows, void* out, int n_rows, int K,      \
                       void* stream) {                                       \
-    return launch<T, T, false>(                                             \
+    return LAUNCH<T, T, false>(                                             \
         make_inputs(wants, has, sub, act, cap, kind, learn, statc), rows,   \
         out, nullptr, nullptr, nullptr, nullptr, n_rows, K, stream);        \
   }
 
-#define DSK_K2(NAME, T, P)                                                  \
+// K2: over the whole table, grants into gets, the delivered-row epilogue
+// into prev_out and changed.
+#define DSK_K2(NAME, LAUNCH, T, P)                                          \
   extern "C" int NAME(const void* wants, const void* has, const void* sub, \
                       const void* act, const void* cap, const void* kind,  \
                       const void* learn, const void* statc,                \
                       const void* prev, const void* delivered, void* gets, \
                       void* prev_out, void* changed, int n_rows, int K,    \
                       void* stream) {                                       \
-    return launch<T, P, true>(                                              \
+    return LAUNCH<T, P, true>(                                              \
         make_inputs(wants, has, sub, act, cap, kind, learn, statc),         \
         nullptr, gets, prev, delivered, prev_out, changed, n_rows, K,       \
         stream);                                                            \
   }
 
 // K3: grants of every row of [n_rows, K] into gets, and (when totals is
-// not null) each row's grant total into totals[n_rows]; LAUNCH is the
-// block-per-row layout (launch_k3) or the warp-per-row one
-// (launch_k3_warp, K <= 256).
+// not null) each row's grant total into totals[n_rows].
 #define DSK_K3(NAME, LAUNCH, T)                                              \
   extern "C" int NAME(const void* wants, const void* weights,               \
                       const void* band, const void* active,                 \
@@ -865,12 +1187,18 @@ Inputs make_inputs(const void* wants, const void* has, const void* sub,
                      n_rows, K, num_bands, stream);                          \
   }
 
-DSK_K1(dsk_k1_f32, float)
-DSK_K1(dsk_k1_f64, double)
-DSK_K2(dsk_k2_f32_f32, float, float)
-DSK_K2(dsk_k2_f32_bf16, float, __nv_bfloat16)
-DSK_K2(dsk_k2_f64_f64, double, double)
-DSK_K2(dsk_k2_f64_bf16, double, __nv_bfloat16)
+DSK_K1(dsk_k1_block_f32, launch, float)
+DSK_K1(dsk_k1_block_f64, launch, double)
+DSK_K1(dsk_k1_warp_f32, launch_warp, float)
+DSK_K1(dsk_k1_warp_f64, launch_warp, double)
+DSK_K2(dsk_k2_block_f32_f32, launch, float, float)
+DSK_K2(dsk_k2_block_f32_bf16, launch, float, __nv_bfloat16)
+DSK_K2(dsk_k2_block_f64_f64, launch, double, double)
+DSK_K2(dsk_k2_block_f64_bf16, launch, double, __nv_bfloat16)
+DSK_K2(dsk_k2_warp_f32_f32, launch_warp, float, float)
+DSK_K2(dsk_k2_warp_f32_bf16, launch_warp, float, __nv_bfloat16)
+DSK_K2(dsk_k2_warp_f64_f64, launch_warp, double, double)
+DSK_K2(dsk_k2_warp_f64_bf16, launch_warp, double, __nv_bfloat16)
 DSK_K3(dsk_k3_block_f32, launch_k3, float)
 DSK_K3(dsk_k3_block_f64, launch_k3, double)
 DSK_K3(dsk_k3_warp_f32, launch_k3_warp, float)

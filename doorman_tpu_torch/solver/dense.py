@@ -85,8 +85,16 @@ def fused_tick_plain(
     `prev_new` advances delivered rows and keeps the rest (the epilogue
     of doorman_tpu/solver/resident.py:727-732 in row-mask form)."""
     gets = solve_dense(batch, lanes=lanes, lane_rows=lane_rows)
+    return (gets, *delivered_delta(gets, prev, delivered))
+
+
+def delivered_delta(
+    gets: torch.Tensor, prev: torch.Tensor, delivered: torch.Tensor
+) -> "tuple[torch.Tensor, torch.Tensor]":
+    """K2's epilogue on grants `gets`: (prev_new, changed) as
+    fused_tick_plain returns them."""
     out = gets.to(prev.dtype)
     deliv = delivered.bool()[:, None]
     changed = deliv[:, 0] & (out != prev).any(dim=1)
     prev_new = torch.where(deliv, out, prev)
-    return gets, prev_new, changed
+    return prev_new, changed

@@ -8,6 +8,13 @@ doorman_tpu/solver/pallas_dense.py and says what bounds it and how).
 The same library carries K3, the banded water-fill, whose wrapper is
 solver.priority_cuda.alloc_banded_k3.
 
+Every kernel has two layouts, chosen from the row width K: rows of up
+to WARP_MAX_K lanes run one warp per row, the row in registers and
+every reduction a warp shuffle (`dense_solve_warp_kernel`,
+`banded_fill_warp_kernel`); wider rows run one block per row, the row
+staged in shared memory (`dense_solve_kernel`, `banded_fill_kernel`).
+`k1_layout` picks K1/K2's layout, priority_cuda.k3_layout K3's.
+
 The source is compiled with nvcc at first use into the package's
 `_build/` directory as a shared library with a plain C interface, and
 bound with ctypes: pointers are `tensor.data_ptr()`, the stream is
@@ -47,6 +54,10 @@ LIBRARY = BUILD_DIR / "libdense_solve.so"
 
 # Kernel launches since process start (or the caller's last reset).
 LAUNCHES = {"k1": 0, "k2": 0, "k3": 0}
+
+# The widest row the warp-per-row layouts take (csrc/dense_solve.cu
+# kWarpMaxK: 8 elements a lane).
+WARP_MAX_K = 256
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -134,20 +145,53 @@ def ptxas_usage(text: "str | None" = None) -> dict:
     return out
 
 
+# A kernel entry's mangled name -> (kernel, layout, types, V or None).
+_ENTRY = re.compile(
+    r"(dense_solve_warp_kernel|dense_solve_kernel|banded_fill_warp_kernel"
+    r"|banded_fill_kernel)I([fd])(?:([fd]|13__nv_bfloat16|DF16b)Lb([01])E)?"
+    r"(?:Li(\d+)E)?"
+)
+_TYPE = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16", "DF16b": "bf16"}
+
+
+def entry_label(entry: str) -> "str | None":
+    """"K1 warp f32 V=4", "K2 block f64/bf16", "K3 warp f64 V=8", ...
+    for a kernel entry of ptxas's report (a mangled name); None for
+    anything else. K2's types are the solve's and prev's."""
+    m = _ENTRY.search(entry)
+    if m is None:
+        return None
+    kern, t, p, fused, V = m.groups()
+    if kern.startswith("banded"):
+        name = "K3"
+    else:
+        name = "K2" if fused == "1" else "K1"
+    layout = "warp" if "warp" in kern else "block"
+    types = _TYPE[t] + (f"/{_TYPE[p]}" if name == "K2" else "")
+    return f"{name} {layout} {types}" + (f" V={V}" if V else "")
+
+
+def k1_layout(K: int) -> str:
+    """"warp" (one warp per row, the row in registers) for rows of up to
+    WARP_MAX_K lanes, "block" (one block per row, the row in shared
+    memory) above: the layout K1 and K2 launch at width K."""
+    return "warp" if K <= WARP_MAX_K else "block"
+
+
 def _load():
     global _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name in ("dsk_k1_f32", "dsk_k1_f64"):
-                fn = getattr(lib, name)
-                fn.restype = _I
-                fn.argtypes = [_P] * 10 + [_I, _I, _P]
-            for name in ("dsk_k2_f32_f32", "dsk_k2_f32_bf16",
-                         "dsk_k2_f64_f64", "dsk_k2_f64_bf16"):
-                fn = getattr(lib, name)
-                fn.restype = _I
-                fn.argtypes = [_P] * 13 + [_I, _I, _P]
+            for layout in ("block", "warp"):
+                for dt in ("f32", "f64"):
+                    fn = getattr(lib, f"dsk_k1_{layout}_{dt}")
+                    fn.restype = _I
+                    fn.argtypes = [_P] * 10 + [_I, _I, _P]
+                    for pdt in (dt, "bf16"):
+                        fn = getattr(lib, f"dsk_k2_{layout}_{dt}_{pdt}")
+                        fn.restype = _I
+                        fn.argtypes = [_P] * 13 + [_I, _I, _P]
             for name in ("dsk_k3_block_f32", "dsk_k3_block_f64",
                          "dsk_k3_warp_f32", "dsk_k3_warp_f64"):
                 fn = getattr(lib, name)
@@ -211,34 +255,41 @@ def solve_dense_k1(
     that order) as a new [n, K] tensor. CPU tensors take the plain
     version (`lanes` / `lane_rows` are its host-knowledge fast paths,
     byte-identical, and index the gathered rows); CUDA tensors launch
-    K1."""
+    K1 in the layout k1_layout(K) picks."""
     dev = batch.wants.device
     if dev.type == "cpu":
         b = batch.rows(rows) if rows is not None else batch
         return solve_dense(b, lanes=lanes, lane_rows=lane_rows)
     if dev.type != "cuda":
         raise ValueError(f"no dense kernel for device {dev}")
-    dev, dtype = _check_batch(batch)
-    R, K = batch.wants.shape
+    dev, _dtype = _check_batch(batch)
     if rows is not None:
         if rows.dtype != torch.int32 or rows.device != dev or rows.dim() != 1:
             raise ValueError("rows must be a 1-D int32 tensor on the device")
         rows = rows.contiguous()
-        n = rows.shape[0]
-    else:
-        n = R
     require_hopper(dev)
-    lib = _load()
+    out = _launch_k1(k1_layout(batch.wants.shape[1]), batch, rows)
+    LAUNCHES["k1"] += 1
+    return out
+
+
+def _launch_k1(layout: str, batch: DenseBatch, rows=None) -> torch.Tensor:
+    """One launch of K1's `layout` ("warp" or "block") on a batch (and
+    rows) that solve_dense_k1 checked: the [n, K] grants. Counts
+    nothing: the wrapper counts its own launch, and a comparison of the
+    two layouts calls this directly."""
+    R, K = batch.wants.shape
+    dev, dtype = batch.wants.device, batch.wants.dtype
+    n = rows.shape[0] if rows is not None else R
     out = torch.empty((n, K), dtype=dtype, device=dev)
-    fn = getattr(lib, f"dsk_k1_{_DT[dtype]}")
+    fn = getattr(_load(), f"dsk_k1_{layout}_{_DT[dtype]}")
     err = fn(
         *_inputs(batch),
         rows.data_ptr() if rows is not None else None,
         out.data_ptr(), n, K,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(err, "K1")
-    LAUNCHES["k1"] += 1
+    _raise_on(err, f"K1 ({layout} layout)")
     return out
 
 
@@ -252,7 +303,8 @@ def fused_tick_k2(
     """(gets, prev_new, changed) of the whole batch: K1's grants, prev
     advanced on delivered rows, and changed[r] = delivered[r] and
     any(gets[r] cast to prev's dtype != prev[r]). CPU tensors take the
-    plain version; CUDA tensors launch K2."""
+    plain version; CUDA tensors launch K2 in the layout k1_layout(K)
+    picks."""
     dev = batch.wants.device
     if dev.type == "cpu":
         return fused_tick_plain(
@@ -269,17 +321,25 @@ def fused_tick_k2(
     if delivered.dtype != torch.bool or delivered.shape != (R,):
         raise ValueError("delivered must be a bool [R] tensor")
     require_hopper(dev)
-    lib = _load()
+    res = _launch_k2(k1_layout(K), batch, prev, delivered.contiguous())
+    LAUNCHES["k2"] += 1
+    return res
+
+
+def _launch_k2(layout: str, batch: DenseBatch, prev, delivered):
+    """One launch of K2's `layout` on tensors that fused_tick_k2
+    checked: (gets, prev_new, changed). Counts nothing, as _launch_k1."""
+    R, K = batch.wants.shape
+    dev, dtype = batch.wants.device, batch.wants.dtype
     gets = torch.empty((R, K), dtype=dtype, device=dev)
     prev_new = torch.empty_like(prev)
     changed = torch.empty(R, dtype=torch.bool, device=dev)
-    fn = getattr(lib, f"dsk_k2_{_DT[dtype]}_{_DT[prev.dtype]}")
+    fn = getattr(_load(), f"dsk_k2_{layout}_{_DT[dtype]}_{_DT[prev.dtype]}")
     err = fn(
         *_inputs(batch),
-        prev.data_ptr(), delivered.contiguous().data_ptr(),
+        prev.data_ptr(), delivered.data_ptr(),
         gets.data_ptr(), prev_new.data_ptr(), changed.data_ptr(),
         R, K, torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(err, "K2")
-    LAUNCHES["k2"] += 1
+    _raise_on(err, f"K2 ({layout} layout)")
     return gets, prev_new, changed

@@ -10,10 +10,10 @@ and raises on a build or launch failure — nothing falls back. Each
 launch adds one to dense_cuda.LAUNCHES["k3"].
 
 K3 has two layouts, chosen from the row width by `k3_layout`: rows of
-up to WARP_MAX_K lanes run one warp per row with the row in registers
-(`banded_fill_warp_kernel`); wider rows run one block per row with the
-row staged in shared memory (`banded_fill_kernel`), which bounds the
-width `_check` admits.
+up to dense_cuda.WARP_MAX_K lanes (the same bound as K1/K2's) run one
+warp per row with the row in registers (`banded_fill_warp_kernel`);
+wider rows run one block per row with the row staged in shared memory
+(`banded_fill_kernel`), which bounds the width `_check` admits.
 """
 
 from __future__ import annotations
@@ -27,16 +27,13 @@ from doorman_tpu_torch.utils.backend import require_hopper
 
 # Dynamic shared memory one block may use on Hopper (227 KB).
 SMEM_LIMIT = 232_448
-# The widest row the warp-per-row layout takes (csrc/dense_solve.cu
-# kWarpMaxK: 8 elements a lane).
-WARP_MAX_K = 256
 
 
 def k3_layout(K: int) -> str:
     """"warp" (one warp per row, the row in registers) for rows of up to
-    WARP_MAX_K lanes, "block" (one block per row, the row in shared
-    memory) above."""
-    return "warp" if K <= WARP_MAX_K else "block"
+    dense_cuda.WARP_MAX_K lanes, "block" (one block per row, the row in
+    shared memory) above."""
+    return "warp" if K <= dense_cuda.WARP_MAX_K else "block"
 
 
 def k3_smem_bytes(K: int, itemsize: int) -> int:
