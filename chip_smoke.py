@@ -21,6 +21,16 @@ zeroed just before each path is driven and read just after. Last, the
 f32 lane server runs again on four churn seeds with K1/K2 in each
 layout, and the rows left in the scoped tick's frontier are reported.
 
+Then resources of any width: K3's third layout, which reads a row wider
+than shared memory from global memory, against its plain version up to
+1,048,576 lanes; the lane server with one resource of 1,000,000 clients
+and with ten of 100,000 (bench.py's wide shapes, on the chunked wide
+resident solver), and one 20,000-client resource per lane kind; a narrow
+resource overflowing between two ticks on the 1M-lease lane server (that
+tick runs the BatchSolver's edge-list lane part, the next the wide
+solver); and 8 PRIORITY_BANDS resources of 100,000 clients in two
+binding capacity groups, whose every K3 launch is in the global layout.
+
 Prints one line per phase, the card's name and power limit, one JSON line
 of per-kernel measurements, and last the JSON result line. Exits non-zero
 (and prints no result) without a CUDA device, outside a checkout of the
@@ -161,13 +171,15 @@ def phase_build():
             f"{u['spill_loads']} B spilled"
             for n, u in sorted(usage.items()) if n.startswith(kern)))
     # K1: 2 block + 8 warp (f32/f64, V = 1/2/4/8); K2: twice K1's, one
-    # per prev type; K3: 2 block + 8 warp.
+    # per prev type; K3: 2 block + 8 warp + 2 global.
     counts = {k: sum(n.startswith(k) for n in usage) for k in ("K1", "K2", "K3")}
-    check(counts == {"K1": 10, "K2": 20, "K3": 10},
+    check(counts == {"K1": 10, "K2": 20, "K3": 12},
           f"ptxas reported {counts} kernel entries; unlabelled: {unknown}")
     spills = [n for n, u in usage.items() if " warp " in n
               and (u["spill_stores"] or u["spill_loads"])]
     check(not spills, f"warp layout spills: {spills}")
+    check(sum(" global " in n for n in usage) == 2,
+          "K3's global layout entries missing from ptxas's report")
     return usage
 
 
@@ -368,8 +380,8 @@ def _k3_rel(torch, got, want, wants, active, cap):
 
 
 def _widest_k3_row(torch, dtype):
-    """The widest row K3's block layout stages in shared memory, as
-    priority_cuda._check admits it."""
+    """The widest row K3's block layout stages in shared memory
+    (priority_cuda.k3_layout)."""
     from doorman_tpu_torch.solver.priority_cuda import SMEM_LIMIT, k3_smem_bytes
 
     it = torch.empty((), dtype=dtype).element_size()
@@ -384,7 +396,8 @@ def phase_kernels_k3(torch):
     layout at K = 8, 100, 128, 256, the block layout at K = 257, 4096 and
     the widest row it admits; f32 and f64; 1 and 4 bands — with repeat
     launches bit-identical and the row totals checked; the two layouts
-    against each other on one K = 128 table; the grouped solve_priority
+    against each other on one K = 128 table (the global layout, for rows
+    wider than the block layout stages, has its own phase); the grouped solve_priority
     through K3 against the plain solve, two calls bit-identical.
     Comparison launches: not counted."""
     import numpy as np
@@ -410,9 +423,10 @@ def phase_kernels_k3(torch):
         # The row totals feed the group usage: a tree sum of up to K
         # grants, held to the grouped solve's bound at f32.
         tbound = K3_SOLVE_RTOL if dtype == torch.float32 else F64_RTOL
+        it = torch.empty((), dtype=dtype).element_size()
         for K in (8, 100, 128, 256, 257, 4096, _widest_k3_row(torch, dtype)):
             R = 1024 if K <= 257 else (96 if K == 4096 else 32)
-            layout = k3_layout(K)
+            layout = k3_layout(K, it)
             w, wt, band, act, cap = _k3_tables(torch, rng, R, K, dtype)
             over = (torch.where(act, w, 0).sum(1) > cap).float().mean().item()
             for nb in (1, 4):
@@ -989,7 +1003,7 @@ def _check_prio(torch, run):
 
     server, resources = run["server"], run["resources"]
     solver = server._solver
-    snap = solver.last_snapshot
+    snap = solver.last_snapshot.priority_part
     launches = run["launches"]
     per_tick = alloc_evaluations(solver._tdtype, True)
     check(solver.ticks == run["ticks"],
@@ -1184,6 +1198,734 @@ def phase_frontier(torch):
     return out
 
 
+# -- phase 7: K3's global layout ----------------------------------------------
+
+# Widths the block layout cannot stage (priority_cuda.k3_layout), with
+# the rows each table holds.
+K3_GLOBAL_WIDTHS = {"f32": ((16_384, 32), (131_072, 8), (1_048_576, 6)),
+                    "f64": ((8_192, 32), (131_072, 8))}
+
+
+def phase_k3_global(torch):
+    """K3's global layout against its plain version on the same CUDA
+    tensors at the widths above, f32 and f64, 1 and 4 bands (the K3
+    phase's special rows included), repeat launches bit-identical and
+    the row totals checked; against the block layout on one K = 4,096
+    table. Comparison launches: not counted."""
+    import numpy as np
+
+    from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
+    from doorman_tpu_torch.solver import dense_cuda
+    from doorman_tpu_torch.solver.priority import _alloc_banded
+    from doorman_tpu_torch.solver.priority_cuda import (
+        _launch_layout,
+        alloc_banded_k3,
+        k3_layout,
+    )
+
+    saved = dict(dense_cuda.LAUNCHES)
+    saved_layouts = dict(dense_cuda.K3_LAYOUT_LAUNCHES)
+    rng = np.random.default_rng(2026)
+    worst = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        tag_dt = "f32" if dtype == torch.float32 else "f64"
+        bound = F32_PARITY_REL_BOUND if dtype == torch.float32 else F64_RTOL
+        tbound = K3_SOLVE_RTOL if dtype == torch.float32 else F64_RTOL
+        it = torch.empty((), dtype=dtype).element_size()
+        for K, R in K3_GLOBAL_WIDTHS[tag_dt]:
+            check(k3_layout(K, it) == "global",
+                  f"K={K} at {name} is not a global-layout row")
+            w, wt, band, act, cap = _k3_tables(torch, rng, R, K, dtype)
+            for nb in (1, 4):
+                before = dense_cuda.K3_LAYOUT_LAUNCHES["global"]
+                g1, t1 = alloc_banded_k3(w, wt, band, act, cap, nb, totals=True)
+                g2, t2 = alloc_banded_k3(w, wt, band, act, cap, nb, totals=True)
+                plain = _alloc_banded(w, wt, band, act, cap, nb)
+                torch.cuda.synchronize()
+                tag = f"K={K} {name} {nb} band(s) R={R}"
+                check(dense_cuda.K3_LAYOUT_LAUNCHES["global"] == before + 2,
+                      f"K3 did not launch its global layout ({tag})")
+                check(torch.equal(g1, g2) and torch.equal(t1, t2),
+                      f"K3 global layout not deterministic ({tag})")
+                check(bool(torch.isfinite(g1).all()), f"K3 non-finite ({tag})")
+                err = _k3_rel(torch, g1, plain, w, act, cap)
+                check(err <= bound,
+                      f"K3 global vs plain {err:.3g} > {bound:g} ({tag})")
+                check(not bool(g1[:2].any()),
+                      f"K3 grants on an inactive or zero-capacity row ({tag})")
+                terr = _k3_rel(torch, t1[:, None], g1.double().sum(1)[:, None],
+                               w, act, cap)
+                check(terr <= tbound, f"K3 global row totals {terr:.3g} ({tag})")
+                worst[name] = max(worst.get(name, 0.0), err)
+                say(f"phase k3-global: {tag}: vs plain max rel err {err:.3g} "
+                    f"(bound {bound:g}), repeat bit-identical, row totals "
+                    f"within {terr:.3g}")
+            del w, wt, band, act, cap, g1, g2, t1, t2, plain
+        # The global and block layouts on one table both take.
+        w, wt, band, act, cap = _k3_tables(torch, rng, 96, 4096, dtype)
+        for nb in (1, 4):
+            gg, tg = _launch_layout("global", w, wt, band, act, cap, nb, True)
+            gb, tb = _launch_layout("block", w, wt, band, act, cap, nb, True)
+            torch.cuda.synchronize()
+            lerr = _k3_rel(torch, gg, gb, w, act, cap)
+            terr = _k3_rel(torch, tg[:, None], tb[:, None], w, act, cap)
+            tag = f"K=4096 {name} {nb} band(s)"
+            check(lerr <= bound, f"K3 global vs block layout {lerr:.3g} ({tag})")
+            check(terr <= tbound, f"K3 global vs block row totals {terr:.3g}")
+            say(f"phase k3-global: {tag} R=96: global vs block layout "
+                f"{lerr:.3g} (bound {bound:g}), row totals {terr:.3g}")
+    dense_cuda.LAUNCHES.update(saved)
+    dense_cuda.K3_LAYOUT_LAUNCHES.update(saved_layouts)
+    return worst
+
+
+def _k3_global_timing(torch, wide_prio):
+    """K3's global layout timed with its launches queued, beside its
+    bound and its plain version: on the wide priority server's own
+    8 x 131,072 f32 tables at a representative theta evaluation (grouped
+    rows at theta = 0.5), and on one 1,048,576-lane row (4 bands, every
+    band overflowing its share)."""
+    import numpy as np
+
+    from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
+    from doorman_tpu_torch.solver import dense_cuda
+    from doorman_tpu_torch.solver.priority import _alloc_banded
+    from doorman_tpu_torch.solver.priority_cuda import alloc_banded_k3
+
+    b = wide_prio["server"]._solver.last_snapshot.priority_part.batch
+    nb = wide_prio["server"]._solver.last_snapshot.priority_part.num_bands
+    wants = torch.where(b.active, b.wants, 0)
+    weights = torch.where(b.active, b.weights, 0)
+    half = torch.where(b.group >= 0, 0.5, 1.0).to(b.capacity.dtype)
+    tables = {"8x131072": (wants, weights, b.band, b.active, b.capacity * half,
+                           nb)}
+    rng = np.random.default_rng(31)
+    K = 1 << 20
+    act = _put(torch, rng.random((1, K)) < 0.95)
+    w1 = _put(torch, rng.integers(0, 100, (1, K)).astype(np.float64),
+              torch.float32) * act
+    s1 = _put(torch, rng.integers(1, 4, (1, K)).astype(np.float64),
+              torch.float32) * act
+    b1 = _put(torch, rng.integers(0, 4, (1, K)).astype(np.int32))
+    cap1 = w1.sum(1) * 0.1  # every band overflows what the ones above left
+    tables["1x1048576"] = (w1, s1, b1, act, cap1, 4)
+    saved = dict(dense_cuda.LAUNCHES)
+    saved_layouts = dict(dense_cuda.K3_LAYOUT_LAUNCHES)
+    out = {}
+    for key, args in tables.items():
+        R, K = args[0].shape
+        got = alloc_banded_k3(*args)
+        plain = _alloc_banded(*args)
+        rel = _k3_rel(torch, got, plain, args[0], args[3], args[4])
+        check(rel <= F32_PARITY_REL_BOUND, f"K3 global {key} vs plain {rel:.3g}")
+        ms = _time_ms(torch, lambda: alloc_banded_k3(*args), reps=5,
+                      queued=True)
+        pms = _time_ms(torch, lambda: _alloc_banded(*args), reps=2)
+        nbytes = R * K * (2 * 4 + 4 + 1) + R * K * 4 + R * 4
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = _k3_ops(torch, *args, plain) / H100_F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        out[key] = {
+            "ms": ms, "plain_ms": pms, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "share_of_bound": bound / ms, "rel_err": rel, "shape": [R, K],
+            "max_abs_err": (got.double() - plain.double()).abs().max().item(),
+        }
+        say(f"phase k3-global: timed {key} f32: {ms:.4f} ms queued, plain "
+            f"{pms:.3f} ms, bound {bound:.5f} ms "
+            f"({out[key]['bound_by']}), {bound / ms:.2%} of bound")
+    dense_cuda.LAUNCHES.update(saved)
+    dense_cuda.K3_LAYOUT_LAUNCHES.update(saved_layouts)
+    return out
+
+
+# -- phase 8: lane resources of any width ----------------------------------
+
+# bench.py's bench_server_tick_wide shapes (label, wide resources,
+# clients each), each beside tools/drives/drive_wide.py's narrow filler.
+WIDE_SHAPES = (("wide-1m", 1, 1_000_000), ("wide-10x100k", 10, 100_000))
+WIDE_NARROW = 5
+WIDE_NARROW_CLIENTS = 50
+WIDE_TICKS = 12
+WIDE_F64_TICKS = 3
+WIDE_QUIET = 8  # > one delivery rotation (5) plus the pipeline's depth
+LANE_MIX_CLIENTS = 20_000
+
+
+def _wide_yaml(wide_ids, capacity, lanes=False):
+    algo = ("lease_length: 3600, refresh_interval: 5, "
+            "learning_mode_duration: 0")
+    lines = ["resources:"]
+    for rid in wide_ids:
+        if lanes:
+            prefix = rid.split(".")[1]
+            _p, kind, variant, _s = next(l for l in LANES if l[0] == prefix)
+            params = (f", parameters: [{{name: variant, value: {variant}}}]"
+                      if variant else "")
+            cap = 40.0 if kind == 1 else capacity  # STATIC: per client
+            lines.append(f"  - identifier_glob: '{rid}'\n    capacity: {cap}\n"
+                         f"    algorithm: {{kind: {kind}, {algo}{params}}}")
+        else:
+            lines.append(f"  - identifier_glob: '{rid}'\n"
+                         f"    capacity: {capacity}\n    algorithm: "
+                         f"{{kind: PROPORTIONAL_SHARE, {algo}}}")
+    lines.append("  - identifier_glob: '*'\n    capacity: 500\n"
+                 f"    algorithm: {{kind: FAIR_SHARE, {algo}}}")
+    return "\n".join(lines) + "\n"
+
+
+def _wide_inputs(engine, res):
+    """(wants, has, subclients) of each resource, in slot order."""
+    import numpy as np
+
+    ridx, _c, w, h, s, _p = engine.pack([r.store for r in res])
+    starts = np.searchsorted(ridx, np.arange(len(res) + 1))
+    return [(w[a:b], h[a:b], s[a:b]) for a, b in zip(starts[:-1], starts[1:])]
+
+
+async def _drive_wide(torch, label, n_wide, clients, dtype_name, ticks,
+                      quiet, seed, lanes=False):
+    import numpy as np
+
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer
+    from doorman_tpu_torch.solver import dense_cuda
+
+    rng = np.random.default_rng(seed)
+    capacity = 40.0 * clients  # oversubscribed: mean wants ~50
+    if lanes:
+        wide_ids = [f"mix.{l[0]}" for l in LANES]
+    else:
+        wide_ids = [f"wide{r}" for r in range(n_wide)]
+    server = CapacityServer(
+        f"smoke-{label}", TrivialElection(), mode="batch", native_store=True,
+        solver_dtype=dtype_name, fused_tick=True, scoped_solve=True,
+        tick_pipeline_depth=3, tick_interval=1.0, device=DEVICE,
+    )
+    await server.start(0, host="127.0.0.1", tick_loop=False)
+    try:
+        await server.load_config(parse_yaml_config(
+            _wide_yaml(wide_ids, capacity, lanes)))
+        t = time.perf_counter()
+        res = [server.get_or_create_resource(r) for r in wide_ids]
+        narrow = [server.get_or_create_resource(f"narrow{i}")
+                  for i in range(WIDE_NARROW)]
+        engine = server._store_engine
+        n_wide_leases = len(res) * clients
+        rids = np.concatenate([
+            np.repeat([r.store._rid for r in res], clients),
+            np.repeat([r.store._rid for r in narrow], WIDE_NARROW_CLIENTS),
+        ]).astype(np.int32)
+        cids = np.fromiter(
+            (engine.client_handle(f"w{i}") for i in range(len(rids))),
+            np.int64, count=len(rids),
+        )
+        n = len(rids)
+        sub = np.ones(n, np.int32)
+        if lanes:
+            sub[:n_wide_leases] = rng.integers(1, 4, n_wide_leases)
+        engine.bulk_assign(
+            rids, cids, np.full(n, time.time() + 3600.0), np.full(n, 5.0),
+            np.zeros(n), rng.integers(1, 100, n).astype(np.float64), sub,
+        )
+        say(f"phase {label}[{dtype_name}]: {len(res)} wide resource(s) x "
+            f"{clients} clients + {WIDE_NARROW} x {WIDE_NARROW_CLIENTS}, "
+            f"{engine.total_leases} leases populated in "
+            f"{time.perf_counter() - t:.1f}s")
+        inputs = _wide_inputs(engine, res)
+        dense_cuda.reset_launches()  # the wide path starts here
+        walls, modes, scopes, first = [], [], [], None
+        n_churn = n_wide_leases // 20  # 5% of the wide clients a tick
+        for i in range(ticks + quiet):
+            if 0 < i < ticks:
+                pick = rng.choice(n_wide_leases, n_churn, replace=False)
+                engine.bulk_refresh(
+                    rids[pick], cids[pick],
+                    np.full(n_churn, time.time() + 3600.0),
+                    np.full(n_churn, 5.0),
+                    rng.integers(1, 100, n_churn).astype(np.float64),
+                )
+            if i == ticks + quiet - 1:
+                # The last tick re-reads the config (as a reload does):
+                # a full solve that delivers every chunk row, after
+                # which the store of record must equal the device grants.
+                server._config_epoch += 1
+            t = time.perf_counter()
+            await server.tick_once()
+            walls.append(time.perf_counter() - t)
+            wide = server._resident_wide
+            if i == 0:
+                first = wide._has.clone()  # the first (full) solve's grants
+            modes.append(wide.last_solve_mode)
+            scopes.append(wide.last_scope["rows"])
+        await server.flush_ticks()
+        torch.cuda.synchronize()
+        launches = dict(dense_cuda.LAUNCHES)  # read just after
+        return dict(server=server, res=res, inputs=inputs, first=first,
+                    walls=walls, modes=modes, scopes=scopes,
+                    launches=launches, capacity=capacity, clients=clients,
+                    ticks=ticks)
+    finally:
+        await server.stop()
+
+
+def _check_wide(torch, run, label, lanes=False):
+    """The first tick's grants against the f64 oracles, conservation in
+    the store, the store of record equal to the device grants after the
+    quiet ticks (the last of which delivered every row), the partition,
+    and the chunked solve's determinism."""
+    import numpy as np
+
+    from doorman_tpu_torch.algorithms.tick import (
+        F32_PARITY_REL_BOUND,
+        oracle_row,
+    )
+    from doorman_tpu_torch.core.resource import algo_kind_for, static_param
+    from doorman_tpu_torch.solver.dense import ChunkedDenseBatch, solve_chunked
+
+    server, res = run["server"], run["res"]
+    wide = server._resident_wide
+    check(server._wide_ids == {r.id for r in res},
+          f"{label}: wide partition {sorted(server._wide_ids)}")
+    check(server._solver is None or server._solver.ticks == 0,
+          f"{label}: the BatchSolver ticked (an overflow)")
+    check(run["launches"]["k1"] > 0, f"{label}: K1 never launched for the "
+          "narrow resources")
+    W = wide._W
+    first = run["first"].double().cpu().numpy().reshape(-1)
+    final = wide._has.double().cpu().numpy().reshape(-1)
+    rng = np.random.default_rng(17)
+    frontier = set(wide._scope.ids().tolist())
+    worst_oracle = 0.0
+    for i, r in enumerate(res):
+        w, h, s = run["inputs"][i]
+        kind = algo_kind_for(r.template)
+        cap = float(r.template.capacity)
+        want = oracle_row(kind, cap, static_param(r.template), w, h, s)
+        base = int(wide._base_row[wide._rid_to_seg[r.store._rid]]) * W
+        got = first[base: base + len(w)]
+        if lanes:
+            scale = max(cap, float(w.max()))
+            err = float(np.abs(got - want).max()) / scale
+            check(err <= F32_PARITY_REL_BOUND,
+                  f"{label} {r.id}: first tick vs f64 oracle {err:.3g}")
+            worst_oracle = max(worst_oracle, err)
+        else:
+            # bench.py's check of this shape: rtol 2e-6, atol 1e-4.
+            sample = rng.integers(0, len(w), 4000)
+            diff = np.abs(got[sample] - want[sample])
+            check((diff <= 1e-4 + 2e-6 * np.abs(want[sample])).all(),
+                  f"{label} {r.id}: first tick vs f64 oracle off by "
+                  f"{diff.max():.3g}")
+            rel = diff / np.maximum(np.abs(want[sample]), 1e-30)
+            worst_oracle = max(worst_oracle, float(rel.max()))
+        _r, _c, _w, store, _s, _p = server._store_engine.pack([r.store])
+        # Conservation, but on NO_ALGORITHM (grants = wants) and STATIC
+        # (a per-client cap).
+        check(kind in (0, 1) or store.sum() <= cap * (1 + 1e-6),
+              f"{label} {r.id}: store holds {store.sum():.9g} > {cap:.9g}")
+        check(np.array_equal(store, final[base: base + len(store)]),
+              f"{label} {r.id}: store differs from the device grants")
+    # The chunked solve twice on the server's tables: the same bits.
+    cfg = wide._config
+    batch = ChunkedDenseBatch(
+        wants=wide._wants, has=wide._has, subclients=wide._sub,
+        active=wide._act, row_seg=wide._row_seg_d, capacity=cfg.cap_d,
+        algo_kind=cfg.kind_d, learning=cfg.learn_d,
+        static_capacity=cfg.statc_d, lengths=wide._seg_len_d,
+    )
+    lanes_present = cfg.lanes()
+    a = solve_chunked(batch, lanes=lanes_present)
+    b = solve_chunked(batch, lanes=lanes_present)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), f"{label}: chunked re-solve not bit-identical")
+    # Segments still in the scope frontier: an overloaded proportional
+    # resource's grants sit on the free-capacity clamp and move by an
+    # ulp a tick, as the narrow rows do (PERF.md).
+    return dict(worst_oracle=worst_oracle, settling=len(frontier),
+                batch=batch, lanes=lanes_present)
+
+
+def phase_wide(torch, card):
+    """bench.py's wide shapes and the lane mix through
+    CapacityServer.tick_once: f32, and a few ticks at f64."""
+    out = {}
+
+    async def drive():
+        for label, n_wide, clients in WIDE_SHAPES + (
+                ("lane-mix", len(LANES), LANE_MIX_CLIENTS),):
+            lanes = label == "lane-mix"
+            for dtype_name, ticks, seed in (("f32", WIDE_TICKS, 7),
+                                            ("f64", WIDE_F64_TICKS, 8)):
+                if lanes and dtype_name == "f64":
+                    continue
+                run = await _drive_wide(torch, label, n_wide, clients,
+                                        dtype_name, ticks, WIDE_QUIET, seed,
+                                        lanes)
+                chk = _check_wide(torch, run, label, lanes)
+                walls = run["walls"]
+                p50, p95 = _pcts(walls[2:ticks]) if ticks > 3 else _pcts(
+                    walls[1:ticks])
+                wide = run["server"]._resident_wide
+                scoped = [n for n, m in zip(run["scopes"], run["modes"])
+                          if m == "scoped"]
+                phases = run["server"].status()["phase_s"]
+                say(f"phase {label}[{dtype_name}]: {len(walls)} ticks ({ticks}"
+                    f" with 5% churn, {WIDE_QUIET} quiet), tick wall p50 "
+                    f"{p50:.2f} ms p95 {p95:.2f} ms, modes scoped="
+                    f"{run['modes'].count('scoped')} full="
+                    f"{run['modes'].count('full')}, launches "
+                    f"{run['launches']}, first tick vs f64 oracle "
+                    f"{chk['worst_oracle']:.3g}, store == device grants "
+                    f"after a full delivery ({chk['settling']} of "
+                    f"{len(run['res'])} resources still in the scope "
+                    f"frontier), chunked re-solve bit-identical; card {card}")
+                say(f"phase {label}[{dtype_name}]: rows in scope: {wide._R} "
+                    f"chunk rows of {wide._W} lanes, scoped ticks solved "
+                    f"{sum(scoped) / max(len(scoped), 1):.0f} rows on average,"
+                    f" frontier {len(wide._scope)} of {len(run['res'])} "
+                    f"resources; host phase ms per tick: " + ", ".join(
+                        f"{k} {v * 1000.0 / len(walls):.3f}"
+                        for k, v in phases.items() if v > 0))
+                out[f"{label} {dtype_name}"] = dict(
+                    p50=p50, p95=p95, run=run, check=chk)
+
+    asyncio.run(drive())
+    return out
+
+
+def _wide_entry(torch, wide):
+    """The chunked lane solve (plain PyTorch: the JAX package computes
+    it outside any Pallas kernel) timed on the wide-1m f32 server's own
+    tables, beside its bytes bound."""
+    chk = wide["wide-1m f32"]["check"]
+    batch, lanes = chk["batch"], chk["lanes"]
+    from doorman_tpu_torch.solver.dense import solve_chunked
+
+    ms = _time_ms(torch, lambda: solve_chunked(batch, lanes=lanes), reps=10)
+    R, W = batch.wants.shape
+    it = batch.wants.element_size()
+    nbytes = R * W * (3 * it + 1) + R * W * it + R * 8
+    return {
+        "name": "chunked lane solve (plain PyTorch, no kernel)",
+        "shape": [R, W], "dtype": str(batch.wants.dtype), "ms": ms,
+        "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "tick_p50_ms": wide["wide-1m f32"]["p50"],
+        "tick_p95_ms": wide["wide-1m f32"]["p95"],
+        "tick_p50_ms_10x100k": wide["wide-10x100k f32"]["p50"],
+        "tick_p95_ms_10x100k": wide["wide-10x100k f32"]["p95"],
+    }
+
+
+# -- phase 9: the BatchSolver's lane parts ---------------------------------
+
+def phase_batch_lanes(torch, server):
+    """The BatchSolver's dense lane part (kernel K1) on the f32 lane
+    server's 10,000 resources: one snapshot, one solve, the flat grants
+    against the plain solve of the same dense table. Not applied."""
+    import numpy as np
+
+    from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
+    from doorman_tpu_torch.solver import dense_cuda
+    from doorman_tpu_torch.solver.batch import BatchSolver
+    from doorman_tpu_torch.solver.dense import solve_dense
+
+    solver = BatchSolver(dtype=np.float32, device=DEVICE)
+    resources = list(server.resources.values())
+    t = time.perf_counter()
+    solver.prepare(resources)  # a first pack, timed apart
+    first_ms = (time.perf_counter() - t) * 1e3
+    solver.phase_s = dict.fromkeys(solver.phase_s, 0.0)
+    dense_cuda.reset_launches()  # the dense lane part starts here
+    snap = solver.prepare(resources)
+    gets = solver.solve(snap)
+    torch.cuda.synchronize()
+    launches = dict(dense_cuda.LAUNCHES)  # read just after
+    check(snap.dense is not None, "the lane part did not pack dense")
+    check(launches["k1"] == 1, f"dense lane part launches {launches}")
+    n_rows, kfill = snap.dense_fill
+    plain = solve_dense(snap.dense)[:n_rows, :kfill].cpu().numpy()
+    want = plain[snap.ridx, snap.pos]
+    cap = snap.dense.capacity.cpu().numpy()[snap.ridx]
+    w = snap.dense.wants.cpu().numpy()[snap.ridx, snap.pos]
+    err = float((np.abs(gets - want) / np.maximum(cap, w)).max())
+    check(err <= F32_PARITY_REL_BOUND, f"dense lane part vs plain {err:.3g}")
+    say(f"phase batch-lanes: dense lane part over {len(resources)} resources "
+        f"({snap.num_edges} edges, table {list(snap.dense.wants.shape)}): "
+        f"launches {launches}, vs plain {err:.3g}; BatchSolver ms: " +
+        ", ".join(f"{k} {v * 1e3:.3f}" for k, v in solver.phase_s.items())
+        + f" (the first pack: {first_ms:.1f} ms)")
+    return dict(launches=launches["k1"], rel_err=err,
+                pack_ms=solver.phase_s["pack"] * 1e3, first_pack_ms=first_ms,
+                solve_ms=solver.phase_s["solve"] * 1e3)
+
+
+# -- phase 10: a narrow resource overflows ----------------------------------
+
+OVERFLOW_CLIENTS = 5_000
+
+
+def _oracle_err(res, grants, inputs):
+    """Max |grant - f64 oracle| / max(capacity, max wants) of one lane
+    resource, on the solve's inputs (wants, has, subclients)."""
+    import numpy as np
+
+    from doorman_tpu_torch.algorithms.tick import oracle_row
+    from doorman_tpu_torch.core.resource import algo_kind_for, static_param
+
+    w, h, s = inputs
+    cap = float(res.template.capacity)
+    want = oracle_row(algo_kind_for(res.template), cap,
+                      static_param(res.template), w, h, s)
+    return float(np.abs(grants - want).max()) / max(cap, float(w.max()))
+
+
+def phase_overflow(torch, server):
+    """On the f32 lane server: 5,000 clients bulk-assigned onto one
+    100-client PROPORTIONAL_SHARE resource between two ticks. That tick
+    must run the BatchSolver's edge-list lane part over every resource;
+    the next must run the resource on the wide solver; grants within the
+    oracle bound on both."""
+    import numpy as np
+
+    from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
+    from doorman_tpu_torch.solver import dense_cuda
+
+    engine = server._store_engine
+    res = next(r for r in server.resources.values()
+               if r.id.startswith("prop."))
+    rng = np.random.default_rng(12)
+    n = OVERFLOW_CLIENTS
+    cids = np.fromiter((engine.client_handle(f"ovf{i}") for i in range(n)),
+                       np.int64, count=n)
+    engine.bulk_assign(
+        np.full(n, res.store._rid, np.int32), cids,
+        np.full(n, time.time() + 3600.0), np.full(n, 5.0), np.zeros(n),
+        rng.integers(1, 100, n).astype(np.float64), np.ones(n, np.int32),
+    )
+    batch_ticks = server._solver.ticks if server._solver is not None else 0
+    dense_cuda.reset_launches()  # the overflow path starts here
+    before = _wide_inputs(engine, [res])[0]
+    t = time.perf_counter()
+    asyncio.run(server.tick_once())
+    t_overflow = time.perf_counter() - t
+    solver = server._solver
+    check(solver is not None and solver.ticks == batch_ticks + 1,
+          "the overflow tick did not run through the BatchSolver")
+    snap = solver.last_snapshot
+    check(snap.edges is not None and snap.dense is None,
+          "the overflow tick did not take the edge-list lane part")
+    check(len(snap.resource_ids) == len(server.resources),
+          "the overflow tick did not solve every resource")
+    _r, _c, _w, store, _s, _p = engine.pack([res.store])
+    err1 = _oracle_err(res, store, before)
+    check(err1 <= F32_PARITY_REL_BOUND, f"overflow tick vs oracle {err1:.3g}")
+    check(store.sum() <= res.template.capacity * (1 + 1e-6),
+          "overflow tick exceeds the resource's capacity")
+    before = _wide_inputs(engine, [res])[0]
+    t = time.perf_counter()
+    asyncio.run(server.tick_once())
+    asyncio.run(server.flush_ticks())
+    t_next = time.perf_counter() - t
+    torch.cuda.synchronize()
+    launches = dict(dense_cuda.LAUNCHES)
+    wide = server._resident_wide
+    check(res.id in server._wide_ids and wide is not None and wide.ticks >= 1,
+          "the next tick did not run the grown resource on the wide solver")
+    check(solver.ticks == batch_ticks + 1, "a second overflow tick ran")
+    check(launches["k1"] > 0, "K1 never launched on the tick after")
+    _r, _c, _w, store, _s, _p = engine.pack([res.store])
+    err2 = _oracle_err(res, store, before)
+    check(err2 <= F32_PARITY_REL_BOUND, f"wide tick vs oracle {err2:.3g}")
+    say(f"phase overflow: {res.id} grew from 100 to {len(store)} clients: "
+        f"the tick ran the BatchSolver's edge-list part over "
+        f"{len(snap.resource_ids)} resources ({snap.num_edges} edges) in "
+        f"{t_overflow * 1e3:.1f} ms, vs f64 oracle {err1:.3g}; the next tick "
+        f"ran it on the wide solver ({wide._R} chunk rows) in "
+        f"{t_next * 1e3:.1f} ms, vs f64 oracle {err2:.3g}; launches "
+        f"{launches}")
+    return dict(err=max(err1, err2), overflow_ms=t_overflow * 1e3,
+                next_ms=t_next * 1e3)
+
+
+# -- phase 11: wide PRIORITY_BANDS resources -------------------------------
+
+WIDE_PRIO_RES = 8
+WIDE_PRIO_CLIENTS = 100_000
+WIDE_PRIO_GROUP = 4  # resources a capacity group
+WIDE_PRIO_TICKS = {"f32": 3, "f64": 2}
+
+
+def _wide_prio_yaml(capacity, gcap):
+    algo = ("{kind: PRIORITY_BANDS, lease_length: 3600, refresh_interval: 5, "
+            "learning_mode_duration: 0}")
+    lines = ["groups:"]
+    for g, c in enumerate(gcap):
+        lines.append(f"  - name: wg{g}\n    capacity: {float(c)!r}")
+    lines.append("resources:")
+    for g in range(len(gcap)):
+        lines.append(f"  - identifier_glob: 'wp.g{g}.*'\n    capacity: "
+                     f"{capacity}\n    capacity_group: wg{g}\n"
+                     f"    algorithm: {algo}")
+    lines.append("  - identifier_glob: '*'\n    capacity: 500\n    algorithm: "
+                 "{kind: FAIR_SHARE, lease_length: 3600, refresh_interval: 5, "
+                 "learning_mode_duration: 0}")
+    return "\n".join(lines) + "\n"
+
+
+async def _drive_wide_prio(torch, dtype_name, seed):
+    import numpy as np
+
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer
+    from doorman_tpu_torch.solver import dense_cuda
+
+    rng = np.random.default_rng(seed)
+    C, n_res = WIDE_PRIO_CLIENTS, WIDE_PRIO_RES
+    capacity = 40.0 * C
+    n_groups = n_res // WIDE_PRIO_GROUP
+    gcap = [GROUP_SHARE * capacity * WIDE_PRIO_GROUP] * n_groups
+    ids = [f"wp.g{i // WIDE_PRIO_GROUP}.r{i}" for i in range(n_res)]
+    server = CapacityServer(
+        "smoke-wide-prio", TrivialElection(), mode="batch", native_store=True,
+        solver_dtype=dtype_name, fused_tick=True, scoped_solve=True,
+        tick_pipeline_depth=3, tick_interval=1.0, device=DEVICE,
+    )
+    await server.start(0, host="127.0.0.1", tick_loop=False)
+    try:
+        await server.load_config(parse_yaml_config(
+            _wide_prio_yaml(capacity, gcap)))
+        res = [server.get_or_create_resource(r) for r in ids]
+        engine = server._store_engine
+        rids = np.repeat([r.store._rid for r in res], C).astype(np.int32)
+        n = len(rids)
+        cids = np.fromiter((engine.client_handle(f"p{i}") for i in range(n)),
+                           np.int64, count=n)
+        engine.bulk_assign(
+            rids, cids, np.full(n, time.time() + 3600.0), np.full(n, 5.0),
+            np.zeros(n), rng.integers(0, 100, n).astype(np.float64),
+            rng.integers(1, 4, n).astype(np.int32),
+            rng.choice(np.asarray(PRIORITIES), n),
+        )
+        ticks = WIDE_PRIO_TICKS[dtype_name]
+        dense_cuda.reset_launches()  # the wide priority path starts here
+        walls = []
+        for i in range(ticks):
+            if i:
+                pick = rng.choice(n, n // 20, replace=False)
+                engine.bulk_refresh(
+                    rids[pick], cids[pick],
+                    np.full(len(pick), time.time() + 3600.0),
+                    np.full(len(pick), 5.0),
+                    rng.integers(0, 100, len(pick)).astype(np.float64),
+                )
+            t = time.perf_counter()
+            await server.tick_once()
+            walls.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        launches = dict(dense_cuda.LAUNCHES)  # read just after
+        layouts = dict(dense_cuda.K3_LAYOUT_LAUNCHES)
+        return dict(server=server, resources=res, walls=walls, ticks=ticks,
+                    launches=launches, layouts=layouts,
+                    cap=np.full(n_res, capacity),
+                    group=np.arange(n_res) // WIDE_PRIO_GROUP,
+                    gcap=np.asarray(gcap))
+    finally:
+        await server.stop()
+
+
+def _check_wide_prio(torch, run):
+    """_check_prio's checks on the wide priority server: the K3 launches
+    (every one in the global layout), the store of record against the
+    solve's grants, each resource within its capacity, every group
+    within its cap and binding, and the grouped solve through K3 against
+    the plain solve."""
+    import numpy as np
+
+    from doorman_tpu_torch.solver import dense_cuda
+    from doorman_tpu_torch.solver.priority import (
+        alloc_evaluations,
+        solve_priority,
+    )
+
+    server, res = run["server"], run["resources"]
+    solver = server._solver
+    part = solver.last_snapshot.priority_part
+    per_tick = alloc_evaluations(solver._tdtype, True)
+    n_launch = per_tick * run["ticks"]
+    check(solver.ticks == run["ticks"], f"BatchSolver ticks {solver.ticks}")
+    check(run["launches"]["k3"] == n_launch,
+          f"K3 launches {run['launches']['k3']} != {n_launch}")
+    check(run["layouts"] == {"warp": 0, "block": 0, "global": n_launch},
+          f"K3 layouts {run['layouts']}: not all global")
+    check(part.batch.wants.shape[1] == 131_072,
+          f"bucket K = {part.batch.wants.shape[1]}")
+    engine = server._store_engine
+    name = engine.client_name
+    rng = np.random.default_rng(13)
+    mism = 0
+    starts = np.searchsorted(part.ridx, np.arange(len(res) + 1))
+    for i in range(len(res)):
+        store = res[i].store
+        for e in rng.integers(starts[i], starts[i + 1], 500):
+            if store.get(name(int(part.cids[e]))).has != float(
+                    part.gets[i, part.pos[e]]):
+                mism += 1
+    check(mism == 0, f"{mism} sampled store grants differ from the solve")
+    ridx, _c, _w, has, _s, _p = engine.pack([r.store for r in res])
+    per_res = np.bincount(ridx, weights=has, minlength=len(res))
+    check((per_res <= run["cap"] * (1 + 1e-6)).all(),
+          "a resource exceeds its capacity")
+    ratios = []
+    for g, gcap in enumerate(run["gcap"]):
+        usage = per_res[run["group"] == g].sum()
+        check(usage <= gcap * (1 + 1e-6),
+              f"group wg{g}: usage {usage:.9g} > cap {gcap:.9g}")
+        ratios.append(usage / gcap)
+    check(min(ratios) > 0.999, f"a group's cap does not bind: {ratios}")
+    b, nb = part.batch, part.num_bands
+    saved = dict(dense_cuda.LAUNCHES)
+    saved_layouts = dict(dense_cuda.K3_LAYOUT_LAUNCHES)
+    ks = solve_priority(b, nb, use_kernel=True)
+    ps = solve_priority(b, nb, use_kernel=False)
+    dense_cuda.LAUNCHES.update(saved)  # comparison launches: not counted
+    dense_cuda.K3_LAYOUT_LAUNCHES.update(saved_layouts)
+    srel = ((ks.double() - ps.double()).abs()
+            / b.capacity.double().clamp_min(1e-30)[:, None]).max().item()
+    check(srel <= K3_SOLVE_RTOL, f"grouped solve vs plain {srel:.3g}")
+    return min(ratios), max(ratios), srel, nb
+
+
+def phase_wide_prio(torch, card):
+    out = {}
+
+    async def drive():
+        for dtype_name, seed in (("f32", 21), ("f64", 22)):
+            run = await _drive_wide_prio(torch, dtype_name, seed)
+            lo, hi, srel, nb = _check_wide_prio(torch, run)
+            walls = run["walls"]
+            solver = run["server"]._solver
+            ticks = run["ticks"]
+            say(f"phase wide-prio[{dtype_name}]: {WIDE_PRIO_RES} "
+                f"PRIORITY_BANDS resources x {WIDE_PRIO_CLIENTS} clients in "
+                f"{WIDE_PRIO_RES // WIDE_PRIO_GROUP} groups, {ticks} ticks "
+                f"(walls ms {[round(w * 1e3, 2) for w in walls]}), launches "
+                f"{run['launches']} by K3 layout {run['layouts']}, {nb} bands, "
+                f"group usage / cap in [{lo:.9f}, {hi:.9f}], resource caps "
+                f"held, grouped solve K3 vs plain {srel:.3g}; BatchSolver ms "
+                f"per tick: " + ", ".join(
+                    f"{k} {v * 1000.0 / ticks:.3f}"
+                    for k, v in solver.phase_s.items())
+                + f"; card {card}")
+            out[dtype_name] = dict(run=run, solve_rel_err=srel)
+
+    asyncio.run(drive())
+    return out
+
+
 # -- the kernels' JSON line --------------------------------------------------
 
 def _time_ms(torch, fn, reps=20, queued=False):
@@ -1289,7 +2031,7 @@ def _k3_entry(torch, prio, parity, solve_err, registers):
         k3_layout,
     )
 
-    snap = prio["server"]._solver.last_snapshot
+    snap = prio["server"]._solver.last_snapshot.priority_part
     b, nb = snap.batch, snap.num_bands
     wants = torch.where(b.active, b.wants, 0)
     weights = torch.where(b.active, b.weights, 0)
@@ -1308,7 +2050,8 @@ def _k3_entry(torch, prio, parity, solve_err, registers):
             / b.capacity.double().clamp_min(1e-30)[:, None]).max().item()
     check(srel <= K3_SOLVE_RTOL, f"grouped solve vs plain {srel:.3g} (server)")
     R, K = wants.shape
-    check(k3_layout(K) == "warp", f"the server's K = {K} is not a warp row")
+    it = wants.element_size()
+    check(k3_layout(K, it) == "warp", f"the server's K = {K} is not a warp row")
     block = _launch_layout("block", *args, False)[0]
     brel = _k3_rel(torch, block, plain, wants, b.active, eff)
     check(brel <= F32_PARITY_REL_BOUND, f"K3 block layout vs plain {brel:.3g}")
@@ -1329,7 +2072,6 @@ def _k3_entry(torch, prio, parity, solve_err, registers):
         torch, lambda: solve_priority(b, nb, use_kernel=True), reps=3
     )
     dense_cuda.LAUNCHES.update(saved)  # comparison and timing launches
-    it = wants.element_size()
     nbytes = R * K * (2 * it + 4 + 1) + R * K * it + R * it
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = _k3_ops(torch, *args, plain) / H100_F32_FLOPS * 1e3
@@ -1344,7 +2086,7 @@ def _k3_entry(torch, prio, parity, solve_err, registers):
         "num_bands": nb,
         "launches_per_tick": alloc_evaluations(wants.dtype, True),
         "solve_priority_ms": solve_ms, "server_rel_err": rel,
-        "server_solve_rel_err": srel, "layout": k3_layout(K),
+        "server_solve_rel_err": srel, "layout": k3_layout(K, it),
         "block_ms": block_ms, "turns_ms": turns, "wrapper_ms": wrapper_ms,
         "block_rel_err": brel,
         "parity_rel_err": {f"{d} {lay}": v for (d, lay), v in parity.items()},
@@ -1537,6 +2279,22 @@ def main() -> int:
             _k3_entry(torch, prio["f32"], worst3, solve_err, registers)
         )
         line["kernels"][0]["frontier_by_layout"] = phase_frontier(torch)
+        worst_global = phase_k3_global(torch)
+        wide = phase_wide(torch, card)
+        batch_lanes = phase_batch_lanes(torch, servers["f32"]["server"])
+        overflow = phase_overflow(torch, servers["f32"]["server"])
+        wide_prio = phase_wide_prio(torch, card)
+        line["kernels"][-1]["global_layout"] = {
+            "launches": wide_prio["f32"]["run"]["layouts"]["global"],
+            "launches_f64": wide_prio["f64"]["run"]["layouts"]["global"],
+            "timing": _k3_global_timing(torch, wide_prio["f32"]["run"]),
+            "parity_rel_err": worst_global,
+            "server_solve_rel_err": {
+                k: v["solve_rel_err"] for k, v in wide_prio.items()},
+        }
+        line["wide"] = _wide_entry(torch, wide)
+        line["wide"]["overflow"] = overflow
+        line["kernels"][0]["batch_dense_lanes"] = batch_lanes
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1546,8 +2304,13 @@ def main() -> int:
         f"leases; priority + lane server f32 p50 {prio['f32']['p50']:.2f} ms "
         f"p95 {prio['f32']['p95']:.2f} ms, f64 p50 {prio['f64']['p50']:.2f} "
         f"ms p95 {prio['f64']['p95']:.2f} ms at "
-        f"{(N_PRIO + N_PRIO_LANE) * N_CLIENTS} leases; total "
-        f"{time.perf_counter() - t0:.1f}s")
+        f"{(N_PRIO + N_PRIO_LANE) * N_CLIENTS} leases; wide-1m f32 p50 "
+        f"{wide['wide-1m f32']['p50']:.2f} ms p95 "
+        f"{wide['wide-1m f32']['p95']:.2f} ms, wide-10x100k f32 p50 "
+        f"{wide['wide-10x100k f32']['p50']:.2f} ms p95 "
+        f"{wide['wide-10x100k f32']['p95']:.2f} ms; wide priority f32 tick "
+        f"walls {[round(w * 1e3, 1) for w in wide_prio['f32']['run']['walls']]}"
+        f" ms; total {time.perf_counter() - t0:.1f}s")
     say(card)
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 // lane solve fused with the delivered-grant delta epilogue) and K3 (the
 // banded water-fill of the priority solve, further below). Each comes in
 // two layouts: one warp per row for rows of up to kWarpMaxK = 256 lanes,
-// one block per row above; the wrappers pick the layout from the width
-// (solver/dense_cuda.py k1_layout for K1/K2, solver/priority_cuda.py
-// k3_layout for K3).
+// one block per row above; K3 has a third, one block per row read from
+// global memory, for rows wider than shared memory. The wrappers pick
+// the layout from the width (solver/dense_cuda.py k1_layout for K1/K2,
+// solver/priority_cuda.py k3_layout for K3).
 //
 // K1 and K2 replace the TPU Pallas kernels doorman_tpu/solver/
 // pallas_dense.py:40 `_kernel` (reached through solve_dense_pallas) and
@@ -81,6 +82,7 @@ constexpr int kRefineIters = 2;     // solver/lanes.py _REFINE_ITERS
 constexpr int kRedSlots = 64;       // two sums of up to 32 warps
 constexpr int kWarpMaxK = 256;      // the widest row of the warp layout
 constexpr int kRowsPerBlock = 8;    // warp layout: rows (warps) a block
+constexpr int kGlobalThreads = 1024;  // K3 global layout: threads a row
 
 // algorithms/kinds.py AlgoKind
 enum : int {
@@ -1125,6 +1127,178 @@ int launch_k3_warp(const void* wants, const void* weights, const void* band,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- K3 for rows wider than shared memory: one block per row, the row
+// read from global memory in every pass ("global" layout).
+//
+// The same function as banded_fill_kernel (the TPU kernel it replaces is
+// doorman_tpu/solver/pallas_priority.py:32 `_make_kernel`, reached
+// through alloc_banded_pallas). priority_cuda.k3_layout picks it for a
+// row whose block-layout staging (k3_smem_for) exceeds the 227 KB a
+// block may use: K > 8,930 lanes at f32, > 5,042 at f64 — so every
+// PRIORITY_BANDS resource the BatchSolver buckets to 16,384 clients or
+// more at f32, 8,192 or more at f64.
+//
+// What bounds it: the bytes. Each pass over the row reads the active
+// flags and band ranks (5 B an element) and, for the band's members,
+// their wants and weights; the band loop, the max ratio, every
+// bisection step and the two snaps are each such a pass, and the grants
+// are read and written once a band. Counted once, a launch needs about
+// 17 B an element at f32 (wants, weights, band, active read, grants
+// written): about 5 us for a 1,048,576-lane row at 3.35 TB/s. A row of
+// 8 x 131,072 f32 inputs is about 14 MB, so the passes after the first
+// hit the 50 MB L2. One block per row leaves most of the 132 SMs idle
+// when a few wide rows are all there is, and a block's passes run at
+// one SM's share of the L2's bandwidth: this layout is right and
+// simple, not fast. Spreading a row over a thread-block cluster, with
+// the partials exchanged through distributed shared memory, is the
+// redesign.
+//
+// Design: one block of up to kGlobalThreads threads per row; thread t
+// owns elements t, t + T, t + 2T, ... (T = blockDim.x, coalesced) and
+// accumulates its grants in the output in place, so no two threads
+// touch one element and nothing else is staged. Every reduction has a
+// fixed order: each thread sums its own elements left to right, then
+// block_sum / block_max run the warp's xor butterfly and add the warp
+// partials from shared memory in warp order, so every thread ends with
+// the same bits; repeat launches are bit-identical, and there are no
+// atomics, no grid-wide barrier and no cooperative launch. The strided
+// loops are unrolled by 4, so a thread has several loads in flight (the
+// order of its additions stays its elements' order). Non-members
+// of a band enter each sum as the zeros the plain version's masked
+// arrays hold (the bisection's min(0, mid * 0) included). The level is
+// computed only for a band that does not fit, as in the other layouts.
+template <typename T>
+struct GlobalRow {
+  const T* __restrict__ wants;
+  const T* __restrict__ weights;
+  const int32_t* __restrict__ band;
+  const uint8_t* __restrict__ active;
+  int K;
+  int rank;
+  // The band's masked wants and weights of element j; true for a member.
+  __device__ __forceinline__ bool load(int j, T& w, T& s) const {
+    const bool m = active[j] != 0 && band[j] == rank;
+    w = m ? wants[j] : T(0);
+    s = m ? weights[j] : T(0);
+    return m;
+  }
+};
+
+// waterfill_level above, over a band of a GlobalRow.
+template <typename T>
+__device__ T global_waterfill_level(const GlobalRow<T>& r, T cap, T* red) {
+  const T zero = T(0), tiny = Num<T>::tiny();
+  T mr = -INFINITY;
+  #pragma unroll 4
+  for (int j = threadIdx.x; j < r.K; j += blockDim.x) {
+    T w, s;
+    const bool m = r.load(j, w, s);
+    const T ratio = s > zero ? w / nmax(s, tiny) : zero;
+    mr = nmax(mr, m ? ratio : T(-INFINITY));
+  }
+  T max_ratio = block_max(mr, red);
+  if (!isfinite(max_ratio)) max_ratio = zero;
+  T lo = zero, hi = nmax(max_ratio, zero);
+  for (int it = 0; it < Num<T>::kBisect; ++it) {
+    const T mid = (lo + hi) * T(0.5);
+    T acc = zero;
+    #pragma unroll 4
+    for (int j = threadIdx.x; j < r.K; j += blockDim.x) {
+      T w, s;
+      r.load(j, w, s);
+      acc += nmin(w, mid * s);
+    }
+    if (block_sum(acc, red) < cap) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  T level = hi;
+  for (int it = 0; it < kRefineIters; ++it) {
+    T sat_w = zero, unsat = zero;
+    #pragma unroll 4
+    for (int j = threadIdx.x; j < r.K; j += blockDim.x) {
+      T w, s;
+      r.load(j, w, s);
+      const bool sat = w <= level * s;
+      sat_w += sat ? w : zero;
+      unsat += sat ? zero : s;
+    }
+    block_sum2(sat_w, unsat, red);
+    const T exact = unsat > zero ? (cap - sat_w) / nmax(unsat, tiny) : level;
+    level = nmax(exact, zero);
+  }
+  return level;
+}
+
+// (kGlobalThreads, 1): one block an SM is all a row needs; without the
+// 1, ptxas held the f64 entry at 32 registers and spilled.
+template <typename T>
+__global__ void __launch_bounds__(kGlobalThreads, 1)
+    banded_fill_global_kernel(const T* __restrict__ wants,
+                              const T* __restrict__ weights,
+                              const int32_t* __restrict__ band,
+                              const uint8_t* __restrict__ active,
+                              const T* __restrict__ eff_cap,
+                              T* __restrict__ gets, T* __restrict__ totals,
+                              int K, int num_bands) {
+  __shared__ T red[kRedSlots];
+  const int64_t b = blockIdx.x;
+  const int64_t off = b * K;
+  const T zero = T(0);
+  GlobalRow<T> r{wants + off, weights + off, band + off, active + off, K, 0};
+  T* g = gets + off;
+  for (int j = threadIdx.x; j < K; j += blockDim.x) g[j] = zero;
+  T remaining = eff_cap[b];
+  for (int rank = 0; rank < num_bands; ++rank) {
+    r.rank = rank;
+    T sumw = zero;
+    #pragma unroll 4
+    for (int j = threadIdx.x; j < K; j += blockDim.x) {
+      T w, s;
+      r.load(j, w, s);
+      sumw += w;
+    }
+    const bool fits = block_sum(sumw, red) <= remaining;
+    const T level = fits ? zero : global_waterfill_level(r, remaining, red);
+    T taken = zero;
+    #pragma unroll 4
+    for (int j = threadIdx.x; j < K; j += blockDim.x) {
+      T w, s;
+      const bool m = r.load(j, w, s);
+      const T share = m ? (fits ? w : nmin(w, level * s)) : zero;
+      g[j] = g[j] + share;
+      taken += share;
+    }
+    remaining = nmax(remaining - block_sum(taken, red), zero);
+  }
+  if (totals != nullptr) {
+    T total = zero;
+    for (int j = threadIdx.x; j < K; j += blockDim.x) total += g[j];
+    total = block_sum(total, red);
+    if (threadIdx.x == 0) totals[b] = total;
+  }
+}
+
+template <typename T>
+int launch_k3_global(const void* wants, const void* weights,
+                     const void* band, const void* active,
+                     const void* eff_cap, void* gets, void* totals,
+                     int n_rows, int K, int num_bands, void* stream) {
+  if (n_rows <= 0 || K <= 0) return 0;
+  int threads = ((K + 31) / 32) * 32;
+  if (threads > kGlobalThreads) threads = kGlobalThreads;
+  banded_fill_global_kernel<T>
+      <<<n_rows, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(wants), static_cast<const T*>(weights),
+          static_cast<const int32_t*>(band),
+          static_cast<const uint8_t*>(active),
+          static_cast<const T*>(eff_cap), static_cast<T*>(gets),
+          static_cast<T*>(totals), K, num_bands);
+  return static_cast<int>(cudaGetLastError());
+}
+
 Inputs make_inputs(const void* wants, const void* has, const void* sub,
                    const void* act, const void* cap, const void* kind,
                    const void* learn, const void* statc) {
@@ -1145,8 +1319,9 @@ Inputs make_inputs(const void* wants, const void* has, const void* sub,
 // The C interface bound with ctypes. Every pointer is a device pointer
 // (tensor.data_ptr()), `stream` is the caller's cudaStream_t; the return
 // value is cudaGetLastError() after the launch (0 = launched). LAUNCH is
-// a layout's launcher: the block-per-row one (launch, launch_k3) or the
-// warp-per-row one (launch_warp, launch_k3_warp; K <= 256).
+// a layout's launcher: the block-per-row one (launch, launch_k3), the
+// warp-per-row one (launch_warp, launch_k3_warp; K <= 256) or K3's
+// global one (launch_k3_global, any K).
 //
 // K1: grants of rows `rows` (or of every row when rows is null) into
 // out[n_rows, K].
@@ -1203,3 +1378,5 @@ DSK_K3(dsk_k3_block_f32, launch_k3, float)
 DSK_K3(dsk_k3_block_f64, launch_k3, double)
 DSK_K3(dsk_k3_warp_f32, launch_k3_warp, float)
 DSK_K3(dsk_k3_warp_f64, launch_k3_warp, double)
+DSK_K3(dsk_k3_global_f32, launch_k3_global, float)
+DSK_K3(dsk_k3_global_f64, launch_k3_global, double)

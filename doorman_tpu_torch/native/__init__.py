@@ -467,6 +467,139 @@ class StoreEngine:
         )
 
 
+    # -- wide-resource (chunked) tracking -----------------------------
+
+    def chunk_config(self, rids: np.ndarray, W: int) -> None:
+        """Install the chunk-tracked resource set (width W slots per
+        device row). Clears all prior chunk state; the caller repacks
+        every tracked chunk right after (rebuild)."""
+        rids = np.ascontiguousarray(rids, np.int32)
+        self._lib.dm_chunk_config(
+            self._ptr, rids.ctypes.data_as(_I32P), len(rids), W
+        )
+
+    def dirty_slot_rids(self) -> np.ndarray:
+        """Tracked rids that currently have dirty slots. The C call is a
+        non-consuming COPY (unlike drain_slots), so a full buffer means
+        retry bigger, not page."""
+        cap = 1024
+        while True:
+            buf = np.empty(cap, np.int32)
+            n = int(self._lib.dm_dirty_slot_rids(
+                self._ptr, buf.ctypes.data_as(_I32P), cap
+            ))
+            if n < cap:
+                return buf[:n].copy()
+            cap *= 2
+
+    def drain_slots(self, rid: int) -> Tuple[np.ndarray, np.ndarray]:
+        """One tracked resource's dirty slots since the last drain:
+        (slots int64, level uint8 — 1 wants-only, 2 full). Clears them."""
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        slot_chunks, lvl_chunks = [], []
+        while True:
+            slots = np.empty(65536, np.int64)
+            lvl = np.empty(65536, np.uint8)
+            n = int(self._lib.dm_drain_slots(
+                self._ptr, rid, slots.ctypes.data_as(_I64P),
+                lvl.ctypes.data_as(u8p), len(slots)
+            ))
+            slot_chunks.append(slots[:n])
+            lvl_chunks.append(lvl[:n])
+            if n < len(slots):
+                break
+        if len(slot_chunks) > 1:
+            return np.concatenate(slot_chunks), np.concatenate(lvl_chunks)
+        return slot_chunks[0], lvl_chunks[0]
+
+    def pack_slots(self, rid: int, slots: np.ndarray):
+        """Gather the given slots' (wants, has, subclients, active);
+        slots beyond the lease count read as inactive zeros."""
+        slots = np.ascontiguousarray(slots, np.int64)
+        n = len(slots)
+        wants = np.empty(n, np.float64)
+        has = np.empty(n, np.float64)
+        sub = np.empty(n, np.float64)
+        act = np.empty(n, np.uint8)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        self._lib.dm_pack_slots(
+            self._ptr, rid, slots.ctypes.data_as(_I64P), n,
+            wants.ctypes.data_as(_F64P), has.ctypes.data_as(_F64P),
+            sub.ctypes.data_as(_F64P), act.ctypes.data_as(u8p),
+        )
+        return wants, has, sub, act
+
+    def pack_chunks(self, rids: np.ndarray, chunks: np.ndarray, W: int):
+        """Pack n chunks as [n, W] rows: returns (wants, has, sub,
+        active, filled, versions) with versions the per-chunk membership
+        epochs at pack time."""
+        rids = np.ascontiguousarray(rids, np.int32)
+        chunks = np.ascontiguousarray(chunks, np.int32)
+        n = len(rids)
+        wants = np.empty((n, W), np.float64)
+        has = np.empty((n, W), np.float64)
+        sub = np.empty((n, W), np.float64)
+        act = np.empty((n, W), np.uint8)
+        filled = np.empty(n, np.int32)
+        versions = np.empty(n, np.uint64)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        u64p = ctypes.POINTER(ctypes.c_uint64)
+        self._lib.dm_pack_chunks(
+            self._ptr, rids.ctypes.data_as(_I32P),
+            chunks.ctypes.data_as(_I32P), n, W,
+            wants.ctypes.data_as(_F64P), has.ctypes.data_as(_F64P),
+            sub.ctypes.data_as(_F64P), act.ctypes.data_as(u8p),
+            filled.ctypes.data_as(_I32P), versions.ctypes.data_as(u64p),
+        )
+        return wants, has, sub, act, filled, versions
+
+    def chunk_versions(
+        self, rids: np.ndarray, chunks: np.ndarray
+    ) -> np.ndarray:
+        """Current membership versions of the given chunks. Read AFTER
+        a slot drain and BEFORE the pack (see dm_chunk_versions for why
+        that ordering keeps apply mismatches in the safe direction)."""
+        rids = np.ascontiguousarray(rids, np.int32)
+        chunks = np.ascontiguousarray(chunks, np.int32)
+        out = np.empty(len(rids), np.uint64)
+        u64p = ctypes.POINTER(ctypes.c_uint64)
+        self._lib.dm_chunk_versions(
+            self._ptr, rids.ctypes.data_as(_I32P),
+            chunks.ctypes.data_as(_I32P), len(rids),
+            out.ctypes.data_as(u64p),
+        )
+        return out
+
+    def apply_chunks(
+        self,
+        rids: np.ndarray,  # [n]
+        chunks: np.ndarray,  # [n]
+        grants: np.ndarray,  # [n, W] in upload-time slot order
+        keep_has: np.ndarray,  # [n] uint8
+        expected_versions: np.ndarray,  # [n] uint64
+    ) -> int:
+        """Chunk-granular grant write-back (grants only; see
+        dm_apply_chunks); chunks whose membership version moved since
+        upload are skipped. Returns chunks applied."""
+        rids = np.ascontiguousarray(rids, np.int32)
+        chunks = np.ascontiguousarray(chunks, np.int32)
+        grants = np.ascontiguousarray(grants, np.float64)
+        keep_has = np.ascontiguousarray(keep_has, np.uint8)
+        expected_versions = np.ascontiguousarray(
+            expected_versions, np.uint64
+        )
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        u64p = ctypes.POINTER(ctypes.c_uint64)
+        return int(
+            self._lib.dm_apply_chunks(
+                self._ptr, rids.ctypes.data_as(_I32P),
+                chunks.ctypes.data_as(_I32P), len(rids),
+                grants.shape[1], grants.ctypes.data_as(_F64P),
+                keep_has.ctypes.data_as(u8p),
+                expected_versions.ctypes.data_as(u64p),
+            )
+        )
+
 class NativeLeaseStore:
     """Drop-in for core.store.LeaseStore, backed by a StoreEngine.
 

@@ -1,25 +1,28 @@
 """The capacity server, batch mode on the native store (port of
-doorman_tpu/server/server.py, the resident path and the BatchSolver's
-priority part).
+doorman_tpu/server/server.py: the resident paths, narrow and wide, and
+the BatchSolver).
 
 Requests only record demand (GetCapacity serves the last solved grant,
 ReleaseCapacity drops the lease); a background tick solves ALL resources
 at once on the device, and the grants land back in the native store.
-Lane resources tick through the resident solver
-(solver.resident.ResidentDenseSolver); PRIORITY_BANDS resources, with
-their capacity groups, tick through the BatchSolver
-(solver.batch.BatchSolver) in the same executor call. Brand-new clients
-and resources in learning mode are answered by the scalar first-response
-algorithm (core.resource.decide).
+Lane resources of up to DENSE_MAX_K clients tick through the narrow
+resident solver (solver.resident.ResidentDenseSolver), wider ones
+through the chunked one (solver.resident_wide.WideResidentSolver);
+PRIORITY_BANDS resources, with their capacity groups, tick through the
+BatchSolver (solver.batch.BatchSolver) in the same executor call. When a
+narrow resource outgrows its row mid-tick (ResidentOverflow), that tick
+runs through the BatchSolver over every resource and the next one
+re-partitions. Brand-new clients and resources in learning mode are
+answered by the scalar first-response algorithm (core.resource.decide).
 
 What this port carries: batch mode, the native store, the fused tick
-(scoped by default), PRIORITY_BANDS and capacity groups, the trivial
-election, and the Discovery / GetCapacity / ReleaseCapacity RPCs on the
-reference's wire service (doorman_tpu.Capacity). Not yet ported, and
-refused loudly rather than served another way: immediate mode, lane
-resources wider than DENSE_MAX_K clients, the round-trip tick, the
-intermediate-server role (GetServerCapacity) and stream push
-(WatchCapacity).
+(scoped by default), lane and PRIORITY_BANDS resources of any width,
+capacity groups, the trivial election, and the Discovery / GetCapacity
+/ ReleaseCapacity RPCs on the reference's wire service
+(doorman_tpu.Capacity). Not yet ported, and refused loudly rather than
+served another way: immediate mode, the Python lease store, the
+round-trip tick, the intermediate-server role (GetServerCapacity) and
+stream push (WatchCapacity).
 
 Concurrency model: one asyncio loop owns all state; the tick's dispatch
 and collect run in an executor thread (the native engine is
@@ -48,13 +51,14 @@ from doorman_tpu_torch.proto.grpc_api import (
 )
 from doorman_tpu_torch.server import config as config_mod
 from doorman_tpu_torch.server.election import Election
+from doorman_tpu_torch.solver import batch as batch_mod
 from doorman_tpu_torch.solver.batch import BatchSolver
 from doorman_tpu_torch.solver.engine import PipelinedTicker
 from doorman_tpu_torch.solver.resident import (
-    DENSE_MAX_K,
     ResidentDenseSolver,
     ResidentOverflow,
 )
+from doorman_tpu_torch.solver.resident_wide import WideResidentSolver
 from doorman_tpu_torch.utils.backend import device_info, resolve_device
 
 log = logging.getLogger(__name__)
@@ -122,12 +126,19 @@ class CapacityServer(CapacityServicer):
         self._tick_pipeline_depth = max(int(tick_pipeline_depth), 1)
         self._resident: Optional[ResidentDenseSolver] = None
         self._resident_pipe = PipelinedTicker(self._tick_pipeline_depth)
-        # The PRIORITY_BANDS resources' solver (lazily created), and the
-        # tick's lane / priority partition, recomputed when the config
-        # epoch or the resource count moves.
+        # The chunked solver of lane resources wider than DENSE_MAX_K,
+        # with its own pipeline.
+        self._resident_wide: Optional[WideResidentSolver] = None
+        self._resident_wide_pipe = PipelinedTicker(self._tick_pipeline_depth)
+        # The BatchSolver (lazily created): the PRIORITY_BANDS resources
+        # every tick, every resource on an overflow tick. The tick's
+        # narrow / wide / priority partition is recomputed when the
+        # config epoch or the resource count moves, or after an
+        # overflow (which clears the key).
         self._solver: Optional[BatchSolver] = None
         self._partition_key = None
-        self._partition: "tuple[list, list]" = ([], [])
+        self._partition: "tuple[list, list, list]" = ([], [], [])
+        self._wide_ids: set = set()
         # Bumped whenever templates / learning windows change outside the
         # stores; the resident solver caches its config reads against it.
         self._config_epoch = 0
@@ -223,6 +234,8 @@ class CapacityServer(CapacityServicer):
         self._config_epoch += 1
         self._resident = None
         self._resident_pipe.drop()
+        self._resident_wide = None
+        self._resident_wide_pipe.drop()
 
     async def _on_current_master(self, master: str) -> None:
         if master != self.current_master:
@@ -265,7 +278,7 @@ class CapacityServer(CapacityServicer):
     # ------------------------------------------------------------------
 
     def _get_solver(self) -> BatchSolver:
-        """The PRIORITY_BANDS resources' batch solver (lazily created)."""
+        """The batch solver (lazily created)."""
         if self._solver is None:
             dtype = np.float64 if self.solver_dtype == "f64" else np.float32
             self._solver = BatchSolver(
@@ -282,14 +295,21 @@ class CapacityServer(CapacityServicer):
             )
 
     def _partitioned(self, resources: List[Resource]):
-        """(lane resources, PRIORITY_BANDS resources) in registry order.
-        A PRIORITY_BANDS row never enters the resident tables: their lane
-        solve has no priority lane and would grant it 0."""
+        """(narrow lane, wide lane, PRIORITY_BANDS resources) in registry
+        order. A PRIORITY_BANDS row never enters the resident tables:
+        their lane solve has no priority lane and would grant it 0. Only
+        lane resources partition by width: a lane resource wider than
+        DENSE_MAX_K clients takes the chunked solver, so the resident
+        path has no width limit."""
         key = (self._config_epoch, len(resources))
         if key != self._partition_key:
             prio = int(AlgoKind.PRIORITY_BANDS)
+            lane = [r for r in resources if r._decide_kind != prio]
+            cap = batch_mod.DENSE_MAX_K
+            self._wide_ids = {r.id for r in lane if len(r.store) > cap}
             self._partition = (
-                [r for r in resources if r._decide_kind != prio],
+                [r for r in lane if r.id not in self._wide_ids],
+                [r for r in lane if r.id in self._wide_ids],
                 [r for r in resources if r._decide_kind == prio],
             )
             self._partition_key = key
@@ -309,14 +329,28 @@ class CapacityServer(CapacityServicer):
             )
         return self._resident
 
+    def _resident_wide_solver(self) -> WideResidentSolver:
+        """The chunked resident solver of the wide lane resources
+        (lazily created)."""
+        if self._resident_wide is None:
+            dtype = np.float64 if self.solver_dtype == "f64" else np.float32
+            self._resident_wide = WideResidentSolver(
+                self._store_engine, dtype=dtype, clock=self._clock,
+                device=self.device,
+                rotate_ticks=None, tick_interval=self.tick_interval,
+                scoped=self._scoped_solve,
+            )
+        return self._resident_wide
+
     @property
     def _ticks_done(self) -> int:
         """Applied batch ticks (the serving condition for store-backed
         grants). max, not sum: a mixed config advances both counters on
         every tick_once."""
         ticks = self._solver.ticks if self._solver is not None else 0
-        if self._resident is not None:
-            ticks = max(ticks, self._resident.ticks)
+        for s in (self._resident, self._resident_wide):
+            if s is not None:
+                ticks = max(ticks, s.ticks)
         return ticks
 
     async def tick_once(self) -> None:
@@ -329,34 +363,57 @@ class CapacityServer(CapacityServicer):
     async def _tick_once_locked(self) -> None:
         if not self.resources:
             return
-        lane_res, prio_res = self._partitioned(
-            list(self.resources.values())
-        )
+        resources = list(self.resources.values())
+        narrow_res, wide_res, prio_res = self._partitioned(resources)
         # Resolved here, on the event loop, so solvers, resources and
         # epoch stay mutually consistent under a mastership flip.
-        resident = self._resident_solver() if lane_res else None
-        solver = self._get_solver() if prio_res else None
+        resident = self._resident_solver() if narrow_res else None
+        wide = self._resident_wide_solver() if wide_res else None
+        solver = self._get_solver()
         epoch = self._config_epoch
-        pipe = self._resident_pipe
-        if not lane_res:
+        pipe, wide_pipe = self._resident_pipe, self._resident_wide_pipe
+        if not narrow_res:
             pipe.drop()
+        if not wide_res:
+            wide_pipe.drop()
+
+        def batch_tick(res):
+            snap = solver.prepare(res)
+            gets = solver.solve(snap)
+            solver.apply(res, snap, gets, return_grants=False)
 
         def run_tick():
-            if lane_res:
-                try:
-                    pipe.step(resident, lane_res, epoch)
-                except ResidentOverflow as e:
-                    raise _not_ported(
-                        f"lane resources wider than DENSE_MAX_K="
-                        f"{DENSE_MAX_K} clients (the wide resident solver)"
-                    ) from e
-            if prio_res:
-                # PRIORITY_BANDS resources tick through the BatchSolver
-                # (group caps couple only these rows, so the two solves
-                # are independent).
-                snap = solver.prepare(prio_res)
-                gets = solver.solve(snap)
-                solver.apply(prio_res, snap, gets, return_grants=False)
+            try:
+                if narrow_res:
+                    pipe.step(resident, narrow_res, epoch)
+                if wide_res:
+                    # The wide lane resources: their own device tables;
+                    # the two resident solves are independent.
+                    wide_pipe.step(wide, wide_res, epoch)
+                if prio_res:
+                    # PRIORITY_BANDS resources tick through the
+                    # BatchSolver (group caps couple only these rows).
+                    batch_tick(prio_res)
+            except ResidentOverflow:
+                # A narrow lane resource outgrew its row mid-tick: force
+                # a re-partition (it lands in the wide set next tick)
+                # and run this tick through the BatchSolver, which takes
+                # any width. BOTH in-flight pipelines are dropped: a
+                # pre-overflow wide handle collected after this tick
+                # would overwrite its fresher grants with one-tick-stale
+                # ones (the chunk-version guard catches membership
+                # changes, not stale values). Dropping an uncollected
+                # handle is benign. The write is serialized: the loop
+                # awaits this call under _tick_lock, and the key is read
+                # at the next tick's start.
+                log.warning(
+                    "%s: resident bucket overflow; re-partitioning wide "
+                    "resources", self.id,
+                )
+                self._partition_key = None
+                pipe.drop()
+                wide_pipe.drop()
+                batch_tick(resources)
 
         ctx = contextvars.copy_context()
         await asyncio.get_running_loop().run_in_executor(None, ctx.run, run_tick)
@@ -365,15 +422,16 @@ class CapacityServer(CapacityServicer):
         """Collect every tick still in flight (its grants land in the
         store)."""
         async with self._tick_lock:
-            await asyncio.get_running_loop().run_in_executor(
-                None, self._resident_pipe.flush
-            )
+            loop = asyncio.get_running_loop()
+            for pipe in (self._resident_pipe, self._resident_wide_pipe):
+                await loop.run_in_executor(None, pipe.flush)
 
     async def _tick_loop(self) -> None:
         while True:
             await asyncio.sleep(self.tick_interval)
             if not self.is_master:
                 self._resident_pipe.drop()
+                self._resident_wide_pipe.drop()
                 continue
             try:
                 await self.tick_once()
@@ -464,8 +522,21 @@ class CapacityServer(CapacityServicer):
     # Status
     # ------------------------------------------------------------------
 
+    def _phase_totals(self) -> dict:
+        """Cumulative per-phase seconds of the resident paths; the wide
+        solver's keys are prefixed `wide.` (the BatchSolver's ride in
+        the `priority` block)."""
+        out = {}
+        if self._resident is not None:
+            out.update(self._resident.phase_s)
+        if self._resident_wide is not None:
+            for k, v in self._resident_wide.phase_s.items():
+                out[f"wide.{k}"] = v
+        return out
+
     def status(self) -> dict:
         solver = self._resident
+        wide = self._resident_wide
         prio = self._solver
         return {
             "id": self.id,
@@ -482,7 +553,9 @@ class CapacityServer(CapacityServicer):
                 solver.last_tick_seconds if solver is not None else 0.0
             ),
             "scope": solver.scope_status() if solver is not None else None,
-            "phase_s": dict(solver.phase_s) if solver is not None else {},
+            "wide_scope": wide.scope_status() if wide is not None else None,
+            "wide_resources": sorted(self._wide_ids),
+            "phase_s": self._phase_totals(),
             "priority": None if prio is None else {
                 "ticks": prio.ticks,
                 "last_tick_seconds": prio.last_tick_seconds,

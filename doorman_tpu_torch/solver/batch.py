@@ -1,15 +1,20 @@
-"""BatchSolver: the per-tick snapshot/solve/write-back cycle around
-solve_priority (port of doorman_tpu/solver/batch.py, its priority part).
+"""BatchSolver: the per-tick snapshot/solve/write-back cycle (port of
+doorman_tpu/solver/batch.py, on the native store).
 
-    pack:       native store -> [R, K] PriorityBatch   (host, one dm_pack)
-    solve:      solve_priority on the device            (K3 on CUDA)
-    write-back: grants -> the store, one dm_apply call  (host)
+    pack:       native store -> lane snapshot + priority part  (host)
+    solve:      the lane part and solve_priority on the device
+    write-back: grants -> the store, one dm_apply call per part (host)
 
-The port's server ticks lane resources through the device-resident
-solver (solver.resident); the BatchSolver carries the PRIORITY_BANDS
-resources and their capacity groups. Its dense and edge-list lane parts
-(the reference's fallback for lane resources) are not ported: a lane
-resource handed to it raises NotImplementedError.
+The lane part packs dense — one [R, K] row per resource, solved by
+kernel K1 on CUDA (solver.dense_cuda, at f32 and f64 alike) — while
+every resource fits DENSE_MAX_K clients; a wider resource drops the
+tick to the edge-list layout (core.snapshot.pack_edge_arrays,
+solver.kernels.solve_tick, plain PyTorch with fixed-order segment
+sums). The priority part carries the PRIORITY_BANDS resources and their
+capacity groups (solve_priority, kernel K3 on CUDA). The server ticks
+its lane resources through the resident solvers and comes here for the
+priority part, and for every resource on the tick after a resident
+overflow.
 
 Write-back is grants only: expiry and refresh advance when each client
 itself refreshes, never on delivery, so a client that stops refreshing
@@ -26,11 +31,21 @@ import numpy as np
 import torch
 
 from doorman_tpu_torch.algorithms.kinds import AlgoKind
-from doorman_tpu_torch.core.resource import Resource
-from doorman_tpu_torch.core.snapshot import _bucket
+from doorman_tpu_torch.core.resource import Resource, algo_kind_for, static_param
+from doorman_tpu_torch.core.snapshot import (
+    ResourceSpec,
+    Snapshot,
+    _bucket,
+    pack_edge_arrays,
+)
 from doorman_tpu_torch.native import NativeLeaseStore
+from doorman_tpu_torch.solver.dense import DenseBatch
+from doorman_tpu_torch.solver.dense_cuda import solve_dense_k1
 from doorman_tpu_torch.solver.engine import PhaseLaps, place
+from doorman_tpu_torch.solver.kernels import solve_tick
+from doorman_tpu_torch.solver.lanes import ITERATIVE_KINDS
 from doorman_tpu_torch.solver.priority import PriorityBatch, solve_priority
+from doorman_tpu_torch.solver.resident import DENSE_MAX_K, _round_rows
 from doorman_tpu_torch.utils.backend import resolve_device
 
 
@@ -91,9 +106,9 @@ def _shared_native_engine(stores) -> "object | None":
 
 
 class BatchSolver:
-    """Synchronous batched ticks of PRIORITY_BANDS resources on `device`
-    ("cuda" by default, where each banded allocation is kernel K3;
-    "cpu" only when asked, with the plain version)."""
+    """Synchronous batched ticks on `device` ("cuda" by default, where
+    the dense lane part is kernel K1 and each banded allocation kernel
+    K3; "cpu" only when asked, with the plain versions)."""
 
     def __init__(
         self,
@@ -111,8 +126,9 @@ class BatchSolver:
         self.last_tick_seconds = 0.0
         self._tick_start = 0.0
         # The last snapshot written back (its tables stay on the device,
-        # its grants on the host), for status pages and checks.
-        self.last_snapshot: "PrioritySnapshot | None" = None
+        # the priority part's grants on the host), for status pages and
+        # checks.
+        self.last_snapshot: "Snapshot | None" = None
         # Cumulative per-phase wall time (seconds); keys pre-created so
         # concurrent readers can iterate while a tick updates values.
         # "bands" is the host's per-resource wire-priority ranking.
@@ -128,16 +144,145 @@ class BatchSolver:
 
     def snapshot(
         self, resources: Iterable[Resource], ph: "PhaseLaps | None" = None
-    ) -> PrioritySnapshot:
-        res_list = list(resources)
-        for r in res_list:
-            if r._decide_kind != AlgoKind.PRIORITY_BANDS:
-                raise NotImplementedError(
-                    f"not yet ported: the BatchSolver's lane part (dense "
-                    f"and edge-list) for {r.id!r}; lane resources tick "
-                    "through the resident solver"
-                )
-        return self._snapshot_priority(res_list, ph)
+    ) -> Snapshot:
+        """Pack one tick: the lane resources into the lane part (dense
+        up to DENSE_MAX_K clients a resource, else an edge list), the
+        PRIORITY_BANDS resources into `priority_part`."""
+        ph = ph if ph is not None else PhaseLaps({})
+        res_list, prio_res = [], []
+        for r in resources:
+            is_prio = r._decide_kind == AlgoKind.PRIORITY_BANDS
+            (prio_res if is_prio else res_list).append(r)
+        part = self._snapshot_priority(prio_res, ph) if prio_res else None
+        if res_list:
+            snap = self._snapshot_lanes(res_list)
+        else:
+            snap = Snapshot(edges=None, resources=None, resource_ids=[],
+                            num_edges=0)
+        snap.priority_part = part
+        ph.lap("pack")
+        return snap
+
+    def _snapshot_lanes(self, res_list: List[Resource]) -> Snapshot:
+        """One dm_pack call dumps every lease of every lane resource as
+        flat, resource-major edge arrays; they go to the dense layout
+        while the widest resource fits a dense row, else to the edge
+        list."""
+        specs = [
+            ResourceSpec(
+                resource_id=r.id,
+                capacity=r.capacity,
+                algo_kind=algo_kind_for(r.template),
+                learning=r.in_learning_mode,
+                static_capacity=static_param(r.template),
+            )
+            for r in res_list
+        ]
+        stores = [r.store for r in res_list]
+        engine = _shared_native_engine(stores)
+        if engine is None:
+            raise NotImplementedError(
+                "not yet ported: the Python-store lane pack (the port's "
+                "BatchSolver packs one native StoreEngine)"
+            )
+        ridx, cid, wants, has, sub, _prio = engine.pack(stores)
+        counts = np.bincount(ridx, minlength=len(specs))
+        kmax = int(counts.max()) if len(counts) else 0
+        if len(ridx) and kmax <= DENSE_MAX_K:
+            return self._pack_dense(
+                specs, ridx, cid, wants, has, sub, counts, engine
+            )
+        dev = self.device
+        return pack_edge_arrays(
+            specs,
+            ridx,
+            wants.astype(self._dtype, copy=False),
+            has.astype(self._dtype, copy=False),
+            sub.astype(self._dtype, copy=False),
+            dtype=self._dtype,
+            to_device=lambda a: place(a, dev),
+            engine=engine,
+            cids=cid,
+        )
+
+    def _pack_dense(
+        self,
+        specs: List[ResourceSpec],
+        ridx: np.ndarray,
+        cid: np.ndarray,
+        wants: np.ndarray,
+        has: np.ndarray,
+        sub: np.ndarray,
+        counts: np.ndarray,
+        engine: object,
+    ) -> Snapshot:
+        """Scatter the engine's flat edge arrays into the [R, K] dense
+        layout (rows filled contiguously from lane 0, resource-major
+        order preserved)."""
+        dtype = self._dtype
+        n_spec = len(specs)
+        R = _round_rows(n_spec)
+        K = _bucket(int(counts.max()), 8)
+        starts = np.zeros(n_spec + 1, np.int64)
+        np.cumsum(counts, out=starts[1:])
+        pos = np.arange(len(ridx), dtype=np.int64) - starts[ridx]
+        w = np.zeros((R, K), dtype)
+        h = np.zeros((R, K), dtype)
+        s = np.zeros((R, K), dtype)
+        act = np.zeros((R, K), bool)
+        w[ridx, pos] = wants
+        h[ridx, pos] = has
+        s[ridx, pos] = sub
+        act[ridx, pos] = True
+        cap = np.zeros(R, dtype)
+        kind = np.zeros(R, np.int32)
+        learn = np.zeros(R, bool)
+        statc = np.zeros(R, dtype)
+        for i, spec in enumerate(specs):
+            cap[i] = spec.capacity
+            kind[i] = int(spec.algo_kind)
+            learn[i] = spec.learning
+            statc[i] = spec.static_capacity
+        dev = self.device
+        dense = DenseBatch(
+            wants=place(w, dev), has=place(h, dev), subclients=place(s, dev),
+            active=place(act, dev), capacity=place(cap, dev),
+            algo_kind=place(kind, dev), learning=place(learn, dev),
+            static_capacity=place(statc, dev),
+        )
+        # The download slices to the filled extent, rounded up to
+        # multiples of 8.
+        n_rows = min(R, -(-n_spec // 8) * 8)
+        kfill = min(K, -(-int(counts.max()) // 8) * 8)
+        snap = Snapshot(
+            edges=None,
+            resources=None,
+            resource_ids=[spec.resource_id for spec in specs],
+            num_edges=len(ridx),
+            learning=[bool(spec.learning) for spec in specs],
+            engine=engine,
+            ridx=ridx,
+            cids=cid,
+            dense=dense,
+            pos=pos,
+            dense_fill=(n_rows, kfill),
+        )
+        # Host lane knowledge for the plain solve (solver.lanes fast
+        # paths, byte-identical): the kinds present, and each iterative
+        # lane's rows padded to a bucketed length (repeats are
+        # harmless). K1 on the card computes its row's lane alone and
+        # takes neither.
+        snap.dense_lanes = frozenset(int(k) for k in np.unique(kind[:n_spec]))
+        if dev.type == "cpu":
+            iter_rows = {}
+            for k in sorted(ITERATIVE_KINDS & snap.dense_lanes):
+                rows = np.nonzero(kind[:n_spec] == int(k))[0].astype(np.int32)
+                if len(rows):
+                    iter_rows[k] = torch.from_numpy(
+                        np.resize(rows, _bucket(len(rows), 8))
+                    )
+            snap.dense_iter = iter_rows or None
+        return snap
 
     def _snapshot_priority(
         self, prio_res: List[Resource], ph: "PhaseLaps | None" = None
@@ -221,7 +366,7 @@ class BatchSolver:
             pos=pos,
         )
 
-    def prepare(self, resources: Iterable[Resource]) -> PrioritySnapshot:
+    def prepare(self, resources: Iterable[Resource]) -> Snapshot:
         """Phase 1 (host, in the thread that owns the stores): sweep
         expired leases and pack the snapshot."""
         self._tick_start = self._clock()
@@ -232,69 +377,100 @@ class BatchSolver:
         ph.lap("pack")
         return self.snapshot(res_list, ph)
 
-    def solve(self, snap: PrioritySnapshot) -> np.ndarray:
+    def solve(self, snap: Snapshot) -> np.ndarray:
         """Phase 2 (device; blocking — safe to run in an executor
-        thread, touches no host store state): the grants [R, K] as a
-        host array, also kept on the snapshot. On CUDA every banded
-        allocation is a K3 launch; the download ends the phase."""
+        thread, touches no host store state): the lane part's grants as
+        a flat host array in edge order; the priority part's grants
+        [R, K] land on the part. On CUDA the dense lane part is one K1
+        launch and every banded allocation a K3 launch; the downloads
+        end the phase."""
         ph = PhaseLaps(self.phase_s)
-        gets = solve_priority(
-            snap.batch, num_bands=snap.num_bands, use_kernel=True
-        )
-        snap.gets = gets.cpu().numpy()
+        part = snap.priority_part
+        if part is not None:
+            prio_gets = solve_priority(
+                part.batch, num_bands=part.num_bands, use_kernel=True
+            )
+        if snap.dense is not None:
+            n_rows, kfill = snap.dense_fill
+            got = solve_dense_k1(
+                snap.dense, lanes=snap.dense_lanes, lane_rows=snap.dense_iter
+            )[:n_rows, :kfill].cpu().numpy()
+            gets = got[snap.ridx, snap.pos]
+        elif snap.edges is not None:
+            gets = solve_tick(snap.edges, snap.resources).cpu().numpy()
+        else:
+            gets = np.zeros(0)
+        if part is not None:
+            part.gets = prio_gets.cpu().numpy()
         ph.lap("solve")
-        return snap.gets
+        return gets
 
     def apply(
         self,
         resources: Iterable[Resource],
-        snap: PrioritySnapshot,
+        snap: Snapshot,
         gets: np.ndarray,
         *,
         return_grants: bool = True,
     ) -> Dict[str, Dict[str, float]]:
-        """Phase 3 (host, store-owning thread): one dm_apply call writes
-        the grants back (grants only; demand that changed while the
-        solve was in flight is preserved, and clients released mid-solve
-        stay released); learning-mode segments keep the reported has.
-        `return_grants=False` skips the per-client grant map."""
+        """Phase 3 (host, store-owning thread): one dm_apply call per
+        part writes the grants back (grants only; demand that changed
+        while the solve was in flight is preserved, and clients released
+        mid-solve stay released); learning-mode segments keep the
+        reported has. `return_grants=False` skips the per-client grant
+        map."""
         ph = PhaseLaps(self.phase_s)
         by_id = {r.id: r for r in resources}
         out: Dict[str, Dict[str, float]] = {}
-        self._apply_priority_native(by_id, snap, gets, out, return_grants)
+        if snap.engine is not None:
+            self._apply_native(
+                snap.engine, by_id, snap.resource_ids, snap.learning,
+                snap.ridx, snap.cids, np.asarray(gets[: snap.num_edges]),
+                out, return_grants,
+            )
+        part = snap.priority_part
+        if part is not None:
+            self._apply_native(
+                part.engine, by_id, part.resource_ids, part.learning,
+                part.ridx, part.cids, part.gets[part.ridx, part.pos],
+                out, return_grants,
+            )
         ph.lap("apply")
         self.last_snapshot = snap
         self.ticks += 1
         self.last_tick_seconds = self._clock() - self._tick_start
         return out
 
-    def _apply_priority_native(
+    def _apply_native(
         self,
+        engine,
         by_id: Dict[str, Resource],
-        part: PrioritySnapshot,
-        gets: np.ndarray,
+        resource_ids: List[str],
+        learning: List[bool],
+        ridx: np.ndarray,
+        cids: np.ndarray,
+        flat: np.ndarray,
         out: Dict[str, Dict[str, float]],
         return_grants: bool,
     ) -> None:
-        engine = part.engine
-        n_seg = len(part.resource_ids)
+        n_seg = len(resource_ids)
         order = np.full(n_seg, -1, np.int32)
         keep_has = np.zeros(n_seg, np.uint8)
-        for i, resource_id in enumerate(part.resource_ids):
+        for i, resource_id in enumerate(resource_ids):
             res = by_id.get(resource_id)
             if res is None:
                 continue  # resource vanished mid-solve: skip its edges
             if getattr(res.store, "_engine", None) is not engine:
                 continue  # store replaced mid-solve (mastership reset)
             order[i] = res.store._rid
-            keep_has[i] = 1 if part.learning[i] else 0
-        flat = np.asarray(gets[part.ridx, part.pos], np.float64)
-        applied = engine.apply(order, part.ridx, part.cids, flat, keep_has)
+            keep_has[i] = 1 if learning[i] else 0
+        flat = np.asarray(flat, np.float64)
+        applied = engine.apply(order, ridx, cids, flat, keep_has)
         if not return_grants:
             return
         _rebuild_grant_map(
-            engine, by_id, part.resource_ids, part.ridx, part.cids,
-            applied, flat, keep_has, out,
+            engine, by_id, resource_ids, ridx, cids, applied, flat,
+            keep_has, out,
         )
 
     def tick(self, resources: Iterable[Resource]) -> Dict[str, Dict[str, float]]:

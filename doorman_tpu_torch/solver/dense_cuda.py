@@ -54,6 +54,9 @@ LIBRARY = BUILD_DIR / "libdense_solve.so"
 
 # Kernel launches since process start (or the caller's last reset).
 LAUNCHES = {"k1": 0, "k2": 0, "k3": 0}
+# K3's launches again, by the layout that ran them, so a run shows which
+# layout served a path.
+K3_LAYOUT_LAUNCHES = {"warp": 0, "block": 0, "global": 0}
 
 # The widest row the warp-per-row layouts take (csrc/dense_solve.cu
 # kWarpMaxK: 8 elements a lane).
@@ -79,8 +82,9 @@ _I = ctypes.c_int
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, K3_LAYOUT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def nvcc_path() -> str:
@@ -148,14 +152,14 @@ def ptxas_usage(text: "str | None" = None) -> dict:
 # A kernel entry's mangled name -> (kernel, layout, types, V or None).
 _ENTRY = re.compile(
     r"(dense_solve_warp_kernel|dense_solve_kernel|banded_fill_warp_kernel"
-    r"|banded_fill_kernel)I([fd])(?:([fd]|13__nv_bfloat16|DF16b)Lb([01])E)?"
-    r"(?:Li(\d+)E)?"
+    r"|banded_fill_global_kernel|banded_fill_kernel)I([fd])"
+    r"(?:([fd]|13__nv_bfloat16|DF16b)Lb([01])E)?(?:Li(\d+)E)?"
 )
 _TYPE = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16", "DF16b": "bf16"}
 
 
 def entry_label(entry: str) -> "str | None":
-    """"K1 warp f32 V=4", "K2 block f64/bf16", "K3 warp f64 V=8", ...
+    """"K1 warp f32 V=4", "K2 block f64/bf16", "K3 global f64", ...
     for a kernel entry of ptxas's report (a mangled name); None for
     anything else. K2's types are the solve's and prev's."""
     m = _ENTRY.search(entry)
@@ -166,7 +170,8 @@ def entry_label(entry: str) -> "str | None":
         name = "K3"
     else:
         name = "K2" if fused == "1" else "K1"
-    layout = "warp" if "warp" in kern else "block"
+    layout = "warp" if "warp" in kern else (
+        "global" if "global" in kern else "block")
     types = _TYPE[t] + (f"/{_TYPE[p]}" if name == "K2" else "")
     return f"{name} {layout} {types}" + (f" V={V}" if V else "")
 
@@ -193,7 +198,8 @@ def _load():
                         fn.restype = _I
                         fn.argtypes = [_P] * 13 + [_I, _I, _P]
             for name in ("dsk_k3_block_f32", "dsk_k3_block_f64",
-                         "dsk_k3_warp_f32", "dsk_k3_warp_f64"):
+                         "dsk_k3_warp_f32", "dsk_k3_warp_f64",
+                         "dsk_k3_global_f32", "dsk_k3_global_f64"):
                 fn = getattr(lib, name)
                 fn.restype = _I
                 fn.argtypes = [_P] * 7 + [_I, _I, _I, _P]

@@ -93,6 +93,12 @@ def bf16_exact(arr: np.ndarray) -> bool:
     return bool((t.to(torch.bfloat16).to(t.dtype) == t).all())
 
 
+def compact_index_dtype(limit: int):
+    """int32 when every index below `limit` fits (half the index-upload
+    bytes of int64), else int64."""
+    return np.int32 if limit < 2**31 else np.int64
+
+
 def bf16_bytes(arr: np.ndarray) -> np.ndarray:
     """The bfloat16 encoding of `arr` as raw bytes (round to nearest
     even, as torch casts)."""
@@ -123,6 +129,9 @@ class TickHandle:
     scope_ids: "np.ndarray | None" = None
     moved_rows: int = 0
     seq: int = 0
+    # Wide (chunked) ticks only: the chunk number of each delivered row
+    # (solver.resident_wide writes back with apply_chunks).
+    chunks: "np.ndarray | None" = None
 
 
 def idle_handle(now: float) -> TickHandle:
@@ -478,7 +487,12 @@ class TickEngineBase:
         """Per-tick solve-mode decision: (scope_ids, None) for a scoped
         tick, or (None, reason) when this tick must solve the full table.
         Reasons: rebuild, config-epoch, config-drift, expiry-sweep,
-        scope-reset, disabled."""
+        scope-reset, disabled.
+
+        A unit is what the subclass solves as one: a row of the narrow
+        solver, a whole resource SEGMENT of the wide one (its
+        per-segment lanes couple every chunk row of the resource, so
+        one dirty slot puts the segment's whole chunk span in scope)."""
         self._seq += 1
         seq = self._seq
         reason: "str | None" = None

@@ -7,13 +7,16 @@ for every row of a [R, K] table. Given CPU tensors it runs that plain
 version; given CUDA tensors it launches K3 (hand-written CUDA C++ for
 sm_90a in csrc/dense_solve.cu, built and bound by solver.dense_cuda)
 and raises on a build or launch failure — nothing falls back. Each
-launch adds one to dense_cuda.LAUNCHES["k3"].
+launch adds one to dense_cuda.LAUNCHES["k3"] and one to its layout's
+count in dense_cuda.K3_LAYOUT_LAUNCHES.
 
-K3 has two layouts, chosen from the row width by `k3_layout`: rows of
+K3 has three layouts, chosen from the row width by `k3_layout`: rows of
 up to dense_cuda.WARP_MAX_K lanes (the same bound as K1/K2's) run one
 warp per row with the row in registers (`banded_fill_warp_kernel`);
 wider rows run one block per row with the row staged in shared memory
-(`banded_fill_kernel`), which bounds the width `_check` admits.
+(`banded_fill_kernel`) while it fits there (SMEM_LIMIT), and one block
+per row reading the row from global memory in every pass above that
+(`banded_fill_global_kernel`, any width).
 """
 
 from __future__ import annotations
@@ -29,11 +32,16 @@ from doorman_tpu_torch.utils.backend import require_hopper
 SMEM_LIMIT = 232_448
 
 
-def k3_layout(K: int) -> str:
-    """"warp" (one warp per row, the row in registers) for rows of up to
-    dense_cuda.WARP_MAX_K lanes, "block" (one block per row, the row in
-    shared memory) above."""
-    return "warp" if K <= dense_cuda.WARP_MAX_K else "block"
+def k3_layout(K: int, itemsize: int) -> str:
+    """The layout K3 launches for rows of K lanes of `itemsize`-byte
+    floats: "warp" (one warp per row, the row in registers) up to
+    dense_cuda.WARP_MAX_K lanes, "block" (one block per row, the row
+    staged in shared memory) while k3_smem_bytes fits SMEM_LIMIT,
+    "global" (one block per row, the row read from global memory in
+    every pass) above."""
+    if K <= dense_cuda.WARP_MAX_K:
+        return "warp"
+    return "block" if k3_smem_bytes(K, itemsize) <= SMEM_LIMIT else "global"
 
 
 def k3_smem_bytes(K: int, itemsize: int) -> int:
@@ -48,13 +56,6 @@ def _check(wants, weights, band, active, eff_cap):
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"K3 takes float32/float64, got {dtype}")
     R, K = wants.shape
-    need = k3_smem_bytes(K, wants.element_size())
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"K3 stages a whole row in shared memory: K={K} at {dtype} "
-            f"needs {need} bytes > {SMEM_LIMIT} (not yet ported: "
-            "PRIORITY_BANDS resources this wide)"
-        )
     for name, t, want in (
         ("weights", weights, dtype), ("band", band, torch.int32),
         ("active", active, torch.bool),
@@ -90,20 +91,22 @@ def alloc_banded_k3(
         raise ValueError(f"no K3 kernel for device {dev}")
     _check(wants, weights, band, active, eff_cap)
     require_hopper(dev)
+    layout = k3_layout(wants.shape[1], wants.element_size())
     gets, tot = _launch_layout(
-        k3_layout(wants.shape[1]), wants, weights, band, active, eff_cap,
-        num_bands, totals,
+        layout, wants, weights, band, active, eff_cap, num_bands, totals,
     )
     dense_cuda.LAUNCHES["k3"] += 1
+    dense_cuda.K3_LAYOUT_LAUNCHES[layout] += 1
     return (gets, tot) if totals else gets
 
 
 def _launch_layout(layout, wants, weights, band, active, eff_cap,
                    num_bands, totals):
-    """One launch of K3's `layout` ("warp" or "block") on tensors that
-    `_check` passed: (gets, row totals or None). Counts nothing: the
-    wrapper counts its own launch, and a comparison of the two layouts
-    calls this directly."""
+    """One launch of K3's `layout` ("warp", "block" or "global") on
+    tensors that `_check` passed: (gets, row totals or None). Counts
+    nothing: the wrapper counts its own launch, and a comparison of the
+    layouts calls this directly. The block layout takes rows up to
+    SMEM_LIMIT's width, the warp layout up to WARP_MAX_K lanes."""
     R, K = wants.shape
     dev = wants.device
     lib = dense_cuda._load()

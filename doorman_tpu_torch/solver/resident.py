@@ -187,7 +187,9 @@ class ResidentDenseSolver(TickEngineBase):
                 self._rids, K
             )
             kmax = int(counts.max()) if len(counts) else 1
-            if kmax <= K:
+            # A row past the cap overflows below: no repack at a width
+            # no table will take.
+            if kmax <= K or kmax > DENSE_MAX_K:
                 break
             K = _bucket(kmax, 8)
         if kmax > DENSE_MAX_K:

@@ -120,6 +120,9 @@ def test_k3_wrapper_on_cpu_tensors_is_the_plain_version(dtype):
 
 
 def test_k3_refuses_a_row_wider_than_shared_memory():
+    """No width is refused any more: a row wider than the block layout's
+    shared memory goes to the global layout (priority_cuda.k3_layout),
+    and `_check` passes it."""
     from doorman_tpu_torch.solver import priority_cuda
 
     def tables(K, dtype):
@@ -129,8 +132,9 @@ def test_k3_refuses_a_row_wider_than_shared_memory():
                 torch.zeros(1, dtype=dtype))
 
     priority_cuda._check(*tables(4096, torch.float64))
-    with pytest.raises(ValueError, match="shared memory"):
-        priority_cuda._check(*tables(8192, torch.float64))
+    priority_cuda._check(*tables(8192, torch.float64))
+    assert priority_cuda.k3_layout(4096, 8) == "block"
+    assert priority_cuda.k3_layout(8192, 8) == "global"
     assert priority_cuda.k3_smem_bytes(4096, 8) == 188_928
 
 

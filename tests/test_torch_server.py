@@ -146,8 +146,9 @@ def test_port_server_answers_like_the_reference_over_loopback():
 
 def test_port_server_refuses_what_is_not_ported():
     """Immediate mode is still refused; a grouped PRIORITY_BANDS config
-    now loads, and the BatchSolver refuses the lane resources whose part
-    of it is not ported."""
+    loads, and the BatchSolver, which now carries lane resources too,
+    refuses a lane resource on the Python lease store (not ported)."""
+    from doorman_tpu_torch.core.store import LeaseStore
     from doorman_tpu_torch.solver.batch import BatchSolver
 
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -172,5 +173,9 @@ def test_port_server_refuses_what_is_not_ported():
     assert server.config is bands
     assert server._get_solver()._group_caps == {"up": 15.0}
     solver = BatchSolver(dtype=np.float64, device="cpu")
+    solver.tick([lane])  # the lane part on the native store
+    assert solver.ticks == 1
+    lane.store = LeaseStore("lane0")
+    lane.store.assign("c", 60.0, 5.0, 0.0, 3.0, 1)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         solver.tick([lane])
