@@ -21,15 +21,17 @@ zeroed just before each path is driven and read just after. Last, the
 f32 lane server runs again on four churn seeds with K1/K2 in each
 layout, and the rows left in the scoped tick's frontier are reported.
 
-Then resources of any width: K3's third layout, which reads a row wider
-than shared memory from global memory, against its plain version up to
-1,048,576 lanes; the lane server with one resource of 1,000,000 clients
+Then resources of any width: K3's cluster layout, which spreads a row
+wider than shared memory over a thread-block cluster, against its plain
+version and against the one-block global layout up to 1,048,576 lanes,
+staged in shared memory and streamed from global memory; the lane
+server with one resource of 1,000,000 clients
 and with ten of 100,000 (bench.py's wide shapes, on the chunked wide
 resident solver), and one 20,000-client resource per lane kind; a narrow
 resource overflowing between two ticks on the 1M-lease lane server (that
 tick runs the BatchSolver's edge-list lane part, the next the wide
 solver); and 8 PRIORITY_BANDS resources of 100,000 clients in two
-binding capacity groups, whose every K3 launch is in the global layout.
+binding capacity groups, whose every K3 launch is in the cluster layout.
 
 Prints one line per phase, the card's name and power limit, one JSON line
 of per-kernel measurements, and last the JSON result line. Exits non-zero
@@ -171,15 +173,23 @@ def phase_build():
             f"{u['spill_loads']} B spilled"
             for n, u in sorted(usage.items()) if n.startswith(kern)))
     # K1: 2 block + 8 warp (f32/f64, V = 1/2/4/8); K2: twice K1's, one
-    # per prev type; K3: 2 block + 8 warp + 2 global.
+    # per prev type; K3: 2 block + 8 warp + 2 global + 4 cluster (f32/f64,
+    # staged and streamed).
     counts = {k: sum(n.startswith(k) for n in usage) for k in ("K1", "K2", "K3")}
-    check(counts == {"K1": 10, "K2": 20, "K3": 12},
+    check(counts == {"K1": 10, "K2": 20, "K3": 16},
           f"ptxas reported {counts} kernel entries; unlabelled: {unknown}")
-    spills = [n for n, u in usage.items() if " warp " in n
+    spills = [n for n, u in usage.items()
+              if (" warp " in n or " cluster " in n)
               and (u["spill_stores"] or u["spill_loads"])]
-    check(not spills, f"warp layout spills: {spills}")
+    check(not spills, f"warp or cluster layout spills: {spills}")
     check(sum(" global " in n for n in usage) == 2,
           "K3's global layout entries missing from ptxas's report")
+    cluster = {n: u for n, u in usage.items() if " cluster " in n}
+    check(len(cluster) == 4,
+          "K3's cluster layout entries missing from ptxas's report")
+    say("phase build: K3 cluster layout ptxas " + ", ".join(
+        f"{n[11:]} {u['registers']} registers, {u['spill_stores']}/"
+        f"{u['spill_loads']} B spilled" for n, u in sorted(cluster.items())))
     return usage
 
 
@@ -396,8 +406,9 @@ def phase_kernels_k3(torch):
     layout at K = 8, 100, 128, 256, the block layout at K = 257, 4096 and
     the widest row it admits; f32 and f64; 1 and 4 bands — with repeat
     launches bit-identical and the row totals checked; the two layouts
-    against each other on one K = 128 table (the global layout, for rows
-    wider than the block layout stages, has its own phase); the grouped solve_priority
+    against each other on one K = 128 table (the cluster and global
+    layouts, for rows wider than the block layout stages, have their own
+    phase); the grouped solve_priority
     through K3 against the plain solve, two calls bit-identical.
     Comparison launches: not counted."""
     import numpy as np
@@ -1198,19 +1209,45 @@ def phase_frontier(torch):
     return out
 
 
-# -- phase 7: K3's global layout ----------------------------------------------
+# -- phase 7: K3 past shared memory: the cluster and global layouts ---------
 
 # Widths the block layout cannot stage (priority_cuda.k3_layout), with
 # the rows each table holds.
 K3_GLOBAL_WIDTHS = {"f32": ((16_384, 32), (131_072, 8), (1_048_576, 6)),
-                    "f64": ((8_192, 32), (131_072, 8))}
+                    "f64": ((8_192, 32), (131_072, 8), (1_048_576, 2))}
+
+
+def _cluster_alternatives(K, it, plan):
+    """Other (C, staged) plans of the cluster layout at width K, beside
+    the plan the wrapper picks: 8 and 16 blocks streamed, and staged
+    with 8 and 16 blocks and with the fewest blocks that can stage the
+    row, where that fits."""
+    from doorman_tpu_torch.solver.priority_cuda import (
+        CLUSTER_MAX,
+        SMEM_LIMIT,
+        k3_cluster_plan,
+        k3_cluster_smem_bytes,
+    )
+
+    alts = [(8, False), (CLUSTER_MAX, False)]
+    for C in (8, CLUSTER_MAX):
+        if k3_cluster_smem_bytes(K, C, True, it) <= SMEM_LIMIT:
+            alts.append((C, True))
+    if alts[-1][1]:
+        fewest = k3_cluster_plan(K, it, rows=1, sms=1)[:2]
+        if fewest not in alts:
+            alts.append(fewest)
+    return [a for a in alts if a != tuple(plan)]
 
 
 def phase_k3_global(torch):
-    """K3's global layout against its plain version on the same CUDA
-    tensors at the widths above, f32 and f64, 1 and 4 bands (the K3
-    phase's special rows included), repeat launches bit-identical and
-    the row totals checked; against the block layout on one K = 4,096
+    """K3 past shared memory. The cluster layout (which the wrapper
+    launches there) against its plain version on the same CUDA tensors
+    at the widths above, f32 and f64, 1 and 4 bands (the K3 phase's
+    special rows included): repeat launches bit-identical, the row
+    totals checked, the other cluster plans and the global layout held
+    against the plain version and the cluster layout on the same
+    tables; the global layout against the block layout on one K = 4,096
     table. Comparison launches: not counted."""
     import numpy as np
 
@@ -1220,6 +1257,7 @@ def phase_k3_global(torch):
     from doorman_tpu_torch.solver.priority_cuda import (
         _launch_layout,
         alloc_banded_k3,
+        k3_cluster_plan_for,
         k3_layout,
     )
 
@@ -1234,34 +1272,115 @@ def phase_k3_global(torch):
         tbound = K3_SOLVE_RTOL if dtype == torch.float32 else F64_RTOL
         it = torch.empty((), dtype=dtype).element_size()
         for K, R in K3_GLOBAL_WIDTHS[tag_dt]:
-            check(k3_layout(K, it) == "global",
-                  f"K={K} at {name} is not a global-layout row")
+            check(k3_layout(K, it) == "cluster",
+                  f"K={K} at {name} is not a cluster-layout row")
             w, wt, band, act, cap = _k3_tables(torch, rng, R, K, dtype)
             for nb in (1, 4):
-                before = dense_cuda.K3_LAYOUT_LAUNCHES["global"]
+                plan = k3_cluster_plan_for(w, nb)
+                before = dense_cuda.K3_LAYOUT_LAUNCHES["cluster"]
                 g1, t1 = alloc_banded_k3(w, wt, band, act, cap, nb, totals=True)
                 g2, t2 = alloc_banded_k3(w, wt, band, act, cap, nb, totals=True)
                 plain = _alloc_banded(w, wt, band, act, cap, nb)
                 torch.cuda.synchronize()
                 tag = f"K={K} {name} {nb} band(s) R={R}"
-                check(dense_cuda.K3_LAYOUT_LAUNCHES["global"] == before + 2,
-                      f"K3 did not launch its global layout ({tag})")
+                check(dense_cuda.K3_LAYOUT_LAUNCHES["cluster"] == before + 2,
+                      f"K3 did not launch its cluster layout ({tag})")
                 check(torch.equal(g1, g2) and torch.equal(t1, t2),
-                      f"K3 global layout not deterministic ({tag})")
+                      f"K3 cluster layout not deterministic ({tag})")
                 check(bool(torch.isfinite(g1).all()), f"K3 non-finite ({tag})")
                 err = _k3_rel(torch, g1, plain, w, act, cap)
                 check(err <= bound,
-                      f"K3 global vs plain {err:.3g} > {bound:g} ({tag})")
+                      f"K3 cluster vs plain {err:.3g} > {bound:g} ({tag})")
                 check(not bool(g1[:2].any()),
                       f"K3 grants on an inactive or zero-capacity row ({tag})")
                 terr = _k3_rel(torch, t1[:, None], g1.double().sum(1)[:, None],
                                w, act, cap)
-                check(terr <= tbound, f"K3 global row totals {terr:.3g} ({tag})")
-                worst[name] = max(worst.get(name, 0.0), err)
-                say(f"phase k3-global: {tag}: vs plain max rel err {err:.3g} "
-                    f"(bound {bound:g}), repeat bit-identical, row totals "
-                    f"within {terr:.3g}")
-            del w, wt, band, act, cap, g1, g2, t1, t2, plain
+                check(terr <= tbound, f"K3 cluster row totals {terr:.3g} ({tag})")
+                worst[f"{name} cluster"] = max(
+                    worst.get(f"{name} cluster", 0.0), err)
+                syncs = torch.zeros(R, dtype=torch.int32, device=DEVICE)
+                _launch_layout("cluster", w, wt, band, act, cap, nb, False,
+                               syncs=syncs)
+                # The same tables through the other plans and the global
+                # layout: each against the plain version, and against the
+                # cluster layout's grants.
+                others = []
+                for alt in _cluster_alternatives(K, it, plan[:2]):
+                    ga, ta = _launch_layout("cluster", w, wt, band, act, cap,
+                                            nb, True, plan=alt)
+                    others.append((f"C={alt[0]} "
+                                   f"{'staged' if alt[1] else 'streamed'}",
+                                   ga, ta))
+                gg, tg = _launch_layout("global", w, wt, band, act, cap, nb,
+                                        True)
+                others.append(("global", gg, tg))
+                torch.cuda.synchronize()
+                errs = []
+                for label, ga, ta in others:
+                    e_plain = _k3_rel(torch, ga, plain, w, act, cap)
+                    e_cl = _k3_rel(torch, ga, g1, w, act, cap)
+                    e_tot = _k3_rel(torch, ta[:, None], t1[:, None], w, act,
+                                    cap)
+                    check(e_plain <= bound and e_cl <= bound
+                          and e_tot <= tbound,
+                          f"K3 {label} vs plain {e_plain:.3g}, vs the "
+                          f"cluster plan {e_cl:.3g}, row totals {e_tot:.3g} "
+                          f"({tag})")
+                    key = f"{name} {'global' if label == 'global' else 'cluster'}"
+                    worst[key] = max(worst.get(key, 0.0), e_plain)
+                    errs.append(f"{label} {e_cl:.3g}")
+                say(f"phase k3-global: {tag}: cluster C={plan[0]} "
+                    f"{'staged' if plan[1] else 'streamed'} "
+                    f"({plan[2]} B shared a block), "
+                    f"{int(syncs.max().item())} cluster barriers a launch "
+                    f"(rows {int(syncs.min().item())}-"
+                    f"{int(syncs.max().item())}), vs plain max rel err "
+                    f"{err:.3g} (bound {bound:g}), repeat bit-identical, row "
+                    f"totals within {terr:.3g}; vs the cluster layout: "
+                    + ", ".join(errs))
+                del g1, g2, t1, t2, plain, others, gg, tg
+            if K == K3_GLOBAL_WIDTHS[tag_dt][0][0]:
+                # NaN and inf wants and weights: the bisection's
+                # NaN-propagating sums. NaN and inf where the plain
+                # version has them, within the bound elsewhere.
+                w2, wt2 = w.clone(), wt.clone()
+                w2[6, 5], wt2[7, 9] = float("nan"), float("inf")
+                w2[3, 1] = float("inf")
+                g1 = alloc_banded_k3(w2, wt2, band, act, cap, 4)
+                g2 = alloc_banded_k3(w2, wt2, band, act, cap, 4)
+                plain = _alloc_banded(w2, wt2, band, act, cap, 4)
+                odd = ~torch.isfinite(plain)
+                inf = torch.isinf(plain)
+                err = _k3_rel(torch, torch.where(odd, 0, g1),
+                              torch.where(odd, 0, plain), w, act, cap)
+                ints = torch.int32 if dtype == torch.float32 else torch.int64
+                tag = f"K={K} {name} 4 bands R={R}, NaN and inf inputs"
+                check(torch.equal(torch.isnan(g1), torch.isnan(plain))
+                      and torch.equal(g1[inf], plain[inf])
+                      and torch.equal(g1.view(ints), g2.view(ints))
+                      and err <= bound,
+                      f"K3 cluster vs plain {err:.3g} ({tag})")
+                say(f"phase k3-global: {tag}: NaN on "
+                    f"{int(torch.isnan(plain).sum())} and inf on "
+                    f"{int(inf.sum())} lanes as in the plain version, "
+                    f"elsewhere {err:.3g}, repeat bit-identical")
+                del w2, wt2, g1, g2, plain, odd, inf
+                # Band ranks past a byte: the row is read from global
+                # memory whatever its width.
+                nb = 300
+                plan = k3_cluster_plan_for(w, nb)
+                g1 = alloc_banded_k3(w, wt, band, act, cap, nb)
+                g2 = alloc_banded_k3(w, wt, band, act, cap, nb)
+                plain = _alloc_banded(w, wt, band, act, cap, nb)
+                err = _k3_rel(torch, g1, plain, w, act, cap)
+                tag = f"K={K} {name} {nb} bands R={R}"
+                check(not plan[1], f"K3 cluster plan {plan} stages ({tag})")
+                check(torch.equal(g1, g2) and err <= bound,
+                      f"K3 cluster vs plain {err:.3g} ({tag})")
+                say(f"phase k3-global: {tag}: cluster C={plan[0]} streamed, "
+                    f"vs plain {err:.3g}, repeat bit-identical")
+                del g1, g2, plain
+            del w, wt, band, act, cap
         # The global and block layouts on one table both take.
         w, wt, band, act, cap = _k3_tables(torch, rng, 96, 4096, dtype)
         for nb in (1, 4):
@@ -1280,61 +1399,140 @@ def phase_k3_global(torch):
     return worst
 
 
-def _k3_global_timing(torch, wide_prio):
-    """K3's global layout timed with its launches queued, beside its
-    bound and its plain version: on the wide priority server's own
-    8 x 131,072 f32 tables at a representative theta evaluation (grouped
-    rows at theta = 0.5), and on one 1,048,576-lane row (4 bands, every
-    band overflowing its share)."""
+def _wide_prio_tables(torch, wide_prio):
+    """The wide priority server's own 8 x 131,072 tables at each dtype,
+    at a representative theta evaluation (grouped rows at theta = 0.5)."""
+    out = {}
+    for dt, run in (("f32", wide_prio["f32"]["run"]),
+                    ("f64", wide_prio["f64"]["run"])):
+        part = run["server"]._solver.last_snapshot.priority_part
+        b, nb = part.batch, part.num_bands
+        wants = torch.where(b.active, b.wants, 0)
+        weights = torch.where(b.active, b.weights, 0)
+        half = torch.where(b.group >= 0, 0.5, 1.0).to(b.capacity.dtype)
+        R, K = wants.shape
+        out[f"{R}x{K} {dt}"] = (wants, weights, b.band, b.active,
+                                b.capacity * half, nb)
+    return out
+
+
+def _k3_1m_tables(torch):
+    """One 1,048,576-lane row at each dtype: 95% active, wants 0-99, 1-3
+    subclients, 4 bands, capacity a tenth of the wants (every band
+    overflows what the ones above left)."""
     import numpy as np
 
-    from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
-    from doorman_tpu_torch.solver import dense_cuda
-    from doorman_tpu_torch.solver.priority import _alloc_banded
-    from doorman_tpu_torch.solver.priority_cuda import alloc_banded_k3
-
-    b = wide_prio["server"]._solver.last_snapshot.priority_part.batch
-    nb = wide_prio["server"]._solver.last_snapshot.priority_part.num_bands
-    wants = torch.where(b.active, b.wants, 0)
-    weights = torch.where(b.active, b.weights, 0)
-    half = torch.where(b.group >= 0, 0.5, 1.0).to(b.capacity.dtype)
-    tables = {"8x131072": (wants, weights, b.band, b.active, b.capacity * half,
-                           nb)}
     rng = np.random.default_rng(31)
     K = 1 << 20
     act = _put(torch, rng.random((1, K)) < 0.95)
-    w1 = _put(torch, rng.integers(0, 100, (1, K)).astype(np.float64),
-              torch.float32) * act
-    s1 = _put(torch, rng.integers(1, 4, (1, K)).astype(np.float64),
-              torch.float32) * act
+    w = rng.integers(0, 100, (1, K)).astype(np.float64)
+    s = rng.integers(1, 4, (1, K)).astype(np.float64)
     b1 = _put(torch, rng.integers(0, 4, (1, K)).astype(np.int32))
-    cap1 = w1.sum(1) * 0.1  # every band overflows what the ones above left
-    tables["1x1048576"] = (w1, s1, b1, act, cap1, 4)
+    out = {}
+    for dt, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        w1 = _put(torch, w, dtype) * act
+        s1 = _put(torch, s, dtype) * act
+        out[f"1x{K} {dt}"] = (w1, s1, b1, act, w1.sum(1) * 0.1, 4)
+    return out
+
+
+def _k3_global_timing(torch, tables):
+    """K3 past shared memory, timed with the launches queued: the
+    cluster layout (the plan the wrapper picks), the global layout and
+    the plain version on the same tables, in turns (plain, global,
+    cluster, cluster, global, plain), beside the bound; then the other
+    cluster plans on the same tables (8 and 16 blocks streamed, 16
+    staged where that fits), each with the clusters the card holds at
+    once. Fails unless the cluster layout is faster than the global
+    layout on every table."""
+    from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
+    from doorman_tpu_torch.solver import dense_cuda
+    from doorman_tpu_torch.solver.priority import _alloc_banded
+    from doorman_tpu_torch.solver.priority_cuda import (
+        _launch_layout,
+        alloc_banded_k3,
+        k3_cluster_max_active,
+        k3_cluster_plan_for,
+    )
+
     saved = dict(dense_cuda.LAUNCHES)
     saved_layouts = dict(dense_cuda.K3_LAYOUT_LAUNCHES)
     out = {}
     for key, args in tables.items():
         R, K = args[0].shape
+        dtype = args[0].dtype
+        it = args[0].element_size()
+        nb = args[5]
+        bound_rel = F32_PARITY_REL_BOUND if dtype == torch.float32 else F64_RTOL
         got = alloc_banded_k3(*args)
         plain = _alloc_banded(*args)
         rel = _k3_rel(torch, got, plain, args[0], args[3], args[4])
-        check(rel <= F32_PARITY_REL_BOUND, f"K3 global {key} vs plain {rel:.3g}")
-        ms = _time_ms(torch, lambda: alloc_banded_k3(*args), reps=5,
-                      queued=True)
-        pms = _time_ms(torch, lambda: _alloc_banded(*args), reps=2)
-        nbytes = R * K * (2 * 4 + 4 + 1) + R * K * 4 + R * 4
+        check(rel <= bound_rel, f"K3 cluster {key} vs plain {rel:.3g}")
+        C, staged, smem = k3_cluster_plan_for(args[0], nb)
+        syncs = torch.zeros(R, dtype=torch.int32, device=DEVICE)
+        _launch_layout("cluster", *args, False, syncs=syncs)
+
+        def run_cluster():
+            return alloc_banded_k3(*args)
+
+        def run_global():
+            return _launch_layout("global", *args, False)
+
+        def run_plain():
+            return _alloc_banded(*args)
+
+        turns = [
+            _time_ms(torch, run_plain, reps=2),
+            _time_ms(torch, run_global, reps=3, queued=True),
+            _time_ms(torch, run_cluster, reps=20, queued=True),
+            _time_ms(torch, run_cluster, reps=20, queued=True),
+            _time_ms(torch, run_global, reps=3, queued=True),
+            _time_ms(torch, run_plain, reps=2),
+        ]
+        ms = (turns[2] + turns[3]) / 2
+        gms = (turns[1] + turns[4]) / 2
+        pms = (turns[0] + turns[5]) / 2
+        nbytes = R * K * (2 * it + 4 + 1) + R * K * it + R * it
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = _k3_ops(torch, *args, plain) / H100_F32_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
+        plans = [{
+            "C": C, "staged": staged, "smem": smem, "chosen": True, "ms": ms,
+            "max_active_clusters": k3_cluster_max_active(dtype, K, C, staged),
+        }]
+        for alt in _cluster_alternatives(K, it, (C, staged)):
+            a_ms = _time_ms(
+                torch, lambda: _launch_layout("cluster", *args, False,
+                                              plan=alt),
+                reps=20, queued=True)
+            plans.append({
+                "C": alt[0], "staged": alt[1], "chosen": False, "ms": a_ms,
+                "max_active_clusters": k3_cluster_max_active(dtype, K, *alt),
+            })
         out[key] = {
-            "ms": ms, "plain_ms": pms, "bound_ms": bound,
+            "ms": ms, "global_ms": gms, "plain_ms": pms, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "share_of_bound": bound / ms, "rel_err": rel, "shape": [R, K],
+            "share_of_bound": bound / ms,
+            "global_share_of_bound": bound / gms, "turns_ms": turns,
+            "rel_err": rel, "shape": [R, K], "dtype": str(dtype),
             "max_abs_err": (got.double() - plain.double()).abs().max().item(),
+            "cluster": C, "staged": staged, "smem_bytes": smem,
+            "cluster_syncs": int(syncs.max().item()), "plans": plans,
         }
-        say(f"phase k3-global: timed {key} f32: {ms:.4f} ms queued, plain "
-            f"{pms:.3f} ms, bound {bound:.5f} ms "
-            f"({out[key]['bound_by']}), {bound / ms:.2%} of bound")
+        say(f"phase k3-global: timed {key}: cluster C={C} "
+            f"{'staged' if staged else 'streamed'} {ms:.4f} ms queued "
+            f"({bound / ms:.2%} of bound, {int(syncs.max().item())} cluster "
+            f"barriers a launch, {plans[0]['max_active_clusters']} clusters "
+            f"resident at once), global {gms:.4f} ms "
+            f"({bound / gms:.3%} of bound), plain {pms:.3f} ms, bound "
+            f"{bound:.5f} ms ({out[key]['bound_by']}); other plans: "
+            + ", ".join(
+                f"C={p['C']} {'staged' if p['staged'] else 'streamed'} "
+                f"{p['ms']:.4f} ms ({p['max_active_clusters']} resident)"
+                for p in plans[1:]))
+        check(ms < gms, f"K3 cluster layout {ms:.4f} ms not below the global "
+              f"layout's {gms:.4f} ms on {key}")
+        del got, plain
     dense_cuda.LAUNCHES.update(saved)
     dense_cuda.K3_LAYOUT_LAUNCHES.update(saved_layouts)
     return out
@@ -1839,7 +2037,7 @@ async def _drive_wide_prio(torch, dtype_name, seed):
 
 def _check_wide_prio(torch, run):
     """_check_prio's checks on the wide priority server: the K3 launches
-    (every one in the global layout), the store of record against the
+    (every one in the cluster layout), the store of record against the
     solve's grants, each resource within its capacity, every group
     within its cap and binding, and the grouped solve through K3 against
     the plain solve."""
@@ -1859,8 +2057,8 @@ def _check_wide_prio(torch, run):
     check(solver.ticks == run["ticks"], f"BatchSolver ticks {solver.ticks}")
     check(run["launches"]["k3"] == n_launch,
           f"K3 launches {run['launches']['k3']} != {n_launch}")
-    check(run["layouts"] == {"warp": 0, "block": 0, "global": n_launch},
-          f"K3 layouts {run['layouts']}: not all global")
+    check(run["layouts"] == {"warp": 0, "block": 0, "cluster": n_launch},
+          f"K3 layouts {run['layouts']}: not all cluster")
     check(part.batch.wants.shape[1] == 131_072,
           f"bucket K = {part.batch.wants.shape[1]}")
     engine = server._store_engine
@@ -1896,7 +2094,48 @@ def _check_wide_prio(torch, run):
     srel = ((ks.double() - ps.double()).abs()
             / b.capacity.double().clamp_min(1e-30)[:, None]).max().item()
     check(srel <= K3_SOLVE_RTOL, f"grouped solve vs plain {srel:.3g}")
-    return min(ratios), max(ratios), srel, nb
+    split = _solve_split(torch, b, nb)
+    dense_cuda.LAUNCHES.update(saved)  # timing launches: not counted
+    dense_cuda.K3_LAYOUT_LAUNCHES.update(saved_layouts)
+    check(split["k3_launches"] == per_tick,
+          f"{split['k3_launches']} K3 launches in one grouped solve")
+    return min(ratios), max(ratios), srel, nb, split
+
+
+def _solve_split(torch, batch, num_bands):
+    """One grouped solve through K3 on the host clock (after a warm-up),
+    split into its K3 launches (a pair of CUDA events around each
+    wrapper call: the kernel, and any wait of the card for the launch's
+    host enqueue) and the rest (the theta bisection's torch ops and
+    the host between them)."""
+    from doorman_tpu_torch.solver import priority_cuda
+    from doorman_tpu_torch.solver.priority import solve_priority
+
+    real = priority_cuda.alloc_banded_k3
+    events = []
+
+    def timed(*a, **k):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = real(*a, **k)
+        e.record()
+        events.append((s, e))
+        return out
+
+    solve_priority(batch, num_bands, use_kernel=True)
+    torch.cuda.synchronize()
+    priority_cuda.alloc_banded_k3 = timed
+    try:
+        t = time.perf_counter()
+        solve_priority(batch, num_bands, use_kernel=True)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    finally:
+        priority_cuda.alloc_banded_k3 = real
+    k3 = sum(s.elapsed_time(e) for s, e in events)
+    return {"solve_ms": wall, "k3_ms": k3, "rest_ms": wall - k3,
+            "k3_launches": len(events)}
 
 
 def phase_wide_prio(torch, card):
@@ -1905,7 +2144,7 @@ def phase_wide_prio(torch, card):
     async def drive():
         for dtype_name, seed in (("f32", 21), ("f64", 22)):
             run = await _drive_wide_prio(torch, dtype_name, seed)
-            lo, hi, srel, nb = _check_wide_prio(torch, run)
+            lo, hi, srel, nb, split = _check_wide_prio(torch, run)
             walls = run["walls"]
             solver = run["server"]._solver
             ticks = run["ticks"]
@@ -1919,8 +2158,11 @@ def phase_wide_prio(torch, card):
                 f"per tick: " + ", ".join(
                     f"{k} {v * 1000.0 / ticks:.3f}"
                     for k, v in solver.phase_s.items())
-                + f"; card {card}")
-            out[dtype_name] = dict(run=run, solve_rel_err=srel)
+                + f"; one grouped solve {split['solve_ms']:.3f} ms: "
+                f"{split['k3_launches']} K3 launches {split['k3_ms']:.3f} ms "
+                f"(events around each), the rest {split['rest_ms']:.3f} ms; "
+                f"card {card}")
+            out[dtype_name] = dict(run=run, solve_rel_err=srel, split=split)
 
     asyncio.run(drive())
     return out
@@ -2284,13 +2526,28 @@ def main() -> int:
         batch_lanes = phase_batch_lanes(torch, servers["f32"]["server"])
         overflow = phase_overflow(torch, servers["f32"]["server"])
         wide_prio = phase_wide_prio(torch, card)
-        line["kernels"][-1]["global_layout"] = {
-            "launches": wide_prio["f32"]["run"]["layouts"]["global"],
-            "launches_f64": wide_prio["f64"]["run"]["layouts"]["global"],
-            "timing": _k3_global_timing(torch, wide_prio["f32"]["run"]),
-            "parity_rel_err": worst_global,
+        timing = _k3_global_timing(torch, {
+            **_wide_prio_tables(torch, wide_prio), **_k3_1m_tables(torch)})
+        line["kernels"][-1]["cluster_layout"] = {
+            "launches": wide_prio["f32"]["run"]["layouts"]["cluster"],
+            "launches_f64": wide_prio["f64"]["run"]["layouts"]["cluster"],
+            "timing": timing,
+            "parity_rel_err": {k: v for k, v in worst_global.items()
+                               if k.endswith("cluster")},
             "server_solve_rel_err": {
                 k: v["solve_rel_err"] for k, v in wide_prio.items()},
+            "solve_split": {k: v["split"] for k, v in wide_prio.items()},
+            "tick_walls_ms": {
+                k: [w * 1e3 for w in v["run"]["walls"]]
+                for k, v in wide_prio.items()},
+        }
+        line["kernels"][-1]["global_layout"] = {
+            "timing": {k: {"ms": v["global_ms"], "bound_ms": v["bound_ms"],
+                           "share_of_bound": v["global_share_of_bound"],
+                           "plain_ms": v["plain_ms"]}
+                       for k, v in timing.items()},
+            "parity_rel_err": {k: v for k, v in worst_global.items()
+                               if k.endswith("global")},
         }
         line["wide"] = _wide_entry(torch, wide)
         line["wide"]["overflow"] = overflow
@@ -2308,9 +2565,13 @@ def main() -> int:
         f"{wide['wide-1m f32']['p50']:.2f} ms p95 "
         f"{wide['wide-1m f32']['p95']:.2f} ms, wide-10x100k f32 p50 "
         f"{wide['wide-10x100k f32']['p50']:.2f} ms p95 "
-        f"{wide['wide-10x100k f32']['p95']:.2f} ms; wide priority f32 tick "
-        f"walls {[round(w * 1e3, 1) for w in wide_prio['f32']['run']['walls']]}"
-        f" ms; total {time.perf_counter() - t0:.1f}s")
+        f"{wide['wide-10x100k f32']['p95']:.2f} ms; wide priority tick "
+        f"walls f32 {[round(w * 1e3, 1) for w in wide_prio['f32']['run']['walls']]}"
+        f" ms, f64 {[round(w * 1e3, 1) for w in wide_prio['f64']['run']['walls']]}"
+        f" ms; K3 cluster layout " + ", ".join(
+            f"{k} {v['ms']:.4f} ms (global {v['global_ms']:.3f})"
+            for k, v in timing.items())
+        + f"; total {time.perf_counter() - t0:.1f}s")
     say(card)
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {

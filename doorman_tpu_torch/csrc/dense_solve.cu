@@ -2,9 +2,12 @@
 // lane solve fused with the delivered-grant delta epilogue) and K3 (the
 // banded water-fill of the priority solve, further below). Each comes in
 // two layouts: one warp per row for rows of up to kWarpMaxK = 256 lanes,
-// one block per row above; K3 has a third, one block per row read from
-// global memory, for rows wider than shared memory. The wrappers pick
-// the layout from the width (solver/dense_cuda.py k1_layout for K1/K2,
+// one block per row above. K3 has two more for rows wider than one
+// block's shared memory: one thread-block cluster per row, its partials
+// exchanged through distributed shared memory (the one the wrapper
+// launches), and one block per row read from global memory (kept as the
+// cluster layout's comparison). The wrappers pick the layout from the
+// width (solver/dense_cuda.py k1_layout for K1/K2,
 // solver/priority_cuda.py k3_layout for K3).
 //
 // K1 and K2 replace the TPU Pallas kernels doorman_tpu/solver/
@@ -67,6 +70,7 @@
 // min/max are written out to propagate NaN as torch.minimum/maximum do
 // (fminf/fmaxf would drop it).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -83,6 +87,9 @@ constexpr int kRedSlots = 64;       // two sums of up to 32 warps
 constexpr int kWarpMaxK = 256;      // the widest row of the warp layout
 constexpr int kRowsPerBlock = 8;    // warp layout: rows (warps) a block
 constexpr int kGlobalThreads = 1024;  // K3 global layout: threads a row
+constexpr int kClusterThreads = 512;  // K3 cluster layout: threads a block
+constexpr int kClusterMaxBlocks = 16;  // blocks a cluster (8 portable)
+constexpr size_t kSmemLimit = 232448;  // dynamic shared memory a block may use
 
 // algorithms/kinds.py AlgoKind
 enum : int {
@@ -1132,11 +1139,12 @@ int launch_k3_warp(const void* wants, const void* weights, const void* band,
 //
 // The same function as banded_fill_kernel (the TPU kernel it replaces is
 // doorman_tpu/solver/pallas_priority.py:32 `_make_kernel`, reached
-// through alloc_banded_pallas). priority_cuda.k3_layout picks it for a
-// row whose block-layout staging (k3_smem_for) exceeds the 227 KB a
-// block may use: K > 8,930 lanes at f32, > 5,042 at f64 — so every
-// PRIORITY_BANDS resource the BatchSolver buckets to 16,384 clients or
-// more at f32, 8,192 or more at f64.
+// through alloc_banded_pallas), for a row whose block-layout staging
+// (k3_smem_for) exceeds the 227 KB a block may use: K > 8,930 lanes at
+// f32, > 5,042 at f64. The wrapper launches the cluster layout
+// (banded_fill_cluster_kernel, below) for those rows; this one is
+// reached only through priority_cuda._launch_layout("global", ...), as
+// the cluster layout's comparison in chip_smoke.py.
 //
 // What bounds it: the bytes. Each pass over the row reads the active
 // flags and band ranks (5 B an element) and, for the band's members,
@@ -1149,9 +1157,8 @@ int launch_k3_warp(const void* wants, const void* weights, const void* band,
 // hit the 50 MB L2. One block per row leaves most of the 132 SMs idle
 // when a few wide rows are all there is, and a block's passes run at
 // one SM's share of the L2's bandwidth: this layout is right and
-// simple, not fast. Spreading a row over a thread-block cluster, with
-// the partials exchanged through distributed shared memory, is the
-// redesign.
+// simple, not fast. The cluster layout below spreads a row over a
+// thread-block cluster instead.
 //
 // Design: one block of up to kGlobalThreads threads per row; thread t
 // owns elements t, t + T, t + 2T, ... (T = blockDim.x, coalesced) and
@@ -1299,6 +1306,520 @@ int launch_k3_global(const void* wants, const void* weights,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- K3 for rows wider than shared memory, as one thread-block cluster
+// per row ("cluster" layout).
+//
+// The same function as banded_fill_kernel (the TPU kernel it replaces is
+// doorman_tpu/solver/pallas_priority.py:32 `_make_kernel`, reached
+// through alloc_banded_pallas). priority_cuda.k3_layout picks it for
+// every row the block layout cannot stage (K > 8,930 lanes at f32,
+// > 5,042 at f64); priority_cuda.k3_cluster_plan picks the cluster size
+// C and whether the row is staged, and launch_k3_cluster checks the
+// same shared-memory sizes.
+//
+// What bounds it on this card: not the bytes (a launch on the wide
+// priority cell's 8 x 131,072 f32 tables needs ~18 MB, 5 us at 3.35
+// TB/s) but the chain of dependent row reductions — per band a sum and
+// a max, and for a band that overflows 30 (f32) or 48 (f64) bisection
+// sums, two paired snap sums and the taken share. The global layout ran
+// each as a pass of one block over the whole row through L2, on one SM
+// a row, ~60 passes a launch.
+//
+// Design: a row is spread over a cluster of C blocks of kClusterThreads
+// threads on neighbouring SMs (any C up to 8 portable, up to 16 after
+// the non-portable opt-in; the grid is R * C blocks, launched with
+// cudaLaunchKernelEx and a cluster-dimension attribute). Block r of the
+// cluster owns the row's lanes [r * chunk, (r + 1) * chunk), chunk =
+// ceil(K / C) rounded up to kClusterAlign lanes, and thread t the lanes
+// chunk start + t, + kClusterThreads, ... of its block (coalesced).
+// Lanes past K are never visited. Two ways to hold the row, a template
+// parameter:
+//   staged (kStaged): each block copies its chunk once into dynamic
+//     shared memory — wants and weights as T and one byte a lane, the
+//     band rank if the lane is active and its rank below num_bands, else
+//     kNoBand — and no pass after that reads global memory. Each thread
+//     reads back only the lanes it wrote, so the copy needs no barrier.
+//   streamed: a row too wide for 16 blocks' shared memory is read from
+//     global memory (L2) in every pass, as the global layout reads it,
+//     but by C SMs at once.
+// Every pass is one fixed-order cluster reduction (cluster_reduce):
+// each thread adds its own lanes left to right, the warp's xor
+// butterfly, the warp partials in warp order, the block partial into a
+// slot of the block's shared memory, cluster.sync(), then the C slots
+// read through distributed shared memory in rank order 0..C-1. Every
+// thread of every block then holds the same bits, so every branch on a
+// reduced value is uniform across the cluster and repeat launches are
+// bit-identical, with no atomics. The slots are double-buffered by pass
+// parity, so one cluster.sync() a pass is enough: a block writes pass
+// p + 2's slot only after every block has passed pass p + 1's barrier,
+// so after every block has read pass p's. A last cluster.sync() keeps
+// every block resident until the others have read its slots. No
+// cooperative launch and no grid-wide barrier: nothing synchronises
+// across rows or across clusters.
+// Fewer passes: a band's sum and max ratio are one pass, and the
+// bisection decides kBisectLevels = 3 steps a pass by summing at the 7
+// midpoints the next three steps can form — the same (lo + hi) * 0.5
+// values the binary search forms, so its result is bit-identical. Those
+// seven sums are most of the kernel's instructions, so where the band's
+// wants and weights and the midpoints are all finite (the first pass
+// reduces a flag) they take the one-instruction min (bisect_sums). A
+// band that fits takes its members' wants, and its taken share is its
+// band sum (the same lanes added in the same order). So a band that
+// fits costs one pass, and one that overflows 1 + 10 (f32) or 16 (f64)
+// + 2 + 1. The kernel counts its cluster.sync() calls (`syncs`).
+// Grants are written once: every lane belongs to one band, so its grant
+// is its band's share (0 + share == share). Thread 0 of each block keeps
+// each band's (level, fits) in the wrapper's scratch `state`, and one
+// last pass writes every lane's grant (and sums the row total, with
+// `totals`) from it. Arithmetic as waterfill_level's (NaN-propagating
+// nmin/nmax, -fmad=false); against the plain version only the order of
+// the sums differs.
+// What is left bounds it: issuing the bisection passes' instructions,
+// in proportion to the lanes a block holds, so the plan weighs lanes a
+// block against the waves R clusters take (the card holds 7 clusters
+// of 10-16 blocks at once, 9 of 9, 15 of 8). On an H100 80GB HBM3 at
+// 700 W, chip_smoke.py timed 0.154 ms a launch on the wide priority
+// cell's 8 x 131,072 f32 tables (C = 9 staged; the global layout 6.2
+// ms) and 0.574 ms at f64 (C = 16 staged, two waves; global 11.1 ms),
+// 1.55 / 3.72 ms on one 1,048,576-lane row (C = 16 streamed; global 74
+// / 137 ms). ptxas: 80 registers at f32, 118-121 at f64, no spills.
+constexpr int kClusterAlign = 128;  // a block's chunk: a multiple of this
+constexpr int kBisectLevels = 3;    // bisection steps a pass decides
+constexpr int kBisectPoints = 1 << kBisectLevels;
+// Values a pass reduces at most: the bisection's midpoints, or the
+// first pass's three.
+constexpr int kClusterSums = kBisectPoints - 1 > 3 ? kBisectPoints - 1 : 3;
+constexpr int kClusterWarps = kClusterThreads / 32;
+// T values at the front of a block's shared memory: the warp partials
+// [kClusterSums][kClusterWarps], the two slots [2][kClusterSums] the
+// other blocks read, and the cluster's result [kClusterSums]; rounded
+// up to 16 values.
+constexpr int kClusterRedSlots =
+    ((kClusterWarps + 3) * kClusterSums + 15) / 16 * 16;
+constexpr int kNoBand = 0xFF;  // staged band byte of a lane in no band
+
+// Lanes of the row block r of C owns: a multiple of kClusterAlign.
+__host__ __device__ inline int64_t cluster_chunk(int K, int C) {
+  const int64_t per = (static_cast<int64_t>(K) + C - 1) / C;
+  return (per + kClusterAlign - 1) / kClusterAlign * kClusterAlign;
+}
+
+template <typename T>
+size_t k3_cluster_smem_for(int K, int C, bool staged) {
+  const size_t red = kClusterRedSlots * sizeof(T);
+  if (!staged) return red;
+  return red + static_cast<size_t>(cluster_chunk(K, C)) * (2 * sizeof(T) + 1);
+}
+
+// x[i] for a run-time i, by selects (a run-time index into a register
+// array would put it in local memory).
+template <typename T, int N>
+__device__ __forceinline__ T pick(const T (&x)[N], int i) {
+  T v = x[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) v = (i == k) ? x[k] : v;
+  return v;
+}
+
+// Reduces each thread's N values across the cluster — value k by max
+// where bit k of kMaxMask is set, by sum otherwise — in the fixed order
+// above, and leaves the results in v on every thread of the cluster.
+// red is the block's reduction scratch (kClusterRedSlots values).
+template <typename T, int N, unsigned kMaxMask = 0u>
+__device__ __forceinline__ void cluster_reduce(T (&v)[N], T* red,
+                                               int& parity, int& syncs) {
+  static_assert(N <= kClusterSums, "more values than the slots hold");
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T* slot = red + kClusterSums * kClusterWarps + parity * kClusterSums;
+  T* res = red + kClusterSums * (kClusterWarps + 2);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    v[k] = ((kMaxMask >> k) & 1u) ? warp_max(v[k]) : warp_sum(v[k]);
+    if (lane == 0) red[k * kClusterWarps + warp] = v[k];
+  }
+  __syncthreads();
+  if (threadIdx.x < N) {
+    const int k = threadIdx.x;
+    const bool mx = (kMaxMask >> k) & 1u;
+    T a = red[k * kClusterWarps];
+    for (int w = 1; w < kClusterWarps; ++w) {
+      const T x = red[k * kClusterWarps + w];
+      a = mx ? nmax(a, x) : a + x;
+    }
+    slot[k] = a;
+  }
+  cluster.sync();
+  ++syncs;
+  if (threadIdx.x < N) {
+    const int k = threadIdx.x;
+    const bool mx = (kMaxMask >> k) & 1u;
+    const int C = static_cast<int>(cluster.num_blocks());
+    T x[kClusterMaxBlocks];
+#pragma unroll
+    for (int r = 0; r < kClusterMaxBlocks; ++r)
+      if (r < C) x[r] = *cluster.map_shared_rank(slot + k, r);
+    T a = x[0];
+#pragma unroll
+    for (int r = 1; r < kClusterMaxBlocks; ++r)
+      if (r < C) a = mx ? nmax(a, x[r]) : a + x[r];
+    res[k] = a;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < N; ++k) v[k] = res[k];
+  parity ^= 1;
+}
+
+// One row as the cluster layout reads it: the block's lanes [begin,
+// end) of the row, from shared memory (kStaged) or global memory.
+template <typename T, bool kStaged>
+struct ClusterRow {
+  const T* __restrict__ wants;  // the row, in global memory
+  const T* __restrict__ weights;
+  const int32_t* __restrict__ band;
+  const uint8_t* __restrict__ active;
+  // Staged: the block's chunk of wants, weights and band bytes.
+  const T* staged_wants;
+  const T* staged_weights;
+  const uint8_t* staged_band;
+  int begin, end;
+  int num_bands;
+
+  // Lane j's band rank, or -1 for a lane in no band (inactive, or a rank
+  // outside [0, num_bands)).
+  __device__ __forceinline__ int rank_of(int j) const {
+    if constexpr (kStaged) {
+      const int r = staged_band[j - begin];
+      return r == kNoBand ? -1 : r;
+    } else {
+      const int32_t r = band[j];
+      return (active[j] != 0 && r >= 0 && r < num_bands) ? r : -1;
+    }
+  }
+  __device__ __forceinline__ T want(int j) const {
+    if constexpr (kStaged) return staged_wants[j - begin];
+    else return wants[j];
+  }
+  __device__ __forceinline__ T weight(int j) const {
+    if constexpr (kStaged) return staged_weights[j - begin];
+    else return weights[j];
+  }
+  // The band's masked wants and weights of lane j; true for a member.
+  __device__ __forceinline__ bool load(int j, int rank, T& w, T& s) const {
+    const bool m = rank_of(j) == rank;
+    w = m ? want(j) : T(0);
+    s = m ? weight(j) : T(0);
+    return m;
+  }
+};
+
+__device__ __forceinline__ float plain_min(float a, float b) {
+  return fminf(a, b);
+}
+__device__ __forceinline__ double plain_min(double a, double b) {
+  return fmin(a, b);
+}
+
+// The thread's part of a bisection pass: v[k] += min(w, p[k + 1] * s)
+// over its lanes. kFinite: every member's wants and weights and every
+// p are finite, so no product is NaN and the plain min (one
+// instruction) gives nmin's value; where both are zeros it may give the
+// other zero, which no sum can tell apart (a partial that starts at +0
+// is never -0).
+template <bool kFinite, typename T, bool kStaged, int P>
+__device__ __forceinline__ void bisect_sums(const ClusterRow<T, kStaged>& r,
+                                            int rank, const T (&p)[P + 1],
+                                            T (&v)[P - 1]) {
+#pragma unroll 2
+  for (int j = r.begin + threadIdx.x; j < r.end; j += kClusterThreads) {
+    T w, s;
+    r.load(j, rank, w, s);
+#pragma unroll
+    for (int k = 0; k < P - 1; ++k) {
+      const T x = p[k + 1] * s;
+      v[k] += kFinite ? plain_min(w, x) : nmin(w, x);
+    }
+  }
+}
+
+// waterfill_level above, for a band of a ClusterRow that overflows cap;
+// max_ratio is the band's max ratio and `finite` whether every member's
+// wants and weights are finite (the reduced first pass).
+template <typename T, bool kStaged>
+__device__ T cluster_waterfill_level(const ClusterRow<T, kStaged>& r,
+                                     int rank, T cap, T max_ratio,
+                                     bool finite, T* red, int& parity,
+                                     int& syncs) {
+  static_assert(Num<T>::kBisect % kBisectLevels == 0,
+                "the bisection must split into whole passes");
+  const T zero = T(0), tiny = Num<T>::tiny();
+  if (!isfinite(max_ratio)) max_ratio = zero;
+  T lo = zero, hi = nmax(max_ratio, zero);
+  constexpr int P = kBisectPoints;
+  for (int it = 0; it < Num<T>::kBisect; it += kBisectLevels) {
+    // p[1..P-1]: the midpoints of the next kBisectLevels steps, p[0] =
+    // lo and p[P] = hi; p[i] = (p[i - h] + p[i + h]) * 0.5 is the binary
+    // search's own (lo + hi) * 0.5 on whichever interval reaches it.
+    T p[P + 1];
+    p[0] = lo;
+    p[P] = hi;
+#pragma unroll
+    for (int h = P / 2; h >= 1; h >>= 1) {
+#pragma unroll
+      for (int i = h; i < P; i += 2 * h) p[i] = (p[i - h] + p[i + h]) * T(0.5);
+    }
+    T v[P - 1];
+    bool fast = finite;
+#pragma unroll
+    for (int k = 0; k < P - 1; ++k) {
+      v[k] = zero;
+      fast = fast && isfinite(p[k + 1]);
+    }
+    if (fast) {
+      bisect_sums<true, T, kStaged, P>(r, rank, p, v);
+    } else {
+      bisect_sums<false, T, kStaged, P>(r, rank, p, v);
+    }
+    cluster_reduce(v, red, parity, syncs);
+    // The steps, as the binary search takes them.
+    int i = P / 2;
+#pragma unroll
+    for (int h = P / 2; h >= 1; h >>= 1) {
+      if (pick(v, i - 1) < cap) {
+        lo = pick(p, i);
+        i += h >> 1;
+      } else {
+        hi = pick(p, i);
+        i -= h >> 1;
+      }
+    }
+  }
+  T level = hi;
+  for (int it = 0; it < kRefineIters; ++it) {
+    T v[2] = {zero, zero};
+#pragma unroll 4
+    for (int j = r.begin + threadIdx.x; j < r.end; j += kClusterThreads) {
+      T w, s;
+      r.load(j, rank, w, s);
+      const bool sat = w <= level * s;
+      v[0] += sat ? w : zero;
+      v[1] += sat ? zero : s;
+    }
+    cluster_reduce(v, red, parity, syncs);
+    const T exact = v[1] > zero ? (cap - v[0]) / nmax(v[1], tiny) : level;
+    level = nmax(exact, zero);
+  }
+  return level;
+}
+
+// (kClusterThreads, 1): one block an SM is what the staged chunk's
+// shared memory allows anyway, and it leaves ptxas 128 registers.
+template <typename T, bool kStaged>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    banded_fill_cluster_kernel(const T* __restrict__ wants,
+                               const T* __restrict__ weights,
+                               const int32_t* __restrict__ band,
+                               const uint8_t* __restrict__ active,
+                               const T* __restrict__ eff_cap,
+                               T* __restrict__ gets, T* __restrict__ totals,
+                               T* __restrict__ state,
+                               int32_t* __restrict__ syncs, int K,
+                               int num_bands) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int crank = static_cast<int>(cluster.block_rank());
+  const int64_t b = blockIdx.x / C;
+  const int64_t off = b * K;
+  const int64_t chunk = cluster_chunk(K, C);
+  const int begin = static_cast<int>(
+      crank * chunk < K ? crank * chunk : static_cast<int64_t>(K));
+  const int end = static_cast<int>(
+      begin + chunk < K ? begin + chunk : static_cast<int64_t>(K));
+  T* red = reinterpret_cast<T*>(smem);
+  ClusterRow<T, kStaged> r{wants + off, weights + off, band + off,
+                           active + off, nullptr, nullptr, nullptr,
+                           begin, end, num_bands};
+  if constexpr (kStaged) {
+    T* wants_s = red + kClusterRedSlots;
+    T* weights_s = wants_s + chunk;
+    uint8_t* band_s = reinterpret_cast<uint8_t*>(weights_s + chunk);
+    for (int j = begin + threadIdx.x; j < end; j += kClusterThreads) {
+      const int i = j - begin;
+      const int32_t bd = r.band[j];
+      band_s[i] = (r.active[j] != 0 && bd >= 0 && bd < num_bands)
+                      ? static_cast<uint8_t>(bd)
+                      : static_cast<uint8_t>(kNoBand);
+      wants_s[i] = r.wants[j];
+      weights_s[i] = r.weights[j];
+    }
+    r.staged_wants = wants_s;
+    r.staged_weights = weights_s;
+    r.staged_band = band_s;
+  }
+  const T zero = T(0), tiny = Num<T>::tiny();
+  T* st = state + static_cast<int64_t>(blockIdx.x) * 2 * num_bands;
+  int parity = 0, nsync = 0;
+  T remaining = eff_cap[b];
+  for (int rank = 0; rank < num_bands; ++rank) {
+    // The band's sum, max ratio and whether a member's wants or weight
+    // is not finite (1), in one pass.
+    T v[3] = {zero, T(-INFINITY), zero};
+#pragma unroll 4
+    for (int j = begin + threadIdx.x; j < end; j += kClusterThreads) {
+      T w, s;
+      const bool m = r.load(j, rank, w, s);
+      v[0] += w;
+      const T ratio = s > zero ? w / nmax(s, tiny) : zero;
+      v[1] = nmax(v[1], m ? ratio : T(-INFINITY));
+      v[2] = (isfinite(w) && isfinite(s)) ? v[2] : T(1);
+    }
+    cluster_reduce<T, 3, 6u>(v, red, parity, nsync);
+    const bool fits = v[0] <= remaining;
+    T level = zero, taken = v[0];
+    if (!fits) {
+      level = cluster_waterfill_level(r, rank, remaining, v[1], v[2] == zero,
+                                      red, parity, nsync);
+      T t[1] = {zero};
+#pragma unroll 4
+      for (int j = begin + threadIdx.x; j < end; j += kClusterThreads) {
+        T w, s;
+        const bool m = r.load(j, rank, w, s);
+        t[0] += m ? nmin(w, level * s) : zero;
+      }
+      cluster_reduce(t, red, parity, nsync);
+      taken = t[0];
+    }
+    if (threadIdx.x == 0) {
+      st[2 * rank] = level;
+      st[2 * rank + 1] = fits ? T(1) : zero;
+    }
+    remaining = nmax(remaining - taken, zero);
+  }
+  __syncthreads();  // thread 0's band state, for the whole block
+  T total[1] = {zero};
+  T* out = gets + off;
+#pragma unroll 4
+  for (int j = begin + threadIdx.x; j < end; j += kClusterThreads) {
+    const int bd = r.rank_of(j);
+    T g = zero;
+    if (bd >= 0) {
+      const T w = r.want(j);
+      g = st[2 * bd + 1] != zero ? w : nmin(w, st[2 * bd] * r.weight(j));
+    }
+    out[j] = g;
+    total[0] += g;
+  }
+  if (totals != nullptr) {
+    cluster_reduce(total, red, parity, nsync);
+    if (crank == 0 && threadIdx.x == 0) totals[b] = total[0];
+  }
+  // No block leaves while another may still read its slots.
+  cluster.sync();
+  ++nsync;
+  if (syncs != nullptr && crank == 0 && threadIdx.x == 0) syncs[b] = nsync;
+}
+
+// The launch configuration of one cluster-layout launch: R * C blocks in
+// clusters of C, the staged chunk's shared memory. Fails (without
+// launching) on a cluster size or a shared-memory size the layout does
+// not take.
+template <typename T, bool kStaged>
+cudaError_t k3_cluster_config(int n_rows, int K, int C, void* stream,
+                              cudaLaunchConfig_t* cfg,
+                              cudaLaunchAttribute* attr) {
+  if (C < 1 || C > kClusterMaxBlocks)
+    return cudaErrorInvalidValue;
+  if (static_cast<int64_t>(n_rows) * C > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  const size_t smem = k3_cluster_smem_for<T>(K, C, kStaged);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  auto kernel = banded_fill_cluster_kernel<T, kStaged>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  if (C > 8) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(static_cast<unsigned>(n_rows * C));
+  cfg->blockDim = dim3(kClusterThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = static_cast<cudaStream_t>(stream);
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(C);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <typename T>
+int launch_k3_cluster(const void* wants, const void* weights,
+                      const void* band, const void* active,
+                      const void* eff_cap, void* gets, void* totals,
+                      void* state, void* syncs, int n_rows, int K,
+                      int num_bands, int C, int staged, void* stream) {
+  if (n_rows <= 0 || K <= 0) return 0;
+  // A staged lane keeps its band rank in a byte.
+  if (staged && num_bands > kNoBand) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  const T* w = static_cast<const T*>(wants);
+  const T* s = static_cast<const T*>(weights);
+  const int32_t* bd = static_cast<const int32_t*>(band);
+  const uint8_t* a = static_cast<const uint8_t*>(active);
+  const T* cap = static_cast<const T*>(eff_cap);
+  T* g = static_cast<T*>(gets);
+  T* tot = static_cast<T*>(totals);
+  T* st = static_cast<T*>(state);
+  int32_t* sy = static_cast<int32_t*>(syncs);
+  cudaError_t e;
+  if (staged) {
+    e = k3_cluster_config<T, true>(n_rows, K, C, stream, &cfg, attr);
+    if (e == cudaSuccess)
+      e = cudaLaunchKernelEx(&cfg, banded_fill_cluster_kernel<T, true>, w, s,
+                             bd, a, cap, g, tot, st, sy, K, num_bands);
+  } else {
+    e = k3_cluster_config<T, false>(n_rows, K, C, stream, &cfg, attr);
+    if (e == cudaSuccess)
+      e = cudaLaunchKernelEx(&cfg, banded_fill_cluster_kernel<T, false>, w,
+                             s, bd, a, cap, g, tot, st, sy, K, num_bands);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of C blocks (staged or not, at width K) the card
+// holds at once (cudaOccupancyMaxActiveClusters), into *out.
+template <typename T>
+int k3_cluster_max_active(int K, int C, int staged, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e;
+  if (staged) {
+    e = k3_cluster_config<T, true>(1, K, C, nullptr, &cfg, attr);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveClusters(
+          out, reinterpret_cast<const void*>(
+                   banded_fill_cluster_kernel<T, true>), &cfg);
+  } else {
+    e = k3_cluster_config<T, false>(1, K, C, nullptr, &cfg, attr);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveClusters(
+          out, reinterpret_cast<const void*>(
+                   banded_fill_cluster_kernel<T, false>), &cfg);
+  }
+  return static_cast<int>(e);
+}
+
 Inputs make_inputs(const void* wants, const void* has, const void* sub,
                    const void* act, const void* cap, const void* kind,
                    const void* learn, const void* statc) {
@@ -1321,7 +1842,8 @@ Inputs make_inputs(const void* wants, const void* has, const void* sub,
 // value is cudaGetLastError() after the launch (0 = launched). LAUNCH is
 // a layout's launcher: the block-per-row one (launch, launch_k3), the
 // warp-per-row one (launch_warp, launch_k3_warp; K <= 256) or K3's
-// global one (launch_k3_global, any K).
+// global one (launch_k3_global, any K). K3's cluster layout has entries
+// of its own (DSK_K3_CLUSTER, below).
 //
 // K1: grants of rows `rows` (or of every row when rows is null) into
 // out[n_rows, K].
@@ -1380,3 +1902,27 @@ DSK_K3(dsk_k3_warp_f32, launch_k3_warp, float)
 DSK_K3(dsk_k3_warp_f64, launch_k3_warp, double)
 DSK_K3(dsk_k3_global_f32, launch_k3_global, float)
 DSK_K3(dsk_k3_global_f64, launch_k3_global, double)
+
+// K3's cluster layout: as DSK_K3, with the wrapper's scratch `state`
+// ([n_rows * cluster, 2 * num_bands] values), `syncs` (null, or each
+// row's count of cluster.sync() calls into int32 [n_rows]), the cluster
+// size and staged (1) or streamed (0); and NAME_max_active, the clusters
+// the card holds at once for that plan at width K.
+#define DSK_K3_CLUSTER(NAME, T)                                              \
+  extern "C" int NAME(const void* wants, const void* weights,               \
+                      const void* band, const void* active,                 \
+                      const void* eff_cap, void* gets, void* totals,        \
+                      void* state, void* syncs, int n_rows, int K,          \
+                      int num_bands, int cluster, int staged,               \
+                      void* stream) {                                       \
+    return launch_k3_cluster<T>(wants, weights, band, active, eff_cap, gets, \
+                                totals, state, syncs, n_rows, K, num_bands,  \
+                                cluster, staged, stream);                    \
+  }                                                                         \
+  extern "C" int NAME##_max_active(int K, int cluster, int staged,          \
+                                   int* out) {                              \
+    return k3_cluster_max_active<T>(K, cluster, staged, out);               \
+  }
+
+DSK_K3_CLUSTER(dsk_k3_cluster_f32, float)
+DSK_K3_CLUSTER(dsk_k3_cluster_f64, double)

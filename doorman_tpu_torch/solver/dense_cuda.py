@@ -13,6 +13,9 @@ to WARP_MAX_K lanes run one warp per row, the row in registers and
 every reduction a warp shuffle (`dense_solve_warp_kernel`,
 `banded_fill_warp_kernel`); wider rows run one block per row, the row
 staged in shared memory (`dense_solve_kernel`, `banded_fill_kernel`).
+K3 runs rows wider than one block's shared memory as one thread-block
+cluster per row (`banded_fill_cluster_kernel`), and keeps a one-block
+global-memory layout (`banded_fill_global_kernel`) as its comparison.
 `k1_layout` picks K1/K2's layout, priority_cuda.k3_layout K3's.
 
 The source is compiled with nvcc at first use into the package's
@@ -55,8 +58,9 @@ LIBRARY = BUILD_DIR / "libdense_solve.so"
 # Kernel launches since process start (or the caller's last reset).
 LAUNCHES = {"k1": 0, "k2": 0, "k3": 0}
 # K3's launches again, by the layout that ran them, so a run shows which
-# layout served a path.
-K3_LAYOUT_LAUNCHES = {"warp": 0, "block": 0, "global": 0}
+# layout served a path (the global layout is launched only as the
+# cluster layout's comparison, which counts nothing).
+K3_LAYOUT_LAUNCHES = {"warp": 0, "block": 0, "cluster": 0}
 
 # The widest row the warp-per-row layouts take (csrc/dense_solve.cu
 # kWarpMaxK: 8 elements a lane).
@@ -152,27 +156,31 @@ def ptxas_usage(text: "str | None" = None) -> dict:
 # A kernel entry's mangled name -> (kernel, layout, types, V or None).
 _ENTRY = re.compile(
     r"(dense_solve_warp_kernel|dense_solve_kernel|banded_fill_warp_kernel"
-    r"|banded_fill_global_kernel|banded_fill_kernel)I([fd])"
-    r"(?:([fd]|13__nv_bfloat16|DF16b)Lb([01])E)?(?:Li(\d+)E)?"
+    r"|banded_fill_global_kernel|banded_fill_cluster_kernel"
+    r"|banded_fill_kernel)I([fd])"
+    r"(?:([fd]|13__nv_bfloat16|DF16b)?Lb([01])E)?(?:Li(\d+)E)?"
 )
 _TYPE = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16", "DF16b": "bf16"}
 
 
 def entry_label(entry: str) -> "str | None":
-    """"K1 warp f32 V=4", "K2 block f64/bf16", "K3 global f64", ...
-    for a kernel entry of ptxas's report (a mangled name); None for
-    anything else. K2's types are the solve's and prev's."""
+    """"K1 warp f32 V=4", "K2 block f64/bf16", "K3 global f64",
+    "K3 cluster f32 staged", ... for a kernel entry of ptxas's report (a
+    mangled name); None for anything else. K2's types are the solve's
+    and prev's."""
     m = _ENTRY.search(entry)
     if m is None:
         return None
-    kern, t, p, fused, V = m.groups()
+    kern, t, p, flag, V = m.groups()
     if kern.startswith("banded"):
         name = "K3"
     else:
-        name = "K2" if fused == "1" else "K1"
-    layout = "warp" if "warp" in kern else (
-        "global" if "global" in kern else "block")
+        name = "K2" if flag == "1" else "K1"
+    layout = next((k for k in ("warp", "global", "cluster") if k in kern),
+                  "block")
     types = _TYPE[t] + (f"/{_TYPE[p]}" if name == "K2" else "")
+    if layout == "cluster":
+        types += " staged" if flag == "1" else " streamed"
     return f"{name} {layout} {types}" + (f" V={V}" if V else "")
 
 
@@ -203,6 +211,13 @@ def _load():
                 fn = getattr(lib, name)
                 fn.restype = _I
                 fn.argtypes = [_P] * 7 + [_I, _I, _I, _P]
+            for dt in ("f32", "f64"):
+                fn = getattr(lib, f"dsk_k3_cluster_{dt}")
+                fn.restype = _I
+                fn.argtypes = [_P] * 9 + [_I] * 5 + [_P]
+                fn = getattr(lib, f"dsk_k3_cluster_{dt}_max_active")
+                fn.restype = _I
+                fn.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
             _lib = lib
         return _lib
 

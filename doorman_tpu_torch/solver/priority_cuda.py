@@ -10,16 +10,24 @@ and raises on a build or launch failure — nothing falls back. Each
 launch adds one to dense_cuda.LAUNCHES["k3"] and one to its layout's
 count in dense_cuda.K3_LAYOUT_LAUNCHES.
 
-K3 has three layouts, chosen from the row width by `k3_layout`: rows of
-up to dense_cuda.WARP_MAX_K lanes (the same bound as K1/K2's) run one
-warp per row with the row in registers (`banded_fill_warp_kernel`);
-wider rows run one block per row with the row staged in shared memory
-(`banded_fill_kernel`) while it fits there (SMEM_LIMIT), and one block
-per row reading the row from global memory in every pass above that
-(`banded_fill_global_kernel`, any width).
+K3 launches one of three layouts, chosen from the row width by
+`k3_layout`: rows of up to dense_cuda.WARP_MAX_K lanes (the same bound
+as K1/K2's) run one warp per row with the row in registers
+(`banded_fill_warp_kernel`); wider rows run one block per row with the
+row staged in shared memory (`banded_fill_kernel`) while it fits there
+(SMEM_LIMIT), and one thread-block cluster per row above that
+(`banded_fill_cluster_kernel`, any width), its blocks exchanging their
+partial sums through distributed shared memory; `k3_cluster_plan` picks
+the cluster's size and whether its blocks stage the row. A fourth
+layout, one block per row reading the row from global memory in every
+pass (`banded_fill_global_kernel`), is reached only through
+`_launch_layout("global", ...)`, as the cluster layout's comparison.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -31,17 +39,90 @@ from doorman_tpu_torch.utils.backend import require_hopper
 # Dynamic shared memory one block may use on Hopper (227 KB).
 SMEM_LIMIT = 232_448
 
+# K3's cluster layout (csrc/dense_solve.cu): threads a block, the most
+# blocks a cluster (above 8 needs the non-portable opt-in), the lane multiple
+# a block's chunk of the row is rounded to, the reduction scratch at the
+# front of a block's shared memory (values), and the band byte a staged
+# lane in no band holds.
+CLUSTER_THREADS = 512
+CLUSTER_MAX = 16
+CLUSTER_ALIGN = 128
+CLUSTER_RED_SLOTS = 144
+NO_BAND = 255
+
 
 def k3_layout(K: int, itemsize: int) -> str:
     """The layout K3 launches for rows of K lanes of `itemsize`-byte
     floats: "warp" (one warp per row, the row in registers) up to
     dense_cuda.WARP_MAX_K lanes, "block" (one block per row, the row
     staged in shared memory) while k3_smem_bytes fits SMEM_LIMIT,
-    "global" (one block per row, the row read from global memory in
-    every pass) above."""
+    "cluster" (one thread-block cluster per row, k3_cluster_plan) above."""
     if K <= dense_cuda.WARP_MAX_K:
         return "warp"
-    return "block" if k3_smem_bytes(K, itemsize) <= SMEM_LIMIT else "global"
+    return "block" if k3_smem_bytes(K, itemsize) <= SMEM_LIMIT else "cluster"
+
+
+def k3_cluster_chunk(K: int, C: int) -> int:
+    """Lanes of the row each of a cluster's C blocks owns (the last
+    blocks' chunks end at K): ceil(K / C) rounded up to CLUSTER_ALIGN."""
+    per = -(-K // C)
+    return -(-per // CLUSTER_ALIGN) * CLUSTER_ALIGN
+
+
+def k3_cluster_smem_bytes(K: int, C: int, staged: bool, itemsize: int) -> int:
+    """Shared memory one block of the cluster layout uses
+    (csrc/dense_solve.cu k3_cluster_smem_for): the reduction scratch,
+    and when staged its chunk's wants and weights and a band byte a
+    lane."""
+    red = CLUSTER_RED_SLOTS * itemsize
+    return red + k3_cluster_chunk(K, C) * (2 * itemsize + 1) if staged else red
+
+
+def k3_cluster_plan(K: int, itemsize: int, num_bands: int = 1,
+                    rows: int = 1, sms: int = 132, resident=None):
+    """(C, staged, shared memory bytes a block) of K3's cluster layout
+    for `rows` rows of K lanes. Of the cluster sizes C <= CLUSTER_MAX
+    whose blocks can each stage their chunk in shared memory (while the
+    band ranks fit a byte), or of all of them where none can (the blocks
+    then read the row from global memory), the one with the fewest
+    lanes a block times waves: a cluster's passes take time in
+    proportion to its blocks' chunks, and the `rows` clusters take
+    ceil(rows / n) waves when the card holds n of them at once —
+    `resident(C, staged)`, the card's own count, or by default `sms`
+    // C (one block an SM). On a tie, the fewer blocks."""
+    def cost(C, staged):
+        n = resident(C, staged) if resident is not None else sms // C
+        waves = -(-rows // n) if n > 0 else float("inf")
+        return waves * k3_cluster_chunk(K, C), C
+
+    sizes = range(1, CLUSTER_MAX + 1)
+    plans = [(C, True) for C in sizes if num_bands <= NO_BAND
+             and k3_cluster_smem_bytes(K, C, True, itemsize) <= SMEM_LIMIT]
+    C, staged = min(plans or [(C, False) for C in sizes],
+                    key=lambda p: cost(*p))
+    return C, staged, k3_cluster_smem_bytes(K, C, staged, itemsize)
+
+
+def k3_cluster_plan_for(wants: torch.Tensor, num_bands: int):
+    """k3_cluster_plan for a [R, K] table on its card: the plan the
+    wrapper launches."""
+    R, K = wants.shape
+    return k3_cluster_plan(
+        K, wants.element_size(), num_bands, R, resident=lambda C, staged:
+        k3_cluster_max_active(wants.dtype, K, C, staged))
+
+
+@functools.lru_cache(maxsize=None)
+def k3_cluster_max_active(dtype: torch.dtype, K: int, C: int,
+                          staged: bool) -> int:
+    """Clusters of that plan the card holds at once
+    (cudaOccupancyMaxActiveClusters); raises if the query fails."""
+    out = ctypes.c_int(0)
+    fn = getattr(dense_cuda._load(),
+                 f"dsk_k3_cluster_{dense_cuda._DT[dtype]}_max_active")
+    dense_cuda._raise_on(fn(K, C, int(staged), ctypes.byref(out)),
+                         "K3 (cluster occupancy query)")
+    return out.value
 
 
 def k3_smem_bytes(K: int, itemsize: int) -> int:
@@ -101,12 +182,16 @@ def alloc_banded_k3(
 
 
 def _launch_layout(layout, wants, weights, band, active, eff_cap,
-                   num_bands, totals):
-    """One launch of K3's `layout` ("warp", "block" or "global") on
-    tensors that `_check` passed: (gets, row totals or None). Counts
-    nothing: the wrapper counts its own launch, and a comparison of the
-    layouts calls this directly. The block layout takes rows up to
-    SMEM_LIMIT's width, the warp layout up to WARP_MAX_K lanes."""
+                   num_bands, totals, plan=None, syncs=None):
+    """One launch of K3's `layout` ("warp", "block", "cluster" or
+    "global") on tensors that `_check` passed: (gets, row totals or
+    None). Counts nothing: the wrapper counts its own launch, and a
+    comparison of the layouts calls this directly. The block layout
+    takes rows up to SMEM_LIMIT's width, the warp layout up to
+    WARP_MAX_K lanes. The cluster layout runs `plan` ((C, staged), by
+    default k3_cluster_plan's) and raises if the card holds no cluster
+    of it; `syncs` (int32 [R] on the device, or None) receives each
+    row's count of cluster barriers."""
     R, K = wants.shape
     dev = wants.device
     lib = dense_cuda._load()
@@ -114,12 +199,27 @@ def _launch_layout(layout, wants, weights, band, active, eff_cap,
     tot = (
         torch.empty(R, dtype=wants.dtype, device=dev) if totals else None
     )
-    fn = getattr(lib, f"dsk_k3_{layout}_{dense_cuda._DT[wants.dtype]}")
-    err = fn(
-        wants.data_ptr(), weights.data_ptr(), band.data_ptr(),
-        active.data_ptr(), eff_cap.data_ptr(), gets.data_ptr(),
-        tot.data_ptr() if tot is not None else None,
-        R, K, int(num_bands), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    dt = dense_cuda._DT[wants.dtype]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (wants.data_ptr(), weights.data_ptr(), band.data_ptr(),
+            active.data_ptr(), eff_cap.data_ptr(), gets.data_ptr(),
+            tot.data_ptr() if tot is not None else None)
+    if layout == "cluster":
+        C, staged = plan or k3_cluster_plan_for(wants, num_bands)[:2]
+        if k3_cluster_max_active(wants.dtype, K, C, staged) < 1:
+            raise RuntimeError(
+                f"K3 (cluster layout): the card holds no cluster of {C} "
+                f"{'staged' if staged else 'streamed'} blocks at K = {K}")
+        state = torch.empty(R * C * 2 * int(num_bands), dtype=wants.dtype,
+                            device=dev)
+        err = getattr(lib, f"dsk_k3_cluster_{dt}")(
+            *args, state.data_ptr(),
+            syncs.data_ptr() if syncs is not None else None,
+            R, K, int(num_bands), int(C), int(staged), stream,
+        )
+    else:
+        err = getattr(lib, f"dsk_k3_{layout}_{dt}")(
+            *args, R, K, int(num_bands), stream,
+        )
     dense_cuda._raise_on(err, f"K3 ({layout} layout)")
     return gets, tot

@@ -1,9 +1,10 @@
-"""K3's global layout on the CPU: the choice of layout, and the order in
-which the layout adds, held against the plain version and the JAX
-package.
+"""K3's global layout on the CPU: the choice of layout past shared
+memory, and the order in which the global layout adds, held against the
+plain version and the JAX package.
 
-K3 (csrc/dense_solve.cu `banded_fill_global_kernel`) runs a row wider
-than shared memory as one block of T threads (T = K rounded up to a
+K3's global layout (csrc/dense_solve.cu `banded_fill_global_kernel`,
+the cluster layout's comparison on the card) runs a row wider than
+shared memory as one block of T threads (T = K rounded up to a
 warp, at most kGlobalThreads = 1,024: `launch_k3_global`) reading the row
 from global memory in every pass. Thread t adds its own elements
 t, t + T, t + 2T, ... left to right from 0; the warp adds across its 32
@@ -173,13 +174,15 @@ def test_global_order_grouped_solve_matches_the_reference(
 def test_k3_layout_picks_global_from_the_first_refused_bucket(itemsize,
                                                               first):
     """The BatchSolver rounds K up to a power of two: the first bucket
-    the block layout cannot stage is 16,384 at f32 and 8,192 at f64."""
+    the block layout cannot stage is 16,384 at f32 and 8,192 at f64; the
+    wrapper launches the cluster layout there (the global layout is
+    reached only through `_launch_layout`)."""
     assert priority_cuda.k3_layout(first // 2, itemsize) == "block"
-    assert priority_cuda.k3_layout(first, itemsize) == "global"
-    assert priority_cuda.k3_layout(1 << 20, itemsize) == "global"
+    assert priority_cuda.k3_layout(first, itemsize) == "cluster"
+    assert priority_cuda.k3_layout(1 << 20, itemsize) == "cluster"
     widest = (priority_cuda.SMEM_LIMIT - 64 * itemsize) // (5 * itemsize + 6)
     assert priority_cuda.k3_layout(widest, itemsize) == "block"
-    assert priority_cuda.k3_layout(widest + 1, itemsize) == "global"
+    assert priority_cuda.k3_layout(widest + 1, itemsize) == "cluster"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -204,4 +207,4 @@ def test_wide_rows_on_cpu_tensors_take_the_plain_version():
                        tp._alloc_banded(*args, 4))
     assert dense_cuda.LAUNCHES["k3"] == 0
     assert dense_cuda.K3_LAYOUT_LAUNCHES == {"warp": 0, "block": 0,
-                                             "global": 0}
+                                             "cluster": 0}

@@ -200,13 +200,13 @@ def test_warp_order_grouped_solve_matches_the_reference(
 @pytest.mark.parametrize("K", [1, 8, 32, 100, 128, 255, 256, 257, 4096, 8930])
 def test_k3_layout_is_warp_up_to_256_lanes_and_block_above(K):
     """At f32 the block layout stages every row up to 8,930 lanes (the
-    global layout above it: tests/test_torch_k3_global.py)."""
+    cluster layout above it: tests/test_torch_k3_cluster.py)."""
     assert priority_cuda.k3_layout(K, 4) == ("warp" if K <= 256 else "block")
 
 
 def test_block_layout_keeps_its_shared_memory_limit():
     """The block layout stages a row in shared memory up to SMEM_LIMIT;
-    a wider row goes to the global layout, which `_check` admits."""
+    a wider row goes to the cluster layout, which `_check` admits."""
     def tables(K, dtype):
         z = torch.zeros((1, K), dtype=dtype)
         return (z, z, torch.zeros((1, K), dtype=torch.int32),
@@ -215,12 +215,12 @@ def test_block_layout_keeps_its_shared_memory_limit():
 
     assert priority_cuda.k3_smem_bytes(4096, 8) == 188_928
     assert priority_cuda.k3_layout(4096, 8) == "block"
-    assert priority_cuda.k3_layout(8192, 8) == "global"
+    assert priority_cuda.k3_layout(8192, 8) == "cluster"
     # The widest f32 row the block layout stages: 26 K + 256 bytes.
     assert priority_cuda.k3_smem_bytes(8930, 4) <= priority_cuda.SMEM_LIMIT
     assert priority_cuda.k3_smem_bytes(8931, 4) > priority_cuda.SMEM_LIMIT
     assert priority_cuda.k3_layout(8930, 4) == "block"
-    assert priority_cuda.k3_layout(8931, 4) == "global"
+    assert priority_cuda.k3_layout(8931, 4) == "cluster"
     for K, dtype in ((4096, torch.float64), (8192, torch.float64),
                      (8930, torch.float32), (8931, torch.float32)):
         priority_cuda._check(*tables(K, dtype))

@@ -121,7 +121,7 @@ def test_k3_wrapper_on_cpu_tensors_is_the_plain_version(dtype):
 
 def test_k3_refuses_a_row_wider_than_shared_memory():
     """No width is refused any more: a row wider than the block layout's
-    shared memory goes to the global layout (priority_cuda.k3_layout),
+    shared memory goes to the cluster layout (priority_cuda.k3_layout),
     and `_check` passes it."""
     from doorman_tpu_torch.solver import priority_cuda
 
@@ -134,7 +134,7 @@ def test_k3_refuses_a_row_wider_than_shared_memory():
     priority_cuda._check(*tables(4096, torch.float64))
     priority_cuda._check(*tables(8192, torch.float64))
     assert priority_cuda.k3_layout(4096, 8) == "block"
-    assert priority_cuda.k3_layout(8192, 8) == "global"
+    assert priority_cuda.k3_layout(8192, 8) == "cluster"
     assert priority_cuda.k3_smem_bytes(4096, 8) == 188_928
 
 
