@@ -33,6 +33,16 @@ tick runs the BatchSolver's edge-list lane part, the next the wide
 solver); and 8 PRIORITY_BANDS resources of 100,000 clients in two
 binding capacity groups, whose every K3 launch is in the cluster layout.
 
+Then the reference server's other settings: the round-trip tick
+(`fused_tick=False`) beside the fused one on two lane servers from one
+seed, whose stores must hold the same bytes, with one K1 launch a tick
+and no K2 (and one wide pair); a batch server on the Python lease store
+(1,000 PRIORITY_BANDS resources in two binding groups beside 1,000 lane
+resources, 100 clients each), whose K3 grants must equal the native
+store's BatchSolver's bit for bit; and an immediate-mode server, the
+reference's default, answering GetCapacity over loopback with no kernel
+launch, every grant equal to an in-process replay.
+
 Prints one line per phase, the card's name and power limit, one JSON line
 of per-kernel measurements, and last the JSON result line. Exits non-zero
 (and prints no result) without a CUDA device, outside a checkout of the
@@ -649,7 +659,12 @@ async def _requests(torch, server, port, resources):
         return served + 1
 
 
-async def _drive_server(torch, dtype_name, ticks, quiet, seed):
+async def _drive_server(torch, dtype_name, ticks, quiet, seed, fused=True,
+                        tracked=None, label="server"):
+    """The lane cell's server from `seed`: churn and quiet ticks, launches
+    read around them, then requests over loopback. With a `tracked` dict,
+    the store's has after those ticks, then RT_TRACKED_TICKS delta-
+    tracked churn ticks and their changed rows and launches, land in it."""
     import numpy as np
 
     from doorman_tpu_torch.server.config import parse_yaml_config
@@ -660,7 +675,7 @@ async def _drive_server(torch, dtype_name, ticks, quiet, seed):
     rng = np.random.default_rng(seed)
     server = CapacityServer(
         "smoke", TrivialElection(), mode="batch", native_store=True,
-        solver_dtype=dtype_name, fused_tick=True, scoped_solve=True,
+        solver_dtype=dtype_name, fused_tick=fused, scoped_solve=True,
         tick_pipeline_depth=3, tick_interval=1.0, device=DEVICE,
     )
     port = await server.start(0, host="127.0.0.1", tick_loop=False)
@@ -668,7 +683,7 @@ async def _drive_server(torch, dtype_name, ticks, quiet, seed):
         await server.load_config(parse_yaml_config(_config_yaml()))
         t = time.perf_counter()
         resources, rids, cids = _populate(server, rng)
-        say(f"phase server[{dtype_name}]: {len(resources)} resources, "
+        say(f"phase {label}[{dtype_name}]: {len(resources)} resources, "
             f"{server._store_engine.total_leases} leases populated in "
             f"{time.perf_counter() - t:.1f}s")
         dense_cuda.reset_launches()  # the main path starts here
@@ -684,6 +699,28 @@ async def _drive_server(torch, dtype_name, ticks, quiet, seed):
         await server.flush_ticks()
         torch.cuda.synchronize()
         launches = dict(dense_cuda.LAUNCHES)  # read just after
+        if tracked is not None:
+            solver = server._resident
+            tracked["has"] = _packed_has(server)
+            tracked["phases"] = {k: v * 1e3 / len(walls)
+                                 for k, v in solver.phase_s.items() if v > 0}
+            # The next tick rebuilds with the previous-grants table; the
+            # changed rows are read after every tick and after the flush.
+            solver.enable_delta_tracking()
+            name = {r.store._rid: r.id for r in resources}
+            dense_cuda.reset_launches()
+            changed = []
+            for i in range(RT_TRACKED_TICKS + 1):
+                if i < RT_TRACKED_TICKS:
+                    _churn(server._store_engine, rng, rids, cids)
+                    await server.tick_once()
+                else:
+                    await server.flush_ticks()
+                changed.append(
+                    sorted(name[r] for r in solver.take_changed_rids()))
+            torch.cuda.synchronize()
+            tracked.update(changed=changed, has_after=_packed_has(server),
+                           launches=dict(dense_cuda.LAUNCHES))
         served = await _requests(torch, server, port, resources)
         return server, resources, walls, modes, scopes, launches, served
     finally:
@@ -855,7 +892,7 @@ def _prio_yaml(gcap, lease_length=3600, refresh=5):
         lines.append(f"  - name: g{g}\n    capacity: {float(c)!r}")
     lines.append("resources:")
     for t, cap in enumerate(CAP_TIERS):
-        for g in range(N_GROUPS):
+        for g in range(len(gcap)):
             lines.append(
                 f"  - identifier_glob: 'p.g{g}.t{t}.*'\n    capacity: {cap}\n"
                 f"    capacity_group: g{g}\n    algorithm: {algo}"
@@ -1583,7 +1620,7 @@ def _wide_inputs(engine, res):
 
 
 async def _drive_wide(torch, label, n_wide, clients, dtype_name, ticks,
-                      quiet, seed, lanes=False):
+                      quiet, seed, lanes=False, fused=True):
     import numpy as np
 
     from doorman_tpu_torch.server.config import parse_yaml_config
@@ -1599,7 +1636,7 @@ async def _drive_wide(torch, label, n_wide, clients, dtype_name, ticks,
         wide_ids = [f"wide{r}" for r in range(n_wide)]
     server = CapacityServer(
         f"smoke-{label}", TrivialElection(), mode="batch", native_store=True,
-        solver_dtype=dtype_name, fused_tick=True, scoped_solve=True,
+        solver_dtype=dtype_name, fused_tick=fused, scoped_solve=True,
         tick_pipeline_depth=3, tick_interval=1.0, device=DEVICE,
     )
     await server.start(0, host="127.0.0.1", tick_loop=False)
@@ -2168,6 +2205,621 @@ def phase_wide_prio(torch, card):
     return out
 
 
+# -- phase 12: the round-trip tick --------------------------------------------
+
+RT_TICKS = {"f32": (12, 6), "f64": (3, 3)}  # (churn, quiet) ticks
+RT_TRACKED_TICKS = 3
+RT_WIDE = ("wide-10x100k", 10, 100_000)
+RT_WIDE_TICKS = (3, 2)  # (ticks, quiet) of _drive_wide
+
+
+def _packed_has(server):
+    """Every lease's has, resource by resource in registry order (one
+    bulk pack of the native engine)."""
+    _r, _c, _w, has, _s, _p = server._store_engine.pack(
+        [r.store for r in server.resources.values()])
+    return has
+
+
+def _byte_diff(a, b):
+    """Leases whose has differs in any bit (a length mismatch counts
+    every lease)."""
+    import numpy as np
+
+    if a.shape != b.shape:
+        return max(len(a), len(b))
+    return int((a.view(np.uint64) != b.view(np.uint64)).sum())
+
+
+def phase_round_trip(torch, card):
+    """The round-trip tick (`--no-fused-tick`) beside the fused one: two
+    lane-cell servers from one seed with identical churn, whose stores
+    must hold the same bytes; the round-trip server runs one K1 launch a
+    tick and no K2, tracked or not; then one wide pair."""
+    out = {}
+
+    async def drive():
+        for dtype_name, seed in (("f32", 31), ("f64", 32)):
+            ticks, quiet = RT_TICKS[dtype_name]
+            n = ticks + quiet
+            runs = {}
+            for fused in (True, False):
+                tr = {}
+                _s, _r, walls, modes, _sc, launches, _sv = await _drive_server(
+                    torch, dtype_name, ticks, quiet, seed, fused=fused,
+                    tracked=tr, label="round-trip " + (
+                        "fused" if fused else "unfused"))
+                runs[fused] = dict(tr, walls=walls, modes=modes,
+                                   main_launches=launches)
+            fu, rt = runs[True], runs[False]
+            diff = _byte_diff(fu["has"], rt["has"])
+            check(diff == 0, f"round-trip[{dtype_name}]: {diff} leases differ "
+                  "from the fused server's")
+            check(rt["main_launches"]["k1"] == n
+                  and rt["main_launches"]["k2"] == 0,
+                  f"round-trip[{dtype_name}]: launches {rt['main_launches']} "
+                  f"in {n} ticks")
+            check(rt["modes"] == ["full"] * n,
+                  f"round-trip[{dtype_name}]: modes {rt['modes']}")
+            check("scoped" in fu["modes"], "fused server: no scoped tick")
+            tl = rt["launches"]
+            check(tl["k1"] == RT_TRACKED_TICKS and tl["k2"] == 0,
+                  f"round-trip[{dtype_name}] tracked: launches {tl}")
+            check(fu["launches"]["k2"] >= 1,
+                  "fused tracked run: K2 never launched")
+            check(fu["changed"] == rt["changed"],
+                  f"round-trip[{dtype_name}] tracked: changed rows differ")
+            check(sum(map(len, rt["changed"])) > 0,
+                  f"round-trip[{dtype_name}] tracked: no changed row")
+            diff = _byte_diff(fu["has_after"], rt["has_after"])
+            check(diff == 0, f"round-trip[{dtype_name}] tracked: {diff} leases "
+                  "differ")
+            churn = slice(2, ticks) if ticks > 3 else slice(1, ticks)
+            p50, p95 = _pcts(rt["walls"][churn])
+            fp50, fp95 = _pcts(fu["walls"][churn])
+            say(f"phase round-trip[{dtype_name}]: {len(fu['has'])} leases, "
+                f"{ticks} churn + {quiet} quiet ticks on each of two servers "
+                f"from seed {seed}: stores byte-identical; round-trip launches "
+                f"{rt['main_launches']} (one K1 a tick, every tick full), "
+                f"fused {fu['main_launches']} ({fu['modes'].count('scoped')} "
+                f"scoped ticks); tick wall p50 / p95 round-trip {p50:.2f} / "
+                f"{p95:.2f} ms, fused {fp50:.2f} / {fp95:.2f} ms; tracked "
+                f"{RT_TRACKED_TICKS} ticks: changed rows "
+                f"{[len(c) for c in rt['changed']]} equal, launches round-trip "
+                f"{tl}, fused {fu['launches']}; card {card}")
+            say(f"phase round-trip[{dtype_name}]: host phase ms per tick, "
+                "round-trip: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in rt["phases"].items())
+                + "; fused: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in fu["phases"].items()))
+            out[dtype_name] = dict(
+                p50=p50, p95=p95, fused_p50=fp50, fused_p95=fp95,
+                launches=rt["main_launches"], tracked_launches=tl,
+                fused_launches=fu["main_launches"], changed=[
+                    len(c) for c in rt["changed"]],
+                walls_ms=[w * 1e3 for w in rt["walls"]],
+                fused_walls_ms=[w * 1e3 for w in fu["walls"]],
+            )
+        label, n_wide, clients = RT_WIDE
+        runs = {}
+        for fused in (True, False):
+            runs[fused] = await _drive_wide(
+                torch, f"round-trip {label} {'fused' if fused else 'unfused'}",
+                n_wide, clients, "f32", *RT_WIDE_TICKS, 41, fused=fused)
+        fu, rt = runs[True], runs[False]
+        diff = _byte_diff(_packed_has(fu["server"]), _packed_has(rt["server"]))
+        check(diff == 0, f"round-trip {label}: {diff} leases differ")
+        check(set(rt["modes"]) == {"full"} and "scoped" in fu["modes"],
+              f"round-trip {label}: modes {rt['modes']} / {fu['modes']}")
+        say(f"phase round-trip[{label} f32]: {n_wide} x {clients} clients, "
+            f"{len(rt['walls'])} ticks each: stores byte-identical; tick walls "
+            f"ms round-trip {[round(w * 1e3, 2) for w in rt['walls']]}, fused "
+            f"{[round(w * 1e3, 2) for w in fu['walls']]}; launches (the "
+            f"narrow resources) {rt['launches']}; card {card}")
+        out[label] = dict(walls_ms=[w * 1e3 for w in rt["walls"]],
+                          fused_walls_ms=[w * 1e3 for w in fu["walls"]])
+
+    asyncio.run(drive())
+    return out
+
+
+# -- phase 13: a batch server on the Python lease store ------------------------
+
+PY_PRIO = 1_000
+PY_LANE = 1_000
+PY_GROUP_SIZE = 500
+PY_TICKS = {"f32": 6, "f64": 3}
+PY_SAMPLE = 200  # lane resources held to the f64 oracles
+
+
+def _py_layout(rng):
+    """(resource ids, capacities, group ids, group caps) of the Python
+    store's PRIORITY_BANDS resources: groups of PY_GROUP_SIZE, each
+    capped at GROUP_SHARE of its members' summed capacity."""
+    import numpy as np
+
+    n_groups = PY_PRIO // PY_GROUP_SIZE
+    tier = rng.integers(0, len(CAP_TIERS), PY_PRIO)
+    group = np.repeat(np.arange(n_groups), PY_GROUP_SIZE)
+    rng.shuffle(group)
+    cap = np.asarray(CAP_TIERS)[tier]
+    gcap = np.asarray([GROUP_SHARE * cap[group == g].sum()
+                       for g in range(n_groups)])
+    ids = [f"p.g{g}.t{t}.r{i}" for i, (g, t) in enumerate(zip(group, tier))]
+    return ids, cap, group, gcap
+
+
+def _populate_py(server, rng, ids):
+    """N_CLIENTS leases on each resource, lease by lease into its Python
+    store: the PRIORITY_BANDS leases (the first PY_PRIO resources) with
+    1-3 subclients and wire priorities from PRIORITIES, wants 0-99."""
+    import numpy as np
+
+    res = [server.get_or_create_resource(r) for r in ids]
+    n, n_prio = len(ids) * N_CLIENTS, PY_PRIO * N_CLIENTS
+    wants = rng.integers(0, 100, n).astype(np.float64)
+    sub = np.ones(n, np.int64)
+    sub[:n_prio] = rng.integers(1, 4, n_prio)
+    prio = np.zeros(n, np.int64)
+    prio[:n_prio] = rng.choice(np.asarray(PRIORITIES), n_prio)
+    k = 0
+    for i, r in enumerate(res):
+        for c in range(N_CLIENTS):
+            r.store.assign(f"c{i}.{c}", 3600.0, 5.0, 0.0, float(wants[k]),
+                           int(sub[k]), int(prio[k]))
+            k += 1
+    return res
+
+
+def _churn_py(rng, res):
+    """5% of the priority and 5% of the lane resources refresh with new
+    demand (has, subclients and priorities kept), as GetCapacity on a
+    batch server records it."""
+    import numpy as np
+
+    n_lane = len(res) - PY_PRIO
+    pick = np.concatenate([
+        rng.choice(PY_PRIO, PY_PRIO // 20, replace=False),
+        PY_PRIO + rng.choice(n_lane, n_lane // 20, replace=False),
+    ])
+    wants = rng.integers(0, 100, len(pick) * N_CLIENTS)
+    k = 0
+    for i in pick:
+        store = res[i].store
+        for client, lease in list(store.items()):
+            store.assign(client, 3600.0, 5.0, lease.has, float(wants[k]),
+                         lease.subclients, lease.priority)
+            k += 1
+
+
+def _store_inputs(res):
+    """(wants, has, subclients) of a Python store, in lease order."""
+    import numpy as np
+
+    leases = [l for _c, l in res.store.items()]
+    return tuple(np.array([getattr(l, f) for l in leases], np.float64)
+                 for f in ("wants", "has", "subclients"))
+
+
+async def _drive_py(torch, dtype_name, seed):
+    import numpy as np
+
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer
+    from doorman_tpu_torch.solver import dense_cuda
+
+    rng = np.random.default_rng(seed)
+    prio_ids, cap, group, gcap = _py_layout(rng)
+    ids = prio_ids + _resource_ids(rng, PY_LANE)
+    ticks = PY_TICKS[dtype_name]
+    server = CapacityServer(
+        "smoke-py", TrivialElection(), mode="batch", native_store=False,
+        solver_dtype=dtype_name, tick_interval=1.0, device=DEVICE,
+    )
+    await server.start(0, host="127.0.0.1", tick_loop=False)
+    try:
+        await server.load_config(parse_yaml_config(_prio_yaml(gcap)))
+        t = time.perf_counter()
+        res = _populate_py(server, rng, ids)
+        populate_s = time.perf_counter() - t
+        sample = rng.choice(PY_LANE, min(PY_SAMPLE, PY_LANE), replace=False)
+        dense_cuda.reset_launches()  # the path starts here
+        walls = []
+        for i in range(ticks):
+            _churn_py(rng, res)
+            if i == ticks - 1:
+                inputs = {int(j): _store_inputs(res[PY_PRIO + j])
+                          for j in sample}
+            t = time.perf_counter()
+            await server.tick_once()
+            walls.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        launches = dict(dense_cuda.LAUNCHES)  # read just after
+        return dict(server=server, res=res, walls=walls, launches=launches,
+                    inputs=inputs, cap=cap, group=group, gcap=gcap,
+                    ticks=ticks, populate_s=populate_s,
+                    phase_s=dict(server._solver.phase_s))
+    finally:
+        await server.stop()
+
+
+async def _native_priority_part(torch, run, dtype_name):
+    """The same PRIORITY_BANDS leases, in the same order, bulk-loaded into
+    a native-store batch server: its BatchSolver's priority part, packed
+    and solved (not applied). Comparison launches: not counted."""
+    import numpy as np
+
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer
+
+    server = CapacityServer(
+        "smoke-py-native", TrivialElection(), mode="batch", native_store=True,
+        solver_dtype=dtype_name, device=DEVICE,
+    )
+    try:
+        await server.load_config(parse_yaml_config(_prio_yaml(run["gcap"])))
+        engine = server._store_engine
+        py_res = run["res"][:PY_PRIO]
+        nat_res = [server.get_or_create_resource(r.id) for r in py_res]
+        leases = [(r.store._rid, c, l) for p, r in zip(py_res, nat_res)
+                  for c, l in p.store.items()]
+        n = len(leases)
+        col = lambda f: np.fromiter((getattr(l, f) for _r, _c, l in leases),
+                                    np.float64, n)  # noqa: E731
+        engine.bulk_assign(
+            np.fromiter((r for r, _c, _l in leases), np.int32, n),
+            np.fromiter((engine.client_handle(c) for _r, c, _l in leases),
+                        np.int64, n),
+            np.full(n, time.time() + 3600.0), np.full(n, 5.0), col("has"),
+            col("wants"), col("subclients").astype(np.int32),
+            col("priority").astype(np.int64),
+        )
+        solver = server._get_solver()
+        snap = solver.prepare(nat_res)
+        solver.solve(snap)
+        return snap.priority_part
+    finally:
+        await server.stop()
+
+
+def phase_python_store(torch, card):
+    """A batch server on the Python lease store: PRIORITY_BANDS resources
+    in binding groups (the BatchSolver's priority part, K3) beside lane
+    resources (the edge list), packed and applied lease by lease."""
+    import numpy as np
+
+    from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
+    from doorman_tpu_torch.core.resource import algo_kind_for
+    from doorman_tpu_torch.solver import dense_cuda
+    from doorman_tpu_torch.solver.priority import alloc_evaluations
+
+    out = {}
+
+    async def drive():
+        for dtype_name, seed in (("f32", 61), ("f64", 62)):
+            run = await _drive_py(torch, dtype_name, seed)
+            server, res, ticks = run["server"], run["res"], run["ticks"]
+            solver = server._solver
+            launches = run["launches"]
+            per_tick = alloc_evaluations(solver._tdtype, True)
+            check(solver.ticks == ticks, f"python-store: {solver.ticks} ticks")
+            check(launches["k3"] > 0 and launches["k3"] == per_tick * ticks,
+                  f"python-store[{dtype_name}]: K3 launches "
+                  f"{launches['k3']} != {per_tick} x {ticks}")
+            check(launches["k1"] == launches["k2"] == 0,
+                  f"python-store[{dtype_name}]: the lane part launched "
+                  f"{launches} (the edge list runs no kernel)")
+            snap = solver.last_snapshot
+            part = snap.priority_part
+            check(snap.engine is None and snap.edges is not None
+                  and part.engine is None and part.clients is not None,
+                  "python-store: not the Python-store packs")
+            check(snap.num_edges == PY_LANE * N_CLIENTS,
+                  f"python-store: lane part {snap.num_edges} edges")
+            # The lane grants against the f64 oracles on the last
+            # tick's inputs (as the overflow tick's edge list is held).
+            lane_err = 0.0
+            for j, inp in run["inputs"].items():
+                r = res[PY_PRIO + j]
+                got = np.array([l.has for _c, l in r.store.items()])
+                lane_err = max(lane_err, _oracle_err(r, got, inp))
+            check(lane_err <= F32_PARITY_REL_BOUND,
+                  f"python-store[{dtype_name}]: lane grants vs f64 oracle "
+                  f"{lane_err:.3g}")
+            totals = np.array([sum(l.has for _c, l in r.store.items())
+                               for r in res])
+            over = totals[:PY_PRIO] - run["cap"] * (1 + 1e-6)
+            check((over <= 0).all(),
+                  f"python-store: resource capacity exceeded by {over.max()}")
+            for r, tot in zip(res[PY_PRIO:], totals[PY_PRIO:]):
+                check(algo_kind_for(r.template) in (0, 1)
+                      or tot <= r.template.capacity * (1 + 1e-6),
+                      f"python-store {r.id}: {tot:.9g} > capacity")
+            ratios = []
+            for g, gcap in enumerate(run["gcap"]):
+                usage = totals[:PY_PRIO][run["group"] == g].sum()
+                check(usage <= gcap * (1 + 1e-6),
+                      f"python-store group g{g}: {usage:.9g} > {gcap:.9g}")
+                ratios.append(usage / gcap)
+            # The native store's BatchSolver on the same leases: the same
+            # tables, the same K3 grants bit for bit.
+            saved = dict(dense_cuda.LAUNCHES)
+            prio_res = res[:PY_PRIO]
+            py_snap = solver.prepare(prio_res)
+            solver.solve(py_snap)
+            nat = await _native_priority_part(torch, run, dtype_name)
+            dense_cuda.LAUNCHES.update(saved)
+            py_part = py_snap.priority_part
+            for f in ("wants", "weights", "band", "active", "capacity",
+                      "group", "group_cap"):
+                check(torch.equal(getattr(py_part.batch, f),
+                                  getattr(nat.batch, f)),
+                      f"python-store: the native pack's {f} differs")
+            check(np.array_equal(py_part.gets, nat.gets),
+                  f"python-store[{dtype_name}]: K3 grants differ from the "
+                  "native-store BatchSolver's")
+            walls = run["walls"]
+            ph = {k: v * 1e3 / ticks for k, v in run["phase_s"].items()}
+            say(f"phase python-store[{dtype_name}]: {PY_PRIO} PRIORITY_BANDS "
+                f"resources in {len(run['gcap'])} groups of {PY_GROUP_SIZE} "
+                f"and {PY_LANE} lane resources x {N_CLIENTS} clients on the "
+                f"Python store ({len(res) * N_CLIENTS} leases, populated in "
+                f"{run['populate_s']:.1f}s), {ticks} ticks with 5% churn: "
+                f"walls ms {[round(w * 1e3, 1) for w in walls]}, launches "
+                f"{launches} ({per_tick} K3 a tick), BatchSolver ms per "
+                "tick: " + ", ".join(f"{k} {v:.3f}" for k, v in ph.items())
+                + f"; lane grants vs f64 oracle {lane_err:.3g} ({len(run['inputs'])}"
+                f" resources), group usage / cap in [{min(ratios):.9f}, "
+                f"{max(ratios):.9f}], resource caps held, K3 grants "
+                f"bit-identical to the native-store BatchSolver's "
+                f"({part.num_bands} bands); card {card}")
+            out[dtype_name] = dict(
+                walls_ms=[w * 1e3 for w in walls], launches=launches,
+                phase_ms=ph, lane_oracle_err=lane_err,
+                populate_s=run["populate_s"])
+
+    asyncio.run(drive())
+    return out
+
+
+# -- phase 14: immediate mode ------------------------------------------------
+
+IMM_RES = 200
+IMM_CLIENTS = 10
+IMM_SEQ = 2_000
+IMM_CONC = (32, 50)  # concurrent clients x requests each
+
+
+def _imm_yaml(groups=False):
+    """The lane templates, an ungrouped PRIORITY_BANDS template and the
+    default; `groups` adds a capacity group (refused outside batch
+    mode)."""
+    algo = ("{kind: PRIORITY_BANDS, lease_length: 3600, refresh_interval: 5,"
+            " learning_mode_duration: 0}")
+    lines = ["groups:\n  - name: up\n    capacity: 100"] if groups else []
+    lines += ["resources:"] + _lane_templates()
+    lines.append(f"  - identifier_glob: 'ip.*'\n    capacity: 500\n"
+                 + ("    capacity_group: up\n" if groups else "")
+                 + f"    algorithm: {algo}")
+    lines.append(
+        "  - identifier_glob: '*'\n    capacity: 1000\n"
+        "    algorithm: {kind: 0, lease_length: 3600,"
+        " refresh_interval: 5, learning_mode_duration: 0}"
+    )
+    return "\n".join(lines) + "\n"
+
+
+def _imm_request(rng, ids, has, prefix="c"):
+    """One GetCapacity of a random client of a random resource, reporting
+    the capacity it was last granted there."""
+    from doorman_tpu_torch.proto import doorman_pb2 as pb
+
+    i = int(rng.integers(len(ids)))
+    client = f"{prefix}{i}.{int(rng.integers(IMM_CLIENTS))}"
+    req = pb.GetCapacityRequest(client_id=client)
+    r = req.resource.add()
+    r.resource_id, r.wants = ids[i], float(rng.integers(0, 100))
+    r.priority = int(rng.choice(PRIORITIES))
+    if (client, ids[i]) in has:
+        r.has.capacity = has[(client, ids[i])]
+    return req
+
+
+async def _drive_immediate(torch):
+    import grpc
+    import numpy as np
+
+    from doorman_tpu_torch.algorithms import Request
+    from doorman_tpu_torch.core.resource import Resource
+    from doorman_tpu_torch.proto.grpc_api import CapacityStub
+    from doorman_tpu_torch.server.config import (
+        ConfigError,
+        find_template,
+        parse_yaml_config,
+    )
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer
+    from doorman_tpu_torch.solver import dense_cuda
+
+    rng = np.random.default_rng(71)
+    n_prio = IMM_RES // 5
+    ids = _resource_ids(rng, IMM_RES - n_prio) + [
+        f"ip.r{i}" for i in range(n_prio)]
+    now = time.time()
+    clock = lambda: now  # noqa: E731  (expiries are compared exactly)
+    repo = parse_yaml_config(_imm_yaml())
+    dense_cuda.reset_launches()  # the whole phase
+    server = CapacityServer("smoke-immediate", TrivialElection(),
+                            clock=clock, device=DEVICE)
+    check(server.mode == "immediate" and server._store_engine is None,
+          "the defaults are not immediate mode on the Python store")
+    port = await server.start(0, host="127.0.0.1")
+    try:
+        check(not server._tasks, "an immediate server started a tick loop")
+        try:
+            await server.load_config(parse_yaml_config(_imm_yaml(True)))
+            check(False, "a grouped config loaded in immediate mode")
+        except ConfigError:
+            pass
+        await server.load_config(repo)
+        seq, has, seq_lat = [], {}, []
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
+            stub = CapacityStub(ch)
+            for _ in range(IMM_SEQ):
+                req = _imm_request(rng, ids, has)
+                t = time.perf_counter()
+                got = (await stub.GetCapacity(req)).response[0]
+                seq_lat.append(time.perf_counter() - t)
+                r = req.resource[0]
+                has[(req.client_id, r.resource_id)] = got.gets.capacity
+                seq.append((req, got))
+        # The same sequence, in process, through Resource.decide on fresh
+        # Python stores: every field bit for bit.
+        replay, mism = {}, 0
+        for req, got in seq:
+            r = req.resource[0]
+            res = replay.get(r.resource_id)
+            if res is None:
+                res = replay[r.resource_id] = Resource(
+                    r.resource_id, find_template(repo, r.resource_id),
+                    clock=clock)
+            lease = res.decide(Request(
+                req.client_id, r.has.capacity if r.HasField("has") else 0.0,
+                r.wants, 1, priority=r.priority))
+            if (lease.has, int(lease.expiry), int(lease.refresh_interval),
+                    res.safe_capacity()) != (
+                    got.gets.capacity, got.gets.expiry_time,
+                    got.gets.refresh_interval, got.safe_capacity):
+                mism += 1
+        check(mism == 0, f"immediate: {mism} of {IMM_SEQ} grants differ "
+              "from the in-process replay")
+        launches = dict(dense_cuda.LAUNCHES)  # read just after
+        check(not any(launches.values()),
+              f"immediate mode launched kernels: {launches}")
+        check(server._solver is None and server._resident is None,
+              "immediate mode made a solver")
+        leases = server.status()["leases"]
+    finally:
+        await server.stop()
+    return dict(seq_lat=seq_lat, launches=launches, leases=leases,
+                resources=len(replay), ids=ids)
+
+
+async def _load(port, ids):
+    """IMM_CONC[0] concurrent clients, a channel each, of IMM_CONC[1]
+    sequential GetCapacity each: (request latencies, wall seconds)."""
+    import grpc
+    import numpy as np
+
+    from doorman_tpu_torch.proto.grpc_api import CapacityStub
+
+    lat = []
+
+    async def client(k):
+        # Each concurrent client speaks for clients of its own.
+        crng, mine = np.random.default_rng(100 + k), {}
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
+            stub = CapacityStub(ch)
+            for _ in range(IMM_CONC[1]):
+                req = _imm_request(crng, ids, mine, prefix=f"w{k}.")
+                t = time.perf_counter()
+                got = (await stub.GetCapacity(req)).response[0]
+                lat.append(time.perf_counter() - t)
+                mine[(req.client_id, got.resource_id)] = got.gets.capacity
+
+    t = time.perf_counter()
+    await asyncio.gather(*(client(k) for k in range(IMM_CONC[0])))
+    return lat, time.perf_counter() - t
+
+
+async def _cli_load(ids):
+    """The server binary with the reference's default flags (immediate
+    mode, the Python store) in a process of its own, under _load from
+    this one; the process is stopped on the way out."""
+    import os
+    import socket
+    import tempfile
+
+    import grpc
+
+    from doorman_tpu_torch.proto import doorman_pb2 as pb
+    from doorman_tpu_torch.proto.grpc_api import CapacityStub
+
+    with tempfile.TemporaryDirectory() as tmp, socket.socket() as sock:
+        cfg = Path(tmp) / "cfg.yml"
+        cfg.write_text(_imm_yaml())
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        with open(Path(tmp) / "server.log", "w+") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "doorman_tpu_torch.cmd.server",
+                 "--config", f"file:{cfg}", "--host", "127.0.0.1",
+                 "--port", str(port), "--device", DEVICE,
+                 "--log-level", "warning"],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+            )
+            try:
+                deadline = time.time() + 120.0
+                async with grpc.aio.insecure_channel(
+                        f"127.0.0.1:{port}") as ch:
+                    stub = CapacityStub(ch)
+                    while True:
+                        check(proc.poll() is None and time.time() < deadline,
+                              "the server binary did not come up")
+                        try:
+                            d = await stub.Discovery(pb.DiscoveryRequest(),
+                                                     timeout=1.0)
+                            if d.is_master:
+                                break
+                        except grpc.aio.AioRpcError:
+                            pass
+                        await asyncio.sleep(0.5)
+                lat, secs = await _load(port, ids)
+                check(proc.poll() is None, "the server binary exited")
+            except PhaseFailed:
+                log.seek(0)
+                say(log.read()[-4000:])
+                raise
+            finally:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+    return lat, secs
+
+
+def phase_immediate(torch, card):
+    """Immediate mode on the Python store: the in-process server's grants
+    against a replay, then the server binary with the default flags under
+    concurrent clients from this process."""
+    import numpy as np
+
+    run = asyncio.run(_drive_immediate(torch))
+    lat, secs = asyncio.run(_cli_load(run["ids"]))
+    lat = np.asarray(lat) * 1e3
+    seq = np.asarray(run["seq_lat"]) * 1e3
+    p50, p99 = float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+    sp50, sp99 = float(np.percentile(seq, 50)), float(np.percentile(seq, 99))
+    rps = len(lat) / secs
+    say(f"phase immediate: {IMM_SEQ} sequential GetCapacity over "
+        f"{run['resources']} resources x {IMM_CLIENTS} clients on the Python "
+        f"store equal the in-process replay bit for bit (request p50 "
+        f"{sp50:.3f} ms, p99 {sp99:.3f} ms, client and server on one event "
+        f"loop); {run['leases']} leases; launches {run['launches']}; a grouped "
+        f"config refused. The server binary with the default flags, "
+        f"{IMM_CONC[0]} concurrent clients x {IMM_CONC[1]} requests from "
+        f"another process: p50 {p50:.3f} ms, p99 {p99:.3f} ms, {rps:.0f} "
+        f"requests/s; card {card}")
+    return dict(p50_ms=p50, p99_ms=p99, seq_p50_ms=sp50, seq_p99_ms=sp99,
+                requests_per_s=rps, launches=run["launches"])
+
+
 # -- the kernels' JSON line --------------------------------------------------
 
 def _time_ms(torch, fn, reps=20, queued=False):
@@ -2552,6 +3204,29 @@ def main() -> int:
         line["wide"] = _wide_entry(torch, wide)
         line["wide"]["overflow"] = overflow
         line["kernels"][0]["batch_dense_lanes"] = batch_lanes
+        rt = phase_round_trip(torch, card)
+        py = phase_python_store(torch, card)
+        imm = phase_immediate(torch, card)
+        # The round-trip server's K1 launches and the Python-store
+        # server's K3 launches (f32) join the main path's counts; every
+        # path's count stands beside them.
+        k1, k3 = line["kernels"][0], line["kernels"][2]
+        k1["launches_by_path"] = {
+            "lane f32": k1["launches"],
+            **{f"round-trip {d}": v["launches"]["k1"] for d, v in rt.items()
+               if "launches" in v},
+            **{f"round-trip {d} tracked": v["tracked_launches"]["k1"]
+               for d, v in rt.items() if "launches" in v},
+        }
+        k1["launches"] += rt["f32"]["launches"]["k1"]
+        k3["launches_by_path"] = {
+            "priority f32": k3["launches"],
+            **{f"python-store {d}": v["launches"]["k3"] for d, v in py.items()},
+        }
+        k3["launches"] += py["f32"]["launches"]["k3"]
+        line["round_trip"] = rt
+        line["python_store"] = py
+        line["immediate"] = imm
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2571,7 +3246,12 @@ def main() -> int:
         f" ms; K3 cluster layout " + ", ".join(
             f"{k} {v['ms']:.4f} ms (global {v['global_ms']:.3f})"
             for k, v in timing.items())
-        + f"; total {time.perf_counter() - t0:.1f}s")
+        + f"; round-trip lane tick f32 p50 {rt['f32']['p50']:.2f} ms p95 "
+        f"{rt['f32']['p95']:.2f} ms (fused {rt['f32']['fused_p50']:.2f} / "
+        f"{rt['f32']['fused_p95']:.2f}); Python-store tick walls f32 "
+        f"{[round(w, 1) for w in py['f32']['walls_ms']]} ms; immediate "
+        f"request p50 {imm['p50_ms']:.3f} ms p99 {imm['p99_ms']:.3f} ms"
+        f"; total {time.perf_counter() - t0:.1f}s")
     say(card)
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {

@@ -1,14 +1,20 @@
-"""The doorman server binary, PyTorch port: batch mode on the native store.
+"""The doorman server binary, PyTorch port.
 
     python -m doorman_tpu_torch.cmd.server --config file:cfg.yml \\
-        --mode batch --native-store [--device cuda] [--solver-dtype f32]
+        [--mode immediate|batch] [--native-store] [--no-fused-tick] \\
+        [--device cuda] [--solver-dtype f32]
 
-Loads the YAML config once (file: source), runs the trivial election,
-serves the Capacity gRPC service and ticks the resident solve on
-`--device` (default cuda; a machine without a GPU must pass
---device cpu). Flags not listed here — etcd election and config,
-persistence, admission, stream push, the frontend pool, TLS, the debug
-pages — are not ported yet.
+Loads the YAML config once (file: source), runs the trivial election
+and serves the Capacity gRPC service. The defaults are the reference's:
+`--mode immediate` (each request answered by its resource's scalar
+algorithm, no device work) on the Python lease store. `--mode batch`
+ticks the batched solve on `--device` (default cuda; a machine without
+a GPU must pass --device cpu, which every mode checks); `--native-store`
+backs the stores with the C++ engine and its device-resident tick, whose
+`--no-fused-tick` round-trip variant is kept for baselines and triage.
+Flags not listed here — etcd election and config, persistence,
+admission, stream push, the frontend pool, TLS, the debug pages — are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -36,18 +42,27 @@ def make_parser() -> argparse.ArgumentParser:
                    help="this server's id (default: host:port)")
     p.add_argument("--config", required=True,
                    help='config source: "file:<path>"')
-    p.add_argument("--mode", choices=("batch",), default="batch",
-                   help="allocation mode (the port runs the per-tick "
-                        "batched device solve)")
-    p.add_argument("--native-store", action="store_true", default=True,
-                   help="back lease stores with the C++ engine (always "
-                        "on in the port)")
+    p.add_argument("--mode", choices=("immediate", "batch"),
+                   default="immediate",
+                   help="allocation mode: per-request scalar or per-tick "
+                        "batched device solve")
+    p.add_argument("--native-store", action="store_true",
+                   help="back lease stores with the C++ engine (an error "
+                        "if it cannot be built)")
     p.add_argument("--device", default="cuda",
                    help="device of the batch tick: cuda (default) or cpu")
     p.add_argument("--tick-interval", type=float, default=1.0,
                    help="seconds between device solves")
     p.add_argument("--solver-dtype", choices=("f32", "f64"), default="f64",
                    help="batch solve precision; both run the CUDA kernels")
+    p.add_argument("--fused-tick", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="batch mode, native store: run the resident tick "
+                        "as one staged upload, one solve window and one "
+                        "download (byte-identical; --no-fused-tick keeps "
+                        "the round-trip tick, a placement per staged block "
+                        "and a full-table solve every tick, for baselines "
+                        "and triage)")
     p.add_argument("--scoped-solve", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="solve only the dirty rows plus the not-yet-"
@@ -79,15 +94,17 @@ async def serve(args: argparse.Namespace, on_started=None) -> None:
         TrivialElection(),
         mode=args.mode,
         tick_interval=args.tick_interval,
-        native_store=True,
+        native_store=args.native_store,
         solver_dtype=args.solver_dtype,
+        fused_tick=args.fused_tick,
         scoped_solve=args.scoped_solve,
         tick_pipeline_depth=args.tick_pipeline_depth,
         device=args.device,
     )
     port = await server.start(args.port, host=args.host)
-    log.info("serving gRPC on %s:%d (tick device %s)", args.host, port,
-             server.device)
+    log.info("serving gRPC on %s:%d (%s mode, %s store, tick device %s)",
+             args.host, port, server.mode,
+             "native" if args.native_store else "Python", server.device)
     await server.load_config(repo)
     log.info("config loaded (%d templates)", len(repo.resources))
     if on_started is not None:

@@ -1,19 +1,20 @@
-"""Snapshot packing: native lease store -> padded device batches (port of
+"""Snapshot packing: lease stores -> padded device batches (port of
 doorman_tpu/core/snapshot.py: the bucket helper, the resource specs, the
-Snapshot and the edge-list packer).
+Snapshot and the edge-list packers).
 
-At each batch tick the lane resources' leases are snapshotted — as a
-dense [R, K] table (solver.batch._pack_dense) or, when a resource is
-wider than the dense row cap, as an edge list padded to a power-of-two
-bucket — solved on the device in one shot, and the grants written back.
-Requests that arrive while a solve is in flight mutate the NEXT
-snapshot.
+At each batch tick the lane resources' leases are snapshotted — from the
+native store as a dense [R, K] table (solver.batch._pack_dense) or, when
+a resource is wider than the dense row cap, as an edge list padded to a
+power-of-two bucket; from Python stores always as an edge list
+(`pack_snapshot`) — solved on the device in one shot, and the grants
+written back. Requests that arrive while a solve is in flight mutate the
+NEXT snapshot.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, List, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -42,9 +43,12 @@ class ResourceSpec:
 
 @dataclass
 class Snapshot:
-    """A packed tick of lane resources from one native engine: the
-    device batches plus the flat handle arrays (`ridx` segment per
-    edge, `cids` client handle per edge) the write-back needs.
+    """A packed tick of lane resources: the device batches plus what
+    the write-back needs to find each edge's lease. The Python-store
+    pack (`pack_snapshot`) carries `edge_keys`, one (resource_id,
+    client_id) per edge; the native pack carries the flat handle arrays
+    (`ridx` segment per edge, `cids` client handle per edge) and the
+    engine, and resolves names only when asked.
 
     Edge-list pack: `edges` / `resources` are set. Dense pack
     (solver.batch._pack_dense): `dense` is the [R, K] DenseBatch, `pos`
@@ -55,6 +59,8 @@ class Snapshot:
     resources: "ResourceBatch | None"
     resource_ids: List[str]
     num_edges: int
+    # Parallel to the packed edge order (Python-store pack only).
+    edge_keys: List[Tuple[str, str]] = field(default_factory=list)
     # Per-segment learning flags as captured at pack time; apply() keeps
     # the store's live `has` for these instead of the solved replay.
     learning: "List[bool] | None" = None
@@ -71,6 +77,63 @@ class Snapshot:
     # (solver.batch.PrioritySnapshot; None when the tick has none).
     priority_part: object = None
 
+    def keys(self) -> List[Tuple[str, str]]:
+        """(resource_id, client_id) per packed edge, either flavor."""
+        if self.edge_keys:
+            return self.edge_keys
+        if self.engine is None:
+            return []
+        name = self.engine.client_name
+        return [
+            (self.resource_ids[int(r)], name(int(c)))
+            for r, c in zip(self.ridx, self.cids)
+        ]
+
+    def unpack(self, gets: np.ndarray) -> Dict[Tuple[str, str], float]:
+        """Map a solved gets[E] array back to {(resource_id, client_id):
+        grant}."""
+        arr = np.asarray(gets)
+        return {key: float(arr[i]) for i, key in enumerate(self.keys())}
+
+
+def pack_snapshot(
+    specs: Sequence[ResourceSpec],
+    rows: Callable[[str], Sequence[Tuple[str, float, float, int]]],
+    *,
+    dtype=np.float64,
+    edge_bucket_min: int = 64,
+    resource_bucket_min: int = 16,
+    to_device: "Callable[[np.ndarray], object] | None" = None,
+) -> Snapshot:
+    """Pack resources held in Python lease stores into an edge-list
+    Snapshot. `rows(resource_id)` yields (client_id, wants, has,
+    subclients) tuples, as LeaseStore.items() adapted by the caller.
+    Edges are laid out resource-major, so segment ids arrive sorted."""
+    edge_keys: List[Tuple[str, str]] = []
+    wants_l: List[float] = []
+    has_l: List[float] = []
+    sub_l: List[float] = []
+    rid_l: List[int] = []
+    for r, spec in enumerate(specs):
+        for client_id, wants, has, subclients in rows(spec.resource_id):
+            edge_keys.append((spec.resource_id, client_id))
+            rid_l.append(r)
+            wants_l.append(wants)
+            has_l.append(has)
+            sub_l.append(subclients)
+    return pack_edge_arrays(
+        specs,
+        np.asarray(rid_l, np.int32),
+        np.asarray(wants_l, dtype),
+        np.asarray(has_l, dtype),
+        np.asarray(sub_l, dtype),
+        dtype=dtype,
+        edge_bucket_min=edge_bucket_min,
+        resource_bucket_min=resource_bucket_min,
+        to_device=to_device,
+        edge_keys=edge_keys,
+    )
+
 
 def pack_edge_arrays(
     specs: Sequence[ResourceSpec],
@@ -83,12 +146,13 @@ def pack_edge_arrays(
     edge_bucket_min: int = 64,
     resource_bucket_min: int = 16,
     to_device: "Callable[[np.ndarray], object] | None" = None,
+    edge_keys: "List[Tuple[str, str]] | None" = None,
     engine: object = None,
     cids: "np.ndarray | None" = None,
 ) -> Snapshot:
     """Pad flat, resource-major edge arrays (the native engine's bulk
-    pack) into an edge-list Snapshot. Padding edges are inactive and
-    belong to the last resource slot."""
+    pack, or `pack_snapshot`'s lists) into an edge-list Snapshot.
+    Padding edges are inactive and belong to the last resource slot."""
     n = len(rid)
     E = _bucket(max(n, 1), edge_bucket_min)
     R = _bucket(max(len(specs), 1), resource_bucket_min)
@@ -133,6 +197,7 @@ def pack_edge_arrays(
         resources=resources,
         resource_ids=[s.resource_id for s in specs],
         num_edges=n,
+        edge_keys=edge_keys or [],
         learning=[bool(s.learning) for s in specs],
         engine=engine,
         ridx=rid if engine is not None else None,

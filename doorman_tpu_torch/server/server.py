@@ -1,32 +1,41 @@
-"""The capacity server, batch mode on the native store (port of
-doorman_tpu/server/server.py: the resident paths, narrow and wide, and
-the BatchSolver).
+"""The capacity server (port of doorman_tpu/server/server.py: immediate
+and batch mode, the Python and the native lease store, the resident
+paths narrow and wide, fused and round-trip, and the BatchSolver).
 
-Requests only record demand (GetCapacity serves the last solved grant,
-ReleaseCapacity drops the lease); a background tick solves ALL resources
-at once on the device, and the grants land back in the native store.
-Lane resources of up to DENSE_MAX_K clients tick through the narrow
-resident solver (solver.resident.ResidentDenseSolver), wider ones
-through the chunked one (solver.resident_wide.WideResidentSolver);
-PRIORITY_BANDS resources, with their capacity groups, tick through the
-BatchSolver (solver.batch.BatchSolver) in the same executor call. When a
-narrow resource outgrows its row mid-tick (ResidentOverflow), that tick
-runs through the BatchSolver over every resource and the next one
-re-partitions. Brand-new clients and resources in learning mode are
-answered by the scalar first-response algorithm (core.resource.decide).
+Immediate mode (the default, as in the reference) answers each
+GetCapacity with the scalar algorithm of its resource
+(core.resource.decide): host-only, no device work and no tick loop.
 
-What this port carries: batch mode, the native store, the fused tick
-(scoped by default), lane and PRIORITY_BANDS resources of any width,
-capacity groups, the trivial election, and the Discovery / GetCapacity
-/ ReleaseCapacity RPCs on the reference's wire service
-(doorman_tpu.Capacity). Not yet ported, and refused loudly rather than
-served another way: immediate mode, the Python lease store, the
-round-trip tick, the intermediate-server role (GetServerCapacity) and
-stream push (WatchCapacity).
+Batch mode: requests only record demand (GetCapacity serves the last
+solved grant, ReleaseCapacity drops the lease); a background tick
+solves ALL resources at once on the device, and the grants land back in
+the stores. On the native store, lane resources of up to DENSE_MAX_K
+clients tick through the narrow resident solver
+(solver.resident.ResidentDenseSolver), wider ones through the chunked
+one (solver.resident_wide.WideResidentSolver); PRIORITY_BANDS
+resources, with their capacity groups, tick through the BatchSolver
+(solver.batch.BatchSolver) in the same executor call. When a narrow
+resource outgrows its row mid-tick (ResidentOverflow), that tick runs
+through the BatchSolver over every resource and the next one
+re-partitions. On the Python store (the default) every resource ticks
+through the BatchSolver: its pack and write-back stay on the event loop
+and only the solve leaves it. Brand-new clients and resources in
+learning mode are answered by the scalar first-response algorithm.
+`fused_tick=False` runs the resident solvers' round-trip tick.
+
+What this port carries: both modes, both stores, the fused and the
+round-trip tick (scoped by default), lane and PRIORITY_BANDS resources
+of any width, capacity groups (batch mode only, as in the reference),
+the trivial election, and the Discovery / GetCapacity / ReleaseCapacity
+RPCs on the reference's wire service (doorman_tpu.Capacity). Not yet
+ported, and refused loudly rather than served another way: the
+intermediate-server role (GetServerCapacity) and stream push
+(WatchCapacity). Unlike the reference, asking for the native store
+where it cannot be built is an error, not a switch to the Python store.
 
 Concurrency model: one asyncio loop owns all state; the tick's dispatch
 and collect run in an executor thread (the native engine is
-mutex-guarded).
+mutex-guarded; a Python-store tick sends only its solve there).
 """
 
 from __future__ import annotations
@@ -64,39 +73,32 @@ from doorman_tpu_torch.utils.backend import device_info, resolve_device
 log = logging.getLogger(__name__)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"not yet ported: {what}")
-
-
 class CapacityServer(CapacityServicer):
-    """A doorman server in batch mode with its tick on `device`
-    ("cuda" by default; "cpu" only when asked)."""
+    """A doorman server, immediate or batch mode, on the Python or the
+    native lease store, with its batch tick on `device` ("cuda" by
+    default; "cpu" only when asked)."""
 
     def __init__(
         self,
         server_id: str,
         election: Election,
         *,
-        mode: str = "batch",
+        mode: str = "immediate",  # "immediate" | "batch"
         tick_interval: float = 1.0,
         clock: Callable[[], float] = time.time,
-        native_store: bool = True,
+        native_store: bool = False,
         solver_dtype: str = "f64",
         fused_tick: bool = True,
         scoped_solve: bool = True,
         tick_pipeline_depth: int = 1,
         device="cuda",
     ):
-        if mode != "batch":
-            raise _not_ported(f"server mode {mode!r} (only 'batch')")
-        if not native_store:
-            raise _not_ported("the Python lease store (use the native store)")
-        if not fused_tick:
-            raise _not_ported("the round-trip (unfused) tick")
+        if mode not in ("immediate", "batch"):
+            raise ValueError(f"unknown mode {mode!r}")
         if solver_dtype not in ("f32", "f64"):
             raise ValueError(f"unknown solver dtype {solver_dtype!r}")
         self.device = resolve_device(device)
-        if not native.native_available():
+        if native_store and not native.native_available():
             raise RuntimeError(
                 "native store engine unavailable (g++ build failed?)"
             )
@@ -106,7 +108,11 @@ class CapacityServer(CapacityServicer):
         self.tick_interval = tick_interval
         self._clock = clock
         self.solver_dtype = solver_dtype
+        self._native_store = bool(native_store)
+        self._fused_tick = bool(fused_tick)
         self._scoped_solve = bool(scoped_solve)
+        # The Python store keeps both None: every Resource makes its own
+        # core.store.LeaseStore.
         self._store_engine = None
         self._store_factory = None
         self._reset_store_engine()
@@ -151,15 +157,15 @@ class CapacityServer(CapacityServicer):
 
     async def start(self, port: int = 0, host: str = "[::]",
                     tick_loop: bool = True) -> int:
-        """Start serving gRPC and (unless `tick_loop` is False, for callers
-        that drive tick_once themselves) the tick loop; returns the bound
-        port."""
+        """Start serving gRPC and, in batch mode (unless `tick_loop` is
+        False, for callers that drive tick_once themselves), the tick
+        loop; returns the bound port."""
         server = grpc.aio.server()
         add_capacity_servicer(server, self)
         self.port = server.add_insecure_port(f"{host}:{port}")
         await server.start()
         self._grpc_server = server
-        if tick_loop:
+        if tick_loop and self.mode == "batch":
             self._tasks.append(asyncio.create_task(self._tick_loop()))
         return self.port
 
@@ -192,6 +198,17 @@ class CapacityServer(CapacityServicer):
         """Install a new ResourceRepository (validating it); the first load
         also enters the election."""
         config_mod.validate_repository(repo)
+        if repo.groups and self.mode != "batch":
+            # Group caps are enforced only by the batch tick: a grouped
+            # config on an immediate server would validate and then
+            # overcommit its resources, so it is refused (the caller
+            # keeps the last good config).
+            raise config_mod.ConfigError(
+                f"config defines {len(repo.groups)} capacity group(s) "
+                f"but server mode is {self.mode!r}: group caps are "
+                "enforced only by the batch tick — run the server in "
+                "batch mode or remove the groups"
+            )
         first_time = self.config is None
         self.config = repo
         self._config_epoch += 1
@@ -211,10 +228,12 @@ class CapacityServer(CapacityServicer):
 
     def _reset_store_engine(self) -> None:
         """A fresh native engine: dropping the resources map must also
-        drop the engine-held leases."""
-        engine = native.StoreEngine(clock=self._clock)
-        self._store_factory = engine.store
-        self._store_engine = engine
+        drop the engine-held leases. The Python store has nothing to
+        reset (its stores go with the resources map)."""
+        if self._native_store:
+            engine = native.StoreEngine(clock=self._clock)
+            self._store_factory = engine.store
+            self._store_engine = engine
 
     async def _on_is_master(self, is_master: bool) -> None:
         """Mastership changes wipe all lease state; a fresh master starts
@@ -325,7 +344,7 @@ class CapacityServer(CapacityServicer):
                 # Grant delivery rides the config's fastest refresh
                 # cadence relative to this server's tick cadence.
                 rotate_ticks=None, tick_interval=self.tick_interval,
-                scoped=self._scoped_solve,
+                fused=self._fused_tick, scoped=self._scoped_solve,
             )
         return self._resident
 
@@ -338,7 +357,7 @@ class CapacityServer(CapacityServicer):
                 self._store_engine, dtype=dtype, clock=self._clock,
                 device=self.device,
                 rotate_ticks=None, tick_interval=self.tick_interval,
-                scoped=self._scoped_solve,
+                fused=self._fused_tick, scoped=self._scoped_solve,
             )
         return self._resident_wide
 
@@ -364,6 +383,17 @@ class CapacityServer(CapacityServicer):
         if not self.resources:
             return
         resources = list(self.resources.values())
+        loop = asyncio.get_running_loop()
+        if not self._native_store:
+            # Python stores: the pack and the write-back stay on the
+            # event loop, so no RPC handler ever sees a half-packed or
+            # half-applied store; only the device solve leaves it.
+            solver = self._get_solver()
+            snap = solver.prepare(resources)
+            ctx = contextvars.copy_context()
+            gets = await loop.run_in_executor(None, ctx.run, solver.solve, snap)
+            solver.apply(resources, snap, gets, return_grants=False)
+            return
         narrow_res, wide_res, prio_res = self._partitioned(resources)
         # Resolved here, on the event loop, so solvers, resources and
         # epoch stay mutually consistent under a mastership flip.
@@ -416,7 +446,7 @@ class CapacityServer(CapacityServicer):
                 batch_tick(resources)
 
         ctx = contextvars.copy_context()
-        await asyncio.get_running_loop().run_in_executor(None, ctx.run, run_tick)
+        await loop.run_in_executor(None, ctx.run, run_tick)
 
     async def flush_ticks(self) -> None:
         """Collect every tick still in flight (its grants land in the
@@ -503,17 +533,35 @@ class CapacityServer(CapacityServicer):
         return out
 
     def _decide(self, resource_id: str, request: Request):
-        """Produce a lease for one resource request: batch mode serves the
-        last tick's solved grant and records the new demand (one locked C
-        call); unknown clients and learning mode run the scalar
-        first-response algorithm."""
+        """Produce a lease for one resource request. Immediate mode (and
+        unknown clients, and learning mode) run the scalar per-request
+        algorithm; batch mode serves the last tick's solved grant and
+        records the new demand (one locked C call on the native store)."""
         res = self.get_or_create_resource(resource_id)
         lease = None
-        if not res.in_learning_mode and self._ticks_done > 0:
-            lease = res._refresh_grant(
-                request.client, res._lease_length, res._refresh_interval,
-                request.wants, request.subclients, request.priority,
-            )
+        if (
+            self.mode == "batch"
+            and not res.in_learning_mode
+            and self._ticks_done > 0
+        ):
+            rg = res._refresh_grant
+            if rg is not None:
+                # Native store: None means the client is new.
+                lease = rg(
+                    request.client, res._lease_length,
+                    res._refresh_interval, request.wants,
+                    request.subclients, request.priority,
+                )
+            elif res.store.has_client(request.client):
+                lease = res.store.assign(
+                    request.client,
+                    res._lease_length,
+                    res._refresh_interval,
+                    res.store.get(request.client).has,
+                    request.wants,
+                    request.subclients,
+                    priority=request.priority,
+                )
         if lease is None:
             lease = res.decide(request)
         return lease, res
@@ -541,12 +589,18 @@ class CapacityServer(CapacityServicer):
         return {
             "id": self.id,
             "mode": self.mode,
+            "native_store": self._native_store,
+            "fused_tick": self._fused_tick,
             "is_master": self.is_master,
             "current_master": self.current_master,
             "device": device_info(self.device),
             "solver_dtype": self.solver_dtype,
             "resources": len(self.resources),
-            "leases": int(self._store_engine.total_leases),
+            "leases": (
+                int(self._store_engine.total_leases)
+                if self._store_engine is not None
+                else sum(len(r.store) for r in self.resources.values())
+            ),
             "ticks": self._ticks_done,
             "idle_ticks": solver.idle_ticks if solver is not None else 0,
             "last_tick_seconds": (

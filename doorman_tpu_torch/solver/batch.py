@@ -1,24 +1,29 @@
 """BatchSolver: the per-tick snapshot/solve/write-back cycle (port of
-doorman_tpu/solver/batch.py, on the native store).
+doorman_tpu/solver/batch.py).
 
-    pack:       native store -> lane snapshot + priority part  (host)
+    pack:       lease stores -> lane snapshot + priority part  (host)
     solve:      the lane part and solve_priority on the device
-    write-back: grants -> the store, one dm_apply call per part (host)
+    write-back: grants -> the stores                           (host)
 
-The lane part packs dense — one [R, K] row per resource, solved by
-kernel K1 on CUDA (solver.dense_cuda, at f32 and f64 alike) — while
-every resource fits DENSE_MAX_K clients; a wider resource drops the
-tick to the edge-list layout (core.snapshot.pack_edge_arrays,
-solver.kernels.solve_tick, plain PyTorch with fixed-order segment
-sums). The priority part carries the PRIORITY_BANDS resources and their
-capacity groups (solve_priority, kernel K3 on CUDA). The server ticks
-its lane resources through the resident solvers and comes here for the
-priority part, and for every resource on the tick after a resident
-overflow.
+On the native store the lane part packs dense — one [R, K] row per
+resource, solved by kernel K1 on CUDA (solver.dense_cuda, at f32 and f64
+alike) — while every resource fits DENSE_MAX_K clients; a wider
+resource drops the tick to the edge-list layout
+(core.snapshot.pack_edge_arrays, solver.kernels.solve_tick, plain
+PyTorch with fixed-order segment sums). Python lease stores always pack
+the edge list (core.snapshot.pack_snapshot), lease by lease, as the
+reference does. The priority part carries the PRIORITY_BANDS resources
+and their capacity groups (solve_priority, kernel K3 on CUDA), packed
+from either store into the same dense layout. A native-store server
+ticks its lane resources through the resident solvers and comes here
+for the priority part, and for every resource on the tick after a
+resident overflow; a Python-store server ticks everything here.
 
 Write-back is grants only: expiry and refresh advance when each client
 itself refreshes, never on delivery, so a client that stops refreshing
-expires after one lease length even while the server stays busy.
+expires after one lease length even while the server stays busy. The
+native store writes back with one dm_apply call per part, a Python store
+with `regrant` per lease.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from doorman_tpu_torch.core.snapshot import (
     Snapshot,
     _bucket,
     pack_edge_arrays,
+    pack_snapshot,
 )
 from doorman_tpu_torch.native import NativeLeaseStore
 from doorman_tpu_torch.solver.dense import DenseBatch
@@ -77,18 +83,23 @@ def _rebuild_grant_map(
 @dataclass
 class PrioritySnapshot:
     """The PRIORITY_BANDS resources of one tick in the dense layout
-    (solver.priority), packed from the native store: the flat
-    ridx/cids/pos handle arrays locate each lease in the [R, K] table,
-    and write-back is one dm_apply call."""
+    (solver.priority). Two pack flavors, as Snapshot: the Python-store
+    pack carries each row's client names slot by slot (`clients`); the
+    native pack carries the engine and the flat ridx/cids handle arrays,
+    and write-back is one dm_apply call. `ridx`/`pos` locate each lease
+    in the [R, K] table either way."""
 
     resource_ids: List[str]
     learning: List[bool]
     batch: PriorityBatch
     num_bands: int
-    engine: object
     ridx: np.ndarray  # [E] segment per edge
-    cids: np.ndarray  # [E] client handles
     pos: np.ndarray  # [E] slot within the resource row
+    # Python-store pack:
+    clients: "List[List[str]] | None" = None  # per resource, per K slot
+    # Native pack:
+    engine: object = None
+    cids: "np.ndarray | None" = None  # [E] client handles
     gets: "np.ndarray | None" = None  # [R, K], filled by solve()
 
 
@@ -164,10 +175,11 @@ class BatchSolver:
         return snap
 
     def _snapshot_lanes(self, res_list: List[Resource]) -> Snapshot:
-        """One dm_pack call dumps every lease of every lane resource as
-        flat, resource-major edge arrays; they go to the dense layout
-        while the widest resource fits a dense row, else to the edge
-        list."""
+        """Native stores: one dm_pack call dumps every lease of every
+        lane resource as flat, resource-major edge arrays; they go to
+        the dense layout while the widest resource fits a dense row,
+        else to the edge list. Python stores: the edge list, packed
+        lease by lease (pack_snapshot)."""
         specs = [
             ResourceSpec(
                 resource_id=r.id,
@@ -180,10 +192,19 @@ class BatchSolver:
         ]
         stores = [r.store for r in res_list]
         engine = _shared_native_engine(stores)
+        dev = self.device
         if engine is None:
-            raise NotImplementedError(
-                "not yet ported: the Python-store lane pack (the port's "
-                "BatchSolver packs one native StoreEngine)"
+            by_id = {r.id: r for r in res_list}
+
+            def rows(resource_id: str):
+                return [
+                    (client, lease.wants, lease.has, lease.subclients)
+                    for client, lease in by_id[resource_id].store.items()
+                ]
+
+            return pack_snapshot(
+                specs, rows, dtype=self._dtype,
+                to_device=lambda a: place(a, dev),
             )
         ridx, cid, wants, has, sub, _prio = engine.pack(stores)
         counts = np.bincount(ridx, minlength=len(specs))
@@ -192,7 +213,6 @@ class BatchSolver:
             return self._pack_dense(
                 specs, ridx, cid, wants, has, sub, counts, engine
             )
-        dev = self.device
         return pack_edge_arrays(
             specs,
             ridx,
@@ -289,8 +309,10 @@ class BatchSolver:
     ) -> PrioritySnapshot:
         """Dense pack of the PRIORITY_BANDS resources: higher wire
         priority = lower band rank; capacity groups resolved against the
-        config's group caps. One dm_pack call, no per-lease Python
-        objects."""
+        config's group caps. Native stores pack with one dm_pack call (no
+        per-lease Python objects); Python stores lease by lease, in each
+        store's insertion order, keeping the client names for the
+        write-back. Both end in the same flat, resource-major arrays."""
         ph = ph if ph is not None else PhaseLaps({})
         R = len(prio_res)
         dtype = self._dtype
@@ -313,12 +335,22 @@ class BatchSolver:
 
         stores = [r.store for r in prio_res]
         engine = _shared_native_engine(stores)
-        if engine is None:
-            raise NotImplementedError(
-                "not yet ported: the Python-store priority pack (the "
-                "port's BatchSolver packs one native StoreEngine)"
+        clients: "List[List[str]] | None" = None
+        cids = None
+        if engine is not None:
+            ridx, cids, wants_f, _has_f, sub_f, prio_f = engine.pack(stores)
+        else:
+            clients = [[c for c, _l in s.items()] for s in stores]
+            leases = [l for s in stores for _c, l in s.items()]
+            ridx = np.repeat(
+                np.arange(R, dtype=np.int32), [len(c) for c in clients]
             )
-        ridx, cids, wants_f, _has_f, sub_f, prio_f = engine.pack(stores)
+            wants_f = np.fromiter((l.wants for l in leases), np.float64,
+                                  len(leases))
+            sub_f = np.fromiter((l.subclients for l in leases), np.float64,
+                                len(leases))
+            prio_f = np.fromiter((l.priority for l in leases), np.int64,
+                                 len(leases))
         counts = np.bincount(ridx, minlength=R)
         K = _bucket(int(counts.max()) if len(ridx) else 1, 8)
         starts = np.zeros(R + 1, np.int64)
@@ -360,10 +392,11 @@ class BatchSolver:
             learning=learning,
             batch=batch,
             num_bands=_bucket(num_bands, 1),
-            engine=engine,
             ridx=ridx,
-            cids=cids,
             pos=pos,
+            clients=clients,
+            engine=engine,
+            cids=cids,
         )
 
     def prepare(self, resources: Iterable[Resource]) -> Snapshot:
@@ -413,12 +446,12 @@ class BatchSolver:
         *,
         return_grants: bool = True,
     ) -> Dict[str, Dict[str, float]]:
-        """Phase 3 (host, store-owning thread): one dm_apply call per
-        part writes the grants back (grants only; demand that changed
-        while the solve was in flight is preserved, and clients released
-        mid-solve stay released); learning-mode segments keep the
-        reported has. `return_grants=False` skips the per-client grant
-        map."""
+        """Phase 3 (host, store-owning thread): write the grants back —
+        one dm_apply call per native part, `regrant` per lease of a
+        Python store. Grants only; demand that changed while the solve
+        was in flight is preserved, and clients released mid-solve stay
+        released; learning-mode segments keep the store's live has.
+        `return_grants=False` skips the per-client grant map."""
         ph = PhaseLaps(self.phase_s)
         by_id = {r.id: r for r in resources}
         out: Dict[str, Dict[str, float]] = {}
@@ -428,18 +461,55 @@ class BatchSolver:
                 snap.ridx, snap.cids, np.asarray(gets[: snap.num_edges]),
                 out, return_grants,
             )
+        elif snap.num_edges:
+            learn_ids = {
+                rid for rid, flag in zip(snap.resource_ids, snap.learning)
+                if flag
+            }
+            for (resource_id, client_id), grant in snap.unpack(
+                gets[: snap.num_edges]
+            ).items():
+                self._regrant(by_id.get(resource_id), client_id, grant,
+                              resource_id in learn_ids, out, return_grants)
         part = snap.priority_part
-        if part is not None:
+        if part is not None and part.engine is not None:
             self._apply_native(
                 part.engine, by_id, part.resource_ids, part.learning,
                 part.ridx, part.cids, part.gets[part.ridx, part.pos],
                 out, return_grants,
             )
+        elif part is not None:
+            for i, resource_id in enumerate(part.resource_ids):
+                res = by_id.get(resource_id)
+                for j, client_id in enumerate(part.clients[i]):
+                    self._regrant(res, client_id, float(part.gets[i, j]),
+                                  part.learning[i], out, return_grants)
         ph.lap("apply")
         self.last_snapshot = snap
         self.ticks += 1
         self.last_tick_seconds = self._clock() - self._tick_start
         return out
+
+    @staticmethod
+    def _regrant(
+        res: "Resource | None",
+        client_id: str,
+        grant: float,
+        learning: bool,
+        out: Dict[str, Dict[str, float]],
+        return_grants: bool,
+    ) -> None:
+        """One lease of a Python store: a resource or client gone
+        mid-solve is skipped; a learning-mode resource replays the
+        client's reported has, which the store already holds."""
+        if res is None or not res.store.has_client(client_id):
+            return
+        if learning:
+            grant = res.store.get(client_id).has
+        else:
+            res.store.regrant(client_id, grant)
+        if return_grants:
+            out.setdefault(res.id, {})[client_id] = grant
 
     def _apply_native(
         self,

@@ -36,10 +36,12 @@ log = logging.getLogger(__name__)
 # Every tick engine exposes this phase vocabulary (cumulative seconds in
 # phase_s). "fused" is the fused-tick device window: the single staged
 # buffer placement, the staging->solve->delta launches and the download
-# kickoff.
+# kickoff. A round-trip tick (fused=False) laps "upload" (one placement
+# per staged block) and "solve" (the scatters, the full-table solve, the
+# delta compare and the download kickoff) instead, never "fused".
 PHASES = (
-    "sweep", "drain", "config", "pack", "staging", "fused", "download",
-    "apply", "delta", "rebuild",
+    "sweep", "drain", "config", "pack", "staging", "upload", "solve",
+    "fused", "download", "apply", "delta", "rebuild",
 )
 
 
@@ -389,10 +391,6 @@ class TickEngineBase:
         fused: bool = True,
         scoped: bool = True,
     ):
-        if not fused:
-            raise NotImplementedError(
-                "not yet ported: the round-trip (unfused) tick"
-            )
         self._engine = engine
         self._dtype = np.dtype(dtype)
         self._tdtype = torch.float64 if self._dtype == np.float64 else torch.float32
@@ -419,7 +417,11 @@ class TickEngineBase:
         self._track_deltas = False
         self._changed_lock = threading.Lock()
         self._changed_rids: set = set()  # guarded-by: self._changed_lock
-        self._fused = True
+        # Fused (the default): one staged buffer, one placement, the
+        # scoped or full solve and the delta compare in one window.
+        # fused=False keeps the round-trip tick: a placement per staged
+        # block and a full-table solve every tick, byte-identical.
+        self._fused = bool(fused)
         self._scoped = bool(scoped)
         self._scope = ScopeTracker()
         self._seq = 0
@@ -452,6 +454,15 @@ class TickEngineBase:
     @property
     def fused_tick(self) -> bool:
         return self._fused
+
+    @fused_tick.setter
+    def fused_tick(self, value: bool) -> None:
+        """Runtime toggle (triage: flip a live server to the round-trip
+        tick without a restart). Each launch picks its tail from this
+        flag, so the next tick runs in the new mode; the frontier stays
+        a superset of the unsettled rows (round-trip ticks only add to
+        it), so turning fusion back on needs no re-seed."""
+        self._fused = bool(value)
 
     @property
     def scoped_solve(self) -> bool:
@@ -487,7 +498,8 @@ class TickEngineBase:
         """Per-tick solve-mode decision: (scope_ids, None) for a scoped
         tick, or (None, reason) when this tick must solve the full table.
         Reasons: rebuild, config-epoch, config-drift, expiry-sweep,
-        scope-reset, disabled.
+        scope-reset, round-trip (fused=False has no scoped variant),
+        disabled.
 
         A unit is what the subclass solves as one: a row of the narrow
         solver, a whole resource SEGMENT of the wide one (its
@@ -498,6 +510,8 @@ class TickEngineBase:
         reason: "str | None" = None
         if not self._scoped:
             reason = "disabled"
+        elif not self._fused:
+            reason = "round-trip"
         elif self._swept_removed:
             reason = "expiry-sweep"
         if self._just_rebuilt or config_changed is None:

@@ -1,5 +1,6 @@
 """Device-resident steady-state tick solver, narrow rows (port of
-doorman_tpu/solver/resident.py, fused ticks on one device).
+doorman_tpu/solver/resident.py on one device: the fused tick and the
+round-trip tick).
 
 The dense [R, K] demand tables stay RESIDENT on the device between
 ticks and only what changed moves:
@@ -24,6 +25,12 @@ ticks and only what changed moves:
             every `rotate_ticks` ticks — as one slab (grants, then the
             changed mask, then the scope's moved mask) copied to the
             host on a copy stream; collect() applies it to the store.
+
+The round-trip tick (fused=False, `--no-fused-tick`) keeps the
+reference's multi-dispatch baseline: one placement per staged block,
+K1 over the full table every tick (scope reason "round-trip") and, with
+delta tracking, the changed mask compared in plain torch ops rather
+than K2 — byte-identical stores and changed rows.
 
 On a CUDA device the solve runs the hand-written kernels of
 solver.dense_cuda for f32 and f64 alike; on the CPU (device="cpu") the
@@ -405,6 +412,11 @@ class ResidentDenseSolver(TickEngineBase):
         idx_host = np.concatenate([a_idx, f_idx, sel_pad]).astype(np.int32)
         lanes = self._config.lanes()
         plain = self._device.type == "cpu"
+        if not self._fused:
+            return self._launch_round_trip(
+                ph, now, sel, idx_host, a_w, use_bf16, f_block, f_act,
+                lanes, fwin, rows_hit,
+            )
 
         # Scope block: the pow2-bucketed compact row set (padding slots
         # repeat the reserved padding row: duplicates solve identical
@@ -455,16 +467,8 @@ class ResidentDenseSolver(TickEngineBase):
         scope_d = take(scope_host.nbytes).view(torch.int32)
         f_act_d = (take(f_act.size) != 0).reshape(Df, kfill)
         a_i, f_i, sel_i = idx[:Da], idx[Da:Da + Df], idx[Da + Df:]
-        self._wants[a_i, :kfill] = a_w_d
-        self._has[f_i, :kfill] = f_block_d[0]
-        self._sub[f_i, :kfill] = f_block_d[1]
-        self._act[f_i, :kfill] = f_act_d
+        batch = self._scatter(a_i, a_w_d, f_i, f_block_d, f_act_d)
         cfg = self._config
-        batch = DenseBatch(
-            wants=self._wants, has=self._has, subclients=self._sub,
-            active=self._act, capacity=cfg.cap_d, algo_kind=cfg.kind_d,
-            learning=cfg.learn_d, static_capacity=cfg.statc_d,
-        )
         out_dt = self._out_tdtype
         changed = None
         moved = None
@@ -526,6 +530,84 @@ class ResidentDenseSolver(TickEngineBase):
             mask_rows=mask_rows,
             scope_ids=scope,
             moved_rows=moved_rows,
+            seq=self._seq,
+        )
+
+    def _scatter(self, a_i, a_w, f_i, f_block, f_act) -> DenseBatch:
+        """This tick's row scatters over the first `kfill` lanes (the
+        wants-only rows, then the full rows' has, subclients and active
+        flags); the resident tables as a DenseBatch."""
+        kfill = self._kfill
+        self._wants[a_i, :kfill] = a_w
+        self._has[f_i, :kfill] = f_block[0]
+        self._sub[f_i, :kfill] = f_block[1]
+        self._act[f_i, :kfill] = f_act
+        cfg = self._config
+        return DenseBatch(
+            wants=self._wants, has=self._has, subclients=self._sub,
+            active=self._act, capacity=cfg.cap_d, algo_kind=cfg.kind_d,
+            learning=cfg.learn_d, static_capacity=cfg.statc_d,
+        )
+
+    def _launch_round_trip(self, ph, now, sel, idx_host, a_w, use_bf16,
+                           f_block, f_act, lanes, fwin, rows_hit):
+        """The round-trip tail (reference solver/resident.py `_launch`
+        :1566-1625, `_tick_fn` :523): four placements (indices, the
+        wants-only block, bf16 when exact, the full rows' has and
+        subclients, their active flags), the scatters over the first
+        `kfill` lanes, K1 over the full table, the delivered rows in the
+        download dtype and, with delta tracking, the changed mask
+        against the previous-grants table; then one download, the mask
+        rows packed after the grants. The same scatters, solve and
+        compare as the fused tick, so the stores are byte-identical."""
+        ph.lap("staging")
+        kfill = self._kfill
+        tdt = self._tdtype
+        Da, Df = a_w.shape[0], f_act.shape[0]
+        Sb = len(idx_host) - Da - Df
+        put = self._put
+        idx = put(idx_host).long()
+        if use_bf16:
+            a_w_d = put(bf16_bytes(a_w).view(np.int16).reshape(a_w.shape))
+            a_w_d = a_w_d.view(torch.bfloat16)
+        else:
+            a_w_d = put(a_w)
+        f_block_d = put(f_block)
+        f_act_d = put(f_act)
+        ph.lap("upload")
+        a_i, f_i, sel_i = idx[:Da], idx[Da:Da + Df], idx[Da + Df:]
+        batch = self._scatter(a_i, a_w_d.to(tdt), f_i, f_block_d, f_act_d)
+        cfg = self._config
+        lane_rows = (
+            self._full_lane_rows(lanes) if self._device.type == "cpu" else None
+        )
+        gets = solve_dense_k1(batch, lanes=lanes, lane_rows=lane_rows)
+        # `gets` IS the next tick's has: grants chain on device.
+        self._has = gets
+        out = gets[sel_i, :kfill].to(self._out_tdtype)
+        slab, mask_rows = out, 0
+        if self._track_deltas:
+            changed = (out != self._prev[sel_i, :kfill]).any(dim=1)
+            self._prev[sel_i, :kfill] = out
+            mask_rows = -(-Sb // kfill)
+            slab = torch.cat(
+                [out, self._mask_rows(changed, mask_rows, kfill)], dim=0
+            )
+        count_launch()
+        download = transfer.start_download(slab)
+        ph.lap("solve")
+        self.last_fused = {"windows": fwin, "rows": rows_hit}
+        return TickHandle(
+            out=download,
+            sel_rows=sel,
+            rids=self._rids[sel],
+            versions=self._uploaded_versions[sel],
+            keep_has=cfg.learn_h[sel].astype(np.uint8),
+            n_sel=len(sel),
+            dispatched_at=now,
+            fused_windows=fwin,
+            fused_rows=rows_hit,
+            mask_rows=mask_rows,
             seq=self._seq,
         )
 

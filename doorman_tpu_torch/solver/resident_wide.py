@@ -1,6 +1,6 @@
 """Device-resident tick solver for WIDE resources, the chunked layout
-(port of doorman_tpu/solver/resident_wide.py, fused ticks on one
-device).
+(port of doorman_tpu/solver/resident_wide.py on one device: the fused
+tick and the round-trip tick).
 
 Doorman's headline shape is ONE shared resource with a huge client
 population. The narrow resident solver (solver.resident) maps one
@@ -41,6 +41,10 @@ What crosses the host<->device link per tick:
             re-download the whole table each tick; the rotation bounds
             each stored grant's staleness by `rotate_ticks` ticks, the
             information staleness the reference already has.
+
+The round-trip tick (fused=False) places each staged block on its own
+and solves the full table every tick (scope reason "round-trip"): the
+same scatters and the same chunked solve, so byte-identical stores.
 
 Write-back safety: chunk membership versions are read after the slot
 drain and before the pack (StoreEngine.chunk_versions), so an apply's
@@ -382,17 +386,32 @@ class WideResidentSolver(TickEngineBase):
         w_val_block = padded(w_val, Dw, 0)
         use_bf16 = bf16_exact(w_val_block)
         sel_pad = np.resize(sel, Sb) if n_sel else np.zeros(Sb, np.int64)
-        buf = np.concatenate([
-            padded(w_idx, Dw, pad_slot).astype(idt).view(np.uint8),
-            bf16_bytes(w_val_block) if use_bf16
-            else w_val_block.view(np.uint8),
-            padded(f_idx, Df, pad_slot).astype(idt).view(np.uint8),
-            padded(f_w, Df, 0).view(np.uint8),
-            padded(f_h, Df, 0).view(np.uint8),
-            padded(f_s, Df, 0).view(np.uint8),
-            sel_pad.astype(np.int32).view(np.uint8),
-            padded(f_a, Df, False).view(np.uint8),
-        ])
+        host_blocks = (
+            padded(w_idx, Dw, pad_slot).astype(idt),
+            bf16_bytes(w_val_block).view(np.int16) if use_bf16
+            else w_val_block,
+            padded(f_idx, Df, pad_slot).astype(idt),
+            padded(f_w, Df, 0),
+            padded(f_h, Df, 0),
+            padded(f_s, Df, 0),
+            sel_pad.astype(np.int32),
+            padded(f_a, Df, False),
+        )
+        handle = TickHandle(
+            out=None,
+            sel_rows=sel,
+            rids=sel_rids,
+            versions=versions,
+            keep_has=keep,
+            n_sel=n_sel,
+            dispatched_at=now,
+            chunks=sel_chunks,
+            scope_ids=scope,
+            seq=self._seq,
+        )
+        if not self._fused:
+            return self._launch_round_trip(ph, host_blocks, use_bf16, handle)
+        buf = np.concatenate([b.view(np.uint8) for b in host_blocks])
         scope_host = None
         if scope is not None:
             # The closure's whole chunk-row span, its compact segment
@@ -436,12 +455,7 @@ class WideResidentSolver(TickEngineBase):
         f_wv, f_hv, f_sv = (take(n).view(tdt) for n in sizes[3:6])
         sel_i = take(sizes[6]).view(torch.int32).long()
         f_av = take(sizes[7]) != 0
-        wants = self._wants.view(-1)
-        wants[w_i] = w_v
-        wants[f_i] = f_wv
-        self._has.view(-1)[f_i] = f_hv
-        self._sub.view(-1)[f_i] = f_sv
-        self._act.view(-1)[f_i] = f_av
+        self._scatter(w_i, w_v, f_i, f_wv, f_hv, f_sv, f_av)
         cfg = self._config
         out_dt = self._out_tdtype
         lanes = cfg.lanes()
@@ -475,35 +489,63 @@ class WideResidentSolver(TickEngineBase):
             mvd[:Scb] = moved_seg.to(out_dt)
             slab = torch.cat([out, mvd.reshape(moved_rows, W)], dim=0)
         else:
-            gets = solve_chunked(
-                ChunkedDenseBatch(
-                    wants=self._wants, has=self._has, subclients=self._sub,
-                    active=self._act, row_seg=self._row_seg_d,
-                    capacity=cfg.cap_d, algo_kind=cfg.kind_d,
-                    learning=cfg.learn_d, static_capacity=cfg.statc_d,
-                    lengths=self._seg_len_d,
-                ),
-                lanes=lanes,
-            )
+            gets = self._solve_full()
             # `gets` IS the next tick's has: grants chain on device.
             self._has = gets
             slab = gets[sel_i].to(out_dt)
         count_launch()
-        download = transfer.start_download(slab)
+        handle.out = transfer.start_download(slab)
+        handle.moved_rows = moved_rows
         ph.lap("fused")
-        return TickHandle(
-            out=download,
-            sel_rows=sel,
-            rids=sel_rids,
-            versions=versions,
-            keep_has=keep,
-            n_sel=n_sel,
-            dispatched_at=now,
-            chunks=sel_chunks,
-            scope_ids=scope,
-            moved_rows=moved_rows,
-            seq=self._seq,
+        return handle
+
+    def _scatter(self, w_i, w_v, f_i, f_wv, f_hv, f_sv, f_av) -> None:
+        """This tick's slot scatters into the resident tables (flat
+        slot indices), wants-only slots first."""
+        wants = self._wants.view(-1)
+        wants[w_i] = w_v
+        wants[f_i] = f_wv
+        self._has.view(-1)[f_i] = f_hv
+        self._sub.view(-1)[f_i] = f_sv
+        self._act.view(-1)[f_i] = f_av
+
+    def _solve_full(self) -> torch.Tensor:
+        """The chunked solve over the whole resident table."""
+        cfg = self._config
+        return solve_chunked(
+            ChunkedDenseBatch(
+                wants=self._wants, has=self._has, subclients=self._sub,
+                active=self._act, row_seg=self._row_seg_d,
+                capacity=cfg.cap_d, algo_kind=cfg.kind_d,
+                learning=cfg.learn_d, static_capacity=cfg.statc_d,
+                lengths=self._seg_len_d,
+            ),
+            lanes=cfg.lanes(),
         )
+
+    def _launch_round_trip(self, ph, host_blocks, use_bf16, handle):
+        """The round-trip tail (reference solver/resident_wide.py
+        `_tick_fn` :329 and `_launch`'s unfused branch): one placement
+        per staged block, the slot scatters, the chunked solve over the
+        full table, the delivered rows in the download dtype, one
+        download."""
+        ph.lap("staging")
+        w_i, w_v, f_i, f_wv, f_hv, f_sv, sel_i, f_av = (
+            self._put(b) for b in host_blocks
+        )
+        ph.lap("upload")
+        if use_bf16:
+            w_v = w_v.view(torch.bfloat16)
+        self._scatter(w_i.long(), w_v.to(self._tdtype), f_i.long(), f_wv,
+                      f_hv, f_sv, f_av)
+        gets = self._solve_full()
+        # `gets` IS the next tick's has: grants chain on device.
+        self._has = gets
+        slab = gets[sel_i.long()].to(self._out_tdtype)
+        count_launch()
+        handle.out = transfer.start_download(slab)
+        ph.lap("solve")
+        return handle
 
     def _apply_grants(self, handle: TickHandle, gets: np.ndarray) -> int:
         return self._engine.apply_chunks(

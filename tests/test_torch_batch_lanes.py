@@ -68,19 +68,37 @@ def test_port_batch_lane_part_matches_reference(layout, dtype, monkeypatch):
     assert set(port.phase_s) == {"pack", "bands", "solve", "apply"}
 
 
-def test_python_store_lane_pack_is_refused():
-    """The Python lease store stays unported: a lane resource on it is
-    refused, not packed another way."""
+def test_python_store_lane_pack_ticks_like_the_reference():
+    """A lane resource on the Python lease store packs into the edge
+    list (core.snapshot.pack_snapshot) and its grants land in the store
+    through regrant, as the reference's BatchSolver does: the same
+    grants, and the lease's expiry untouched."""
+    from doorman_tpu.core.store import LeaseStore as JLeaseStore
+    from doorman_tpu.proto import doorman_pb2 as jpb
     from doorman_tpu_torch.core.store import LeaseStore
     from doorman_tpu_torch.proto import doorman_pb2 as pb
 
-    tpl = pb.ResourceTemplate(
-        identifier_glob="r", capacity=10.0,
-        algorithm=pb.Algorithm(kind=pb.Algorithm.FAIR_SHARE,
-                               lease_length=60, refresh_interval=5),
-    )
-    res = TResource("r", tpl, store_factory=lambda rid: LeaseStore(rid))
-    res.store.assign("c", 60.0, 5.0, 0.0, 3.0, 1)
+    def world(res_cls, store_cls, proto):
+        tpl = proto.ResourceTemplate(
+            identifier_glob="r", capacity=10.0,
+            algorithm=proto.Algorithm(kind=proto.Algorithm.FAIR_SHARE,
+                                      lease_length=60, refresh_interval=5),
+        )
+        res = res_cls("r", tpl, clock=lambda: 100.0,
+                      store_factory=lambda rid: store_cls(
+                          rid, clock=lambda: 100.0))
+        for c, wants in enumerate((3.0, 8.0, 6.5)):
+            res.store.assign(f"c{c}", 60.0, 5.0, 0.0, wants, 1)
+        return res
+
+    res = world(TResource, LeaseStore, pb)
+    ref = world(JResource, JLeaseStore, jpb)
     solver = t_batch.BatchSolver(dtype=np.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        solver.tick([res])
+    got = solver.tick([res])
+    want = j_batch.BatchSolver(dtype=np.float64).tick([ref])
+    assert got == want and len(got["r"]) == 3
+    snap = solver.last_snapshot
+    assert snap.engine is None and snap.dense is None
+    assert snap.keys() == [("r", "c0"), ("r", "c1"), ("r", "c2")]
+    for c, lease in res.store.items():
+        assert lease.has == got["r"][c] and lease.expiry == 160.0

@@ -144,16 +144,23 @@ def test_port_server_answers_like_the_reference_over_loopback():
     assert compared == 6 * len(CLIENTS) - 1
 
 
-def test_port_server_refuses_what_is_not_ported():
-    """Immediate mode is still refused; a grouped PRIORITY_BANDS config
-    loads, and the BatchSolver, which now carries lane resources too,
-    refuses a lane resource on the Python lease store (not ported)."""
+def test_port_server_serves_every_mode_and_store_and_refuses_unported_rpcs():
+    """Immediate mode and the Python lease store are the defaults, as in
+    the reference; a grouped config loads in batch mode and is refused
+    in immediate mode; the BatchSolver ticks a lane resource on either
+    store. GetServerCapacity and WatchCapacity still answer
+    UNIMPLEMENTED (the intermediate-server role and stream push are not
+    ported)."""
+    from doorman_tpu.proto import doorman_stream_pb2 as spb
     from doorman_tpu_torch.core.store import LeaseStore
+    from doorman_tpu_torch.server.config import ConfigError
     from doorman_tpu_torch.solver.batch import BatchSolver
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TServer("x", TElection(), mode="immediate", device="cpu")
-    server = TServer("x", TElection(), device="cpu")
+    default = TServer("x", TElection(), device="cpu")
+    assert default.mode == "immediate"
+    assert default._store_engine is None and default._fused_tick
+    server = TServer("x", TElection(), mode="batch", native_store=True,
+                     fused_tick=False, device="cpu")
     bands = t_parse(
         "groups:\n  - name: up\n    capacity: 15\n"
         "resources:\n  - identifier_glob: 'p*'\n    capacity: 10\n"
@@ -166,16 +173,39 @@ def test_port_server_refuses_what_is_not_ported():
     )
 
     async def load():
+        with pytest.raises(ConfigError, match="capacity group"):
+            await default.load_config(bands)
+        assert default.config is None
         await server.load_config(bands)
+        port = await default.start(0, host="127.0.0.1")
+        try:
+            async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
+                stub = CapacityStub(ch)
+                with pytest.raises(grpc.aio.AioRpcError) as err:
+                    await stub.GetServerCapacity(
+                        pb.GetServerCapacityRequest(server_id="s")
+                    )
+                assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
+                with pytest.raises(grpc.aio.AioRpcError) as err:
+                    async for _ in stub.WatchCapacity(
+                        spb.WatchCapacityRequest()
+                    ):
+                        pass
+                assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
+        finally:
+            await default.stop()
         return server.get_or_create_resource("lane0")
 
     lane = asyncio.run(load())
     assert server.config is bands
     assert server._get_solver()._group_caps == {"up": 15.0}
+    assert server.status()["fused_tick"] is False
     solver = BatchSolver(dtype=np.float64, device="cpu")
     solver.tick([lane])  # the lane part on the native store
-    assert solver.ticks == 1
     lane.store = LeaseStore("lane0")
     lane.store.assign("c", 60.0, 5.0, 0.0, 3.0, 1)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        solver.tick([lane])
+    lane.learning_mode_end = 0.0  # a solve, not the learning replay
+    grants = solver.tick([lane])  # and on the Python store
+    assert solver.ticks == 2
+    assert grants == {"lane0": {"c": 3.0}}
+    assert lane.store.get("c").has == 3.0

@@ -198,8 +198,8 @@ def test_narrow_resource_overflow_ticks_through_the_batch_solver(monkeypatch):
     async def body():
         t = [3000.0]
         server = CapacityServer(
-            "overflow", TrivialElection(), mode="batch", device="cpu",
-            tick_interval=1000.0, clock=lambda: t[0],
+            "overflow", TrivialElection(), mode="batch", native_store=True,
+            device="cpu", tick_interval=1000.0, clock=lambda: t[0],
         )
         await server.start(0, host="127.0.0.1", tick_loop=False)
         await server.load_config(parse_yaml_config(CONFIG))
