@@ -43,6 +43,15 @@ store's BatchSolver's bit for bit; and an immediate-mode server, the
 reference's default, answering GetCapacity over loopback with no kernel
 launch, every grant equal to an in-process replay.
 
+Last, streaming lease push (WatchCapacity): the reference's push-vs-poll
+parity pin over loopback gRPC (a flip and a resume included; every
+pushed row equal to the poll row of its tick); the lane cell with
+100,000 subscriptions on a stream server whose fanout starts from K2's
+changed rows and the device matcher, beside a twin that re-decides every
+subscription every tick (equal pushes, byte for byte, and equal stores);
+and bench.py's fanout tiers of 1,000 to 100,000 subscriptions (quiet
+ticks walk no subscription, every churned row's subscribers are pushed).
+
 Prints one line per phase, the card's name and power limit, one JSON line
 of per-kernel measurements, and last the JSON result line. Exits non-zero
 (and prints no result) without a CUDA device, outside a checkout of the
@@ -2820,6 +2829,694 @@ def phase_immediate(torch, card):
                 requests_per_s=rps, launches=run["launches"])
 
 
+# -- phases 15-17: streaming lease push (WatchCapacity) ------------------------
+
+# The parity schedule of the reference's push-vs-poll pin: two resources,
+# mixed bands on one stream, churn from three clients, a mastership flip,
+# and a disconnect with a resume-from-seq reconnect.
+SP_CONFIG = """
+resources:
+- identifier_glob: prop
+  capacity: 100
+  safe_capacity: 3
+  algorithm: {kind: PROPORTIONAL_SHARE, lease_length: 60, refresh_interval: 1,
+              learning_mode_duration: 0}
+- identifier_glob: "*"
+  capacity: 80
+  algorithm: {kind: FAIR_SHARE, lease_length: 60, refresh_interval: 1,
+              learning_mode_duration: 0}
+"""
+SP_RESOURCES = ("prop", "fair")
+SP_PRIO = {"prop": 2, "fair": 0}
+SP_CHURN = (  # (tick, churner, resource, wants)
+    (1, "c1", "prop", 70.0), (2, "c2", "fair", 55.0),
+    (3, "c1", "prop", 20.0), (3, "c2", "fair", 90.0),
+    (5, "c3", "prop", 40.0), (8, "c1", "prop", 75.0),
+    (9, "c2", "fair", 10.0), (11, "c3", "prop", 5.0),
+    (13, "c1", "prop", 60.0),
+)
+SP_TICKS, SP_FLIP, SP_DISCONNECT, SP_RECONNECT = 15, 6, 10, 12
+
+# The lane cell with 100,000 subscriptions (bench.py's FANOUT_TIERS top
+# tier), 10 to a resource, beside a twin that re-decides all of them.
+ST_SUBS_PER_RES = 10
+ST_SHARDS = 4
+# Warm, churn and quiet ticks: cut from bench.py's 3 + 6 + 3 for the
+# run's time (the check-all twin re-decides 100,000 subscriptions a tick,
+# 7-10 s on an H100 machine's host). The 5 s refresh beat still lands in
+# a churn tick. The scoped pair (the default solve a --stream-push server
+# runs) stops before the beat: after its first (full, check-all) tick
+# every tick is scoped, the delta source the unscoped pair does not
+# reach — the first delivery of every row, then one churned set.
+ST_TICKS = (2, 3, 1)
+ST_SCOPED_TICKS = (1, 2, 0)
+
+# bench.py's server_stream_fanout_scaling shape.
+FT_TIERS = (1_000, 10_000, 100_000)
+FT_SUBS_PER_RES = 50
+FT_CHURN_RES = 4
+FT_TICKS = (3, 6, 2, 3)  # warm, churn, settle, quiet
+FT_CONFIG = """
+resources:
+- identifier_glob: "*"
+  capacity: 600
+  safe_capacity: 1
+  algorithm: {kind: PROPORTIONAL_SHARE, lease_length: 7200,
+              refresh_interval: 3600, learning_mode_duration: 0}
+"""
+
+
+class _StreamReader:
+    """Reads a WatchCapacity call without cancelling it on a timeout (a
+    cancelled read cancels the RPC): the pending read is kept."""
+
+    def __init__(self, call):
+        self.call = call
+        self._pending = None
+
+    async def read(self, timeout=30.0):
+        if self._pending is None:
+            self._pending = asyncio.ensure_future(self.call.read())
+        done, _ = await asyncio.wait({self._pending}, timeout=timeout)
+        check(bool(done), "stream read timed out")
+        task, self._pending = self._pending, None
+        return task.result()
+
+    def cancel(self):
+        if self._pending is not None:
+            self._pending.cancel()
+            self._pending = None
+        self.call.cancel()
+
+
+def _watch_request(spb, client_id, leases, resume_seq=0):
+    req = spb.WatchCapacityRequest(client_id=client_id, resume_seq=resume_seq)
+    for rid in SP_RESOURCES:
+        rr = req.resource.add()
+        rr.resource_id, rr.priority, rr.wants = rid, SP_PRIO[rid], 30.0
+        if leases.get(rid) is not None:
+            rr.has.CopyFrom(leases[rid])
+    return req
+
+
+async def _sp_churn(pb, stubs, leases, rows):
+    """GetCapacity for each (churner, resource, wants) on every server, in
+    the same order, each carrying its last lease as has."""
+    for cid, rid, wants in rows:
+        for stub in stubs:
+            held = leases[id(stub)]
+            req = pb.GetCapacityRequest(client_id=cid)
+            rr = req.resource.add()
+            rr.resource_id, rr.priority, rr.wants = rid, 1, wants
+            if held.get((cid, rid)) is not None:
+                rr.has.CopyFrom(held[(cid, rid)])
+            out = await stub.GetCapacity(req)
+            lease = pb.Lease()
+            lease.CopyFrom(out.response[0].gets)
+            held[(cid, rid)] = lease
+
+
+async def _stream_parity(torch):
+    """The reference's push-vs-poll parity pin over loopback gRPC on the
+    card: a poll server and a stream server, native store, one clock."""
+    import grpc
+
+    from doorman_tpu_torch.proto import doorman_pb2 as pb
+    from doorman_tpu_torch.proto import doorman_stream_pb2 as spb
+    from doorman_tpu_torch.proto.grpc_api import CapacityStub
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer
+    from doorman_tpu_torch.solver import dense_cuda
+
+    t = [1000.0]
+    servers, addrs = [], []
+    for push in (False, True):
+        s = CapacityServer(
+            "parity", TrivialElection(), mode="batch", tick_interval=1.0,
+            minimum_refresh_interval=0.0, clock=lambda: t[0],
+            native_store=True, stream_push=push, device=DEVICE)
+        port = await s.start(0, host="127.0.0.1", tick_loop=False)
+        await s.load_config(parse_yaml_config(SP_CONFIG))
+        await asyncio.sleep(0)
+        s.current_master = f"127.0.0.1:{port}"
+        servers.append(s)
+        addrs.append(s.current_master)
+    pserver, sserver = servers
+    channels = [grpc.aio.insecure_channel(a) for a in addrs]
+    stubs = [CapacityStub(c) for c in channels]
+    pstub, sstub = stubs
+    churn_leases = {id(s): {} for s in stubs}
+    poll_leases, keys, rows = {}, {}, {}
+    changed = {rid: [] for rid in SP_RESOURCES}
+    pushed = {rid: [] for rid in SP_RESOURCES}
+    stream_leases, last_seq = {}, [0]
+    registry = sserver._streams
+
+    async def poll(record=True):
+        req = pb.GetCapacityRequest(client_id="w")
+        for rid in SP_RESOURCES:
+            rr = req.resource.add()
+            rr.resource_id, rr.priority, rr.wants = rid, SP_PRIO[rid], 30.0
+            if poll_leases.get(rid) is not None:
+                rr.has.CopyFrom(poll_leases[rid])
+        out = await pstub.GetCapacity(req)
+        check(not out.HasField("mastership"), "stream-parity: poll redirected")
+        for row in out.response:
+            rid = row.resource_id
+            key = (row.gets.capacity, row.safe_capacity,
+                   row.gets.refresh_interval)
+            if record and key != keys.get(rid):
+                changed[rid].append(row.SerializeToString())
+            keys[rid], rows[rid] = key, row.SerializeToString()
+            lease = pb.Lease()
+            lease.CopyFrom(row.gets)
+            poll_leases[rid] = lease
+
+    def apply(msg):
+        check(msg.seq > last_seq[0] or msg.snapshot,
+              f"stream-parity: seq {msg.seq} after {last_seq[0]}")
+        last_seq[0] = int(msg.seq)
+        for row in msg.response:
+            pushed[row.resource_id].append(row.SerializeToString())
+            lease = pb.Lease()
+            lease.CopyFrom(row.gets)
+            stream_leases[row.resource_id] = lease
+
+    def parity(where):
+        for rid in SP_RESOURCES:
+            check(pushed[rid] == changed[rid],
+                  f"stream-parity {where}: {rid} pushed {len(pushed[rid])} "
+                  f"rows, the polls changed {len(changed[rid])}")
+
+    def churn_rows(tick):
+        return [(c, r, w) for at, c, r, w in SP_CHURN if at == tick]
+
+    dense_cuda.reset_launches()  # the stream-parity path starts here
+    try:
+        await poll()
+        reader = _StreamReader(sstub.WatchCapacity(
+            _watch_request(spb, "w", stream_leases)))
+        snap = await reader.read()
+        check(snap.snapshot and len(snap.response) == 2,
+              "stream-parity: no opening snapshot")
+        apply(snap)
+        parity("establishment")
+        terminal = None
+        disconnected = False
+        for tick in range(1, SP_TICKS):
+            if tick == SP_FLIP:
+                await pserver._on_is_master(False)
+                await sserver._on_is_master(False)
+                terminal = await reader.read()
+                check(terminal.HasField("mastership")
+                      and terminal.mastership.master_address == addrs[1],
+                      "stream-parity: the flip sent no terminal redirect")
+                reader.cancel()
+                await pserver._on_is_master(True)
+                await sserver._on_is_master(True)
+                current = {}
+                for at, c, r, w in SP_CHURN:
+                    if at < tick:
+                        current[(c, r)] = w
+                await _sp_churn(pb, stubs, churn_leases, [
+                    (c, r, w) for (c, r), w in sorted(current.items())])
+                reader = _StreamReader(sstub.WatchCapacity(_watch_request(
+                    spb, "w", stream_leases, resume_seq=last_seq[0])))
+                resumed = await reader.read()
+                check(resumed.snapshot, "stream-parity: resume not a snapshot")
+                apply(resumed)
+                await poll()
+                parity(f"flip at tick {tick}")
+                continue
+            if tick == SP_DISCONNECT:
+                reader.cancel()
+                await asyncio.sleep(0.05)
+                disconnected = True
+            if tick == SP_RECONNECT:
+                disconnected = False
+            await _sp_churn(pb, stubs, churn_leases, churn_rows(tick))
+            t[0] += 1.0
+            await pserver.tick_once()
+            if disconnected or tick == SP_RECONNECT:
+                await sserver.tick_once()
+                await poll()
+            if disconnected:
+                continue
+            if tick == SP_RECONNECT:
+                reader = _StreamReader(sstub.WatchCapacity(_watch_request(
+                    spb, "w", stream_leases, resume_seq=last_seq[0])))
+                resumed = await reader.read()
+                check(resumed.snapshot, "stream-parity: resume not a snapshot")
+                for row in resumed.response:
+                    check(row.SerializeToString() == rows[row.resource_id]
+                          and row.gets.capacity
+                          != stream_leases[row.resource_id].capacity,
+                          "stream-parity: a resumed row diverged")
+                apply(resumed)
+                for rid in SP_RESOURCES:
+                    changed[rid] = list(pushed[rid])
+                continue
+            before = registry.total_messages
+            await sserver.tick_once()
+            for _ in range(registry.total_messages - before):
+                apply(await reader.read())
+            await poll()
+            parity(f"tick {tick}")
+        reader.cancel()
+        torch.cuda.synchronize()
+        launches = dict(dense_cuda.LAUNCHES)  # read just after
+        total = sum(len(v) for v in pushed.values())
+        check(6 <= total < SP_TICKS * len(SP_RESOURCES),
+              f"stream-parity: {total} pushed rows")
+        check(launches["k2"] > 0, "stream-parity: K2 never launched")
+        errors = registry.fanout_errors
+        check(errors == 0, f"stream-parity: {errors} fanout errors")
+        return dict(pushed_rows=total, launches=launches,
+                    matched_total=sserver._stream_matcher.matched_total,
+                    seq=registry.status()["seq"])
+    finally:
+        for c in channels:
+            await c.close()
+        for s in servers:
+            await s.stop()
+
+
+class _MatchLog:
+    """Records every SubscriptionMatcher.match while active: the matcher,
+    the changed rows it was given and the pairs it returned."""
+
+    def __enter__(self):
+        from doorman_tpu_torch.server import match as match_mod
+
+        self.entries = []
+        self._cls = match_mod.SubscriptionMatcher
+        self._real = real = self._cls.match
+        entries = self.entries
+
+        def recorded(matcher, changed_rids):
+            pairs = real(matcher, changed_rids)
+            entries.append((matcher, list(changed_rids), pairs))
+            return pairs
+
+        self._cls.match = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.match = self._real
+        return False
+
+
+def _match_device_ms(torch, matcher, work):
+    """The device time of one match (the changed rows' mask, the
+    compaction and the pair gather) on the matcher's resident table,
+    between CUDA events, the launches queued behind a spin."""
+    import numpy as np
+
+    from doorman_tpu_torch.server.match import _pow2
+
+    changed = np.full(_pow2(len(work)), -1, np.int32)
+    changed[: len(work)] = work
+    changed_d = torch.from_numpy(changed).cuda()
+    cap = _pow2(sum(matcher.watchers(r) for r in work))
+    return _time_ms(
+        torch, lambda: matcher._match_on_device(changed_d, cap), queued=True)
+
+
+def _drain(queue_of):
+    """Every queued push of each subscription (bytes), in order."""
+    out = []
+    for sub in queue_of:
+        got = []
+        while not sub.queue.empty():
+            got.append(sub.queue.get_nowait())
+        out.append(got)
+    return out
+
+
+async def _stream_lane(torch, scoped, ticks):
+    """The lane cell (f32) with 100,000 subscriptions on a stream server
+    with the delta filter, beside a twin from the same seed and churn that
+    re-decides every subscription every tick. scoped=False puts K2 under
+    every fanout; scoped=True is the server's default solve, whose scoped
+    ticks take their changed rows from K1 and a compare."""
+    side = {}
+    try:
+        return await _stream_lane_run(torch, side, scoped, ticks)
+    finally:
+        for s in side.values():
+            await s["server"].stop()
+
+
+async def _stream_lane_run(torch, side, scoped, ticks):
+    import numpy as np
+
+    from doorman_tpu_torch.proto import doorman_stream_pb2 as spb
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer
+    from doorman_tpu_torch.solver import dense_cuda
+
+    t = [float(int(time.time()))]
+    rng_subs = np.random.default_rng(61)
+    sub_wants = rng_subs.integers(0, 100, N_RES * ST_SUBS_PER_RES)
+    label = "streams scoped" if scoped else "streams"
+    for name in ("filtered", "check-all"):
+        # The reference server's defaults where the cell names none: the
+        # tick pipeline depth 1. Scoped solve off: every narrow tick is a
+        # full tracked tick, so K2's changed flags feed every fanout. On:
+        # a scoped tick compares the scope's rows outside K2, as the
+        # reference's does.
+        server = CapacityServer(
+            name, TrivialElection(), mode="batch", native_store=True,
+            solver_dtype="f32", scoped_solve=scoped, tick_interval=1.0,
+            clock=lambda: t[0], stream_push=True, stream_shards=ST_SHARDS,
+            device=DEVICE)
+        side[name] = dict(server=server)
+        await server.start(0, host="127.0.0.1", tick_loop=False)
+        await server.load_config(parse_yaml_config(_config_yaml()))
+        tp = time.perf_counter()
+        resources, rids, cids = _populate(server, np.random.default_rng(60))
+        populate_s = time.perf_counter() - tp
+        registry, subs = server._streams, []
+        tp = time.perf_counter()
+        for i, res in enumerate(resources):
+            for j in range(ST_SUBS_PER_RES):
+                req = spb.WatchCapacityRequest(client_id=f"s{i}.{j}")
+                rr = req.resource.add()
+                rr.resource_id = res.id
+                rr.wants = float(sub_wants[i * ST_SUBS_PER_RES + j])
+                sub = registry.subscribe(req)
+                server._stream_match_add(sub)
+                subs.append(sub)
+        establish_s = time.perf_counter() - tp
+        snaps = _drain(subs)
+        registry.take_tick_stats()  # the snapshots are not tick 1's
+        side[name].update(rids=rids, cids=cids, subs=subs, snaps=snaps,
+                          walls=[], fanout=[], launches=[],
+                          populate_s=populate_s, establish_s=establish_s)
+    fil, twin = side["filtered"], side["check-all"]
+    check(fil["snaps"] == twin["snaps"],
+          f"{label}: the establishment snapshots differ")
+    # Every device match of the filtered server (the changed rows and the
+    # pairs it returned) is held against the host mirror after the tick.
+    churn_rng = {n: np.random.default_rng(62) for n in side}
+    warm, churn, quiet = ticks
+    per_tick = []
+    with _MatchLog() as matches:
+        log = matches.entries
+        for tick in range(warm + churn + quiet):
+            t[0] += 1.0
+            row = {"tick": tick + 1,
+                   "kind": ("warm" if tick < warm else "churn"
+                            if tick < warm + churn else "quiet")}
+            for name, s in side.items():
+                server = s["server"]
+                if row["kind"] == "churn":
+                    _churn(server._store_engine, churn_rng[name],
+                           s["rids"], s["cids"])
+                if name == "check-all":
+                    server._stream_check_all = True  # the filter defeated
+                phases = dict(server._stream_matcher.phase_s) \
+                    if server._stream_matcher is not None else {}
+                del log[:]
+                dense_cuda.reset_launches()  # this server's tick starts here
+                tw = time.perf_counter()
+                await server.tick_once()
+                torch.cuda.synchronize()
+                s["walls"].append(time.perf_counter() - tw)
+                s["launches"].append(dict(dense_cuda.LAUNCHES))
+                registry = server._streams
+                s["fanout"].append(registry.last_fanout_seconds)
+                st = registry.take_tick_stats()
+                row[name] = dict(
+                    walked=st["subs_walked"], matched=st["matched_pairs"],
+                    messages=st["messages"], bytes=st["push_bytes"],
+                    fanout_ms=registry.last_fanout_seconds * 1e3,
+                    wall_ms=s["walls"][-1] * 1e3)
+                check(registry.fanout_errors == 0,
+                      f"{label}: {registry.fanout_errors} fanout errors "
+                      f"({name})")
+                if name != "filtered":
+                    continue
+                matcher = server._stream_matcher
+                row["changed_rows"] = sum(len(c) for _m, c, _p in log)
+                row["match_pairs"] = sum(len(p) for _m, _c, p in log)
+                if matcher is not None:
+                    row["matcher_ms"] = {
+                        k: (matcher.phase_s[k] - phases.get(k, 0.0)) * 1e3
+                        for k in ("staging", "match", "download")}
+                    st_m = matcher.status()
+                    check(st_m["device"]
+                          and matcher._indices_d.device.type == "cuda",
+                          f"{label}: the matcher's table is not on the card")
+                # The device pairs against the host mirror on the same
+                # changed rows, and the match's device time between CUDA
+                # events on the same inputs (outside the timed fanout).
+                for m, changed, pairs in log:
+                    work = [r for r in changed if m._members.get(r)]
+                    host = m._match_host(work)
+                    check(len(pairs) == len(host) and set(map(tuple, pairs))
+                          == set(map(tuple, host)),
+                          f"{label}: tick {tick + 1}: device pairs "
+                          f"{len(pairs)} != host mirror {len(host)}")
+                    row["match_device_ms"] = _match_device_ms(torch, m, work)
+            got_f, got_t = _drain(fil["subs"]), _drain(twin["subs"])
+            diff = sum(a != b for a, b in zip(got_f, got_t))
+            check(diff == 0, f"{label}: tick {tick + 1}: {diff} subscriptions"
+                  " pushed other bytes than the check-all twin's")
+            row["pushed_subs"] = sum(1 for g in got_f if g)
+            per_tick.append(row)
+    modes = dict(fil["server"]._resident.solve_modes)  # before the flush
+    for s in side.values():
+        await s["server"].flush_ticks()
+    diff = _byte_diff(_packed_has(fil["server"]), _packed_has(twin["server"]))
+    check(diff == 0, f"{label}: {diff} leases differ between the filtered "
+          "server's store and the twin's")
+    n_ticks = warm + churn + quiet
+    k2 = [x["k2"] for x in fil["launches"]]
+    k1 = [x["k1"] for x in fil["launches"]]
+    if scoped:
+        # K2 on each full tick, K1 on each scoped one, and at least one
+        # fanout fed by a scoped tick's compare.
+        check(sum(k2) == modes["full"] and modes["scoped"] >= 1
+              and all(a + b >= 1 for a, b in zip(k1, k2)),
+              f"{label}: filtered server launches K2 {k2}, K1 {k1} on "
+              f"{modes} (K2 a full tick, K1 a scoped one)")
+    else:
+        check(k2 == [1] * n_ticks and sum(k1) == 0,
+              f"{label}: filtered server launches K2 {k2}, K1 {k1} "
+              "(one K2 a narrow tick)")
+    churn_rows = [r for r in per_tick if r["kind"] == "churn"]
+    check(sum(r["filtered"]["messages"] for r in churn_rows) > 0,
+          f"{label}: no push in the churn ticks")
+    check(sum(r["match_pairs"] for r in churn_rows) > 0,
+          f"{label}: the matcher matched no pair")
+    out = dict(
+        label=label, solve_modes=modes,
+        subscriptions=len(fil["subs"]), shards=ST_SHARDS,
+        leases=int(fil["server"]._store_engine.total_leases),
+        populate_s=fil["populate_s"], establish_s=fil["establish_s"],
+        twin_establish_s=twin["establish_s"], per_tick=per_tick,
+        launches={"k1": sum(k1), "k2": sum(k2)},
+        matcher=fil["server"]._stream_matcher.status())
+    for name, s in side.items():
+        cw = s["walls"][warm:warm + churn]
+        out[name] = dict(
+            tick_p50_ms=float(np.percentile(cw, 50)) * 1e3,
+            tick_p95_ms=float(np.percentile(cw, 95)) * 1e3,
+            churn_fanout_ms=[f * 1e3 for f in s["fanout"][warm:warm + churn]],
+            walls_ms=[w * 1e3 for w in s["walls"]])
+    return out
+
+
+async def _fanout_tier(torch, n_subs):
+    """One tier of bench.py's fanout scaling: n_subs subscriptions, 50 to
+    a resource; 4 rows churned a tick with the churner's 500 <-> 1 flip."""
+    from doorman_tpu_torch.algorithms import Request
+    from doorman_tpu_torch.proto import doorman_stream_pb2 as spb
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer
+    from doorman_tpu_torch.solver import dense_cuda
+
+    server = CapacityServer(
+        "fanout", TrivialElection(), mode="batch", tick_interval=1.0,
+        minimum_refresh_interval=0.0, native_store=True, stream_push=True,
+        stream_shards=ST_SHARDS, device=DEVICE)
+    await server.start(0, host="127.0.0.1", tick_loop=False)
+    try:
+        await server.load_config(parse_yaml_config(FT_CONFIG))
+        registry = server._streams
+        n_res = max(n_subs // FT_SUBS_PER_RES, 1)
+        by_rid = {}
+        tp = time.perf_counter()
+        for i in range(n_subs):
+            rid = f"r{i % n_res}"
+            req = spb.WatchCapacityRequest(client_id=f"s{i}")
+            rr = req.resource.add()
+            rr.resource_id, rr.wants = rid, 10.0
+            sub = registry.subscribe(req)
+            server._stream_match_add(sub)
+            by_rid.setdefault(rid, []).append(sub)
+        establish_s = time.perf_counter() - tp
+        subs = [s for group in by_rid.values() for s in group]
+        _drain(subs)
+        warm, churn, settle, quiet = FT_TICKS
+        dense_cuda.reset_launches()  # this tier's path starts here
+        for _ in range(warm):
+            await server.tick_once()
+            _drain(subs)
+        registry.take_tick_stats()
+        churned, flipped, churn_fanout, pushed = set(), set(), [], set()
+
+        def collect():
+            for sub, got in zip(subs, _drain(subs)):
+                if got:
+                    pushed.add(sub)
+
+        for k in range(churn):
+            rows = [f"r{(k * FT_CHURN_RES + j) % n_res}"
+                    for j in range(FT_CHURN_RES)]
+            wants = 500.0 if k % 2 == 0 else 1.0
+            for rid in rows:
+                server._decide(rid, Request("churner", 0.0, wants, 1,
+                                            priority=0))
+            churned.update(rows)
+            if wants > 1.0:
+                flipped.update(rows)
+            await server.tick_once()
+            churn_fanout.append(registry.last_fanout_seconds)
+            collect()
+        for _ in range(settle):
+            await server.tick_once()
+            collect()
+        churn_stats = registry.take_tick_stats()
+        # A row the churner took past its capacity (wants 500 against 50
+        # x 10 and 600) moves every subscriber's grant: all 50 are pushed.
+        # A row only ever churned with wants 1 stays under its capacity
+        # and moves no grant: none is.
+        missed = sum(1 for rid in flipped for s in by_rid[rid]
+                     if s not in pushed)
+        check(missed == 0, f"stream-fanout-tiers[{n_subs}]: {missed} "
+              "subscribers of rows whose grants moved got no push")
+        extra = sum(1 for rid in churned - flipped for s in by_rid[rid]
+                    if s in pushed)
+        check(extra == 0, f"stream-fanout-tiers[{n_subs}]: {extra} "
+              "subscribers of rows whose grants held were pushed")
+        quiet_fanout, quiet_walked, quiet_rows = [], [], set()
+        for _ in range(quiet):
+            with _MatchLog() as log:
+                await server.tick_once()
+            quiet_fanout.append(registry.last_fanout_seconds)
+            st = registry.take_tick_stats()
+            names = server._rid_resource_map()
+            rows = {names[int(r)] for _m, _c, p in log.entries for r in p[:, 1]}
+            quiet_rows |= rows
+            quiet_walked.append(st["subs_walked"])
+            # A quiet tick walks no subscription but the subscribers of
+            # the rows the engine reported changed: churned rows whose
+            # last move reaches the store with the delivery rotation.
+            check(st["subs_walked"] == st["matched_pairs"]
+                  == FT_SUBS_PER_RES * len(rows) and rows <= churned,
+                  f"stream-fanout-tiers[{n_subs}]: a quiet tick walked "
+                  f"{st['subs_walked']} subscriptions for the changed rows "
+                  f"{sorted(rows)}")
+            _drain(subs)
+        torch.cuda.synchronize()
+        launches = dict(dense_cuda.LAUNCHES)  # read just after
+        check(registry.fanout_errors == 0,
+              f"stream-fanout-tiers[{n_subs}]: fanout errors")
+        return dict(
+            subscribers=n_subs, resources=n_res, establish_s=establish_s,
+            churn_fanout_ms=[f * 1e3 for f in churn_fanout],
+            quiet_fanout_ms=[f * 1e3 for f in quiet_fanout],
+            quiet_walked=quiet_walked, quiet_rows=len(quiet_rows),
+            matched_pairs=churn_stats["matched_pairs"],
+            churn_subs_walked=churn_stats["subs_walked"],
+            churned_rows=len(churned), flipped_rows=len(flipped),
+            pushed_subs=len(pushed), launches=launches)
+    finally:
+        await server.stop()
+
+
+def phase_streams(torch, card):
+    """Stream push on the card: stream-parity, streams (the lane cell with
+    100,000 subscriptions) and stream-fanout-tiers."""
+    import numpy as np
+
+    out = {}
+    t0 = time.perf_counter()
+    sp = asyncio.run(_stream_parity(torch))
+    say(f"phase stream-parity: 2 native batch servers over loopback gRPC, "
+        f"{SP_TICKS - 1} ticks with a mastership flip at tick {SP_FLIP} and a "
+        f"resume at {SP_RECONNECT}: {sp['pushed_rows']} pushed rows equal the "
+        f"polls' changed rows byte for byte; terminal redirect on the flip; "
+        f"launches {sp['launches']}; matcher pairs {sp['matched_total']} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    out["stream_parity"] = sp
+    for key, scoped, ticks in (("streams", False, ST_TICKS),
+                               ("streams_scoped", True, ST_SCOPED_TICKS)):
+        t0 = time.perf_counter()
+        st = asyncio.run(_stream_lane(torch, scoped, ticks))
+        name = st["label"]
+        say(f"phase {name}: {st['leases']} leases, {st['subscriptions']} "
+            f"subscriptions on {st['shards']} shards (populate "
+            f"{st['populate_s']:.1f}s, establish {st['establish_s']:.1f}s / "
+            f"twin {st['twin_establish_s']:.1f}s); {len(st['per_tick'])} "
+            f"ticks ({st['solve_modes']}): every subscription's pushes "
+            f"byte-identical to the check-all twin's, device pairs == host "
+            f"mirror, stores byte-identical after the flush, no fanout "
+            f"error; filtered launches {st['launches']}; tick wall p50 / p95 "
+            f"filtered {st['filtered']['tick_p50_ms']:.2f} / "
+            f"{st['filtered']['tick_p95_ms']:.2f} ms, check-all "
+            f"{st['check-all']['tick_p50_ms']:.2f} / "
+            f"{st['check-all']['tick_p95_ms']:.2f} ms; card {card} "
+            f"({time.perf_counter() - t0:.1f}s)")
+        for row in st["per_tick"]:
+            f, c = row["filtered"], row["check-all"]
+            lap = row.get("matcher_ms")
+            dev = row.get("match_device_ms")
+            say(f"phase {name}: tick {row['tick']} ({row['kind']}): changed "
+                f"rows {row['changed_rows']}, matched pairs "
+                f"{row['match_pairs']}"
+                + (f" (device time of the match {dev:.4f} ms)" if dev else "")
+                + f", walked {f['walked']} (twin {c['walked']}), pushed "
+                f"{f['messages']} messages {f['bytes']} bytes to "
+                f"{row['pushed_subs']} subscriptions; fanout ms "
+                f"{f['fanout_ms']:.2f} (twin {c['fanout_ms']:.2f}); matcher ms "
+                + (", ".join(f"{k} {v:.3f}" for k, v in lap.items())
+                   if lap else "none (check-all)")
+                + f"; tick wall ms {f['wall_ms']:.2f} (twin "
+                f"{c['wall_ms']:.2f})")
+        out[key] = st
+    tiers = []
+    for n in FT_TIERS:
+        t0 = time.perf_counter()
+        tier = asyncio.run(_fanout_tier(torch, n))
+        say(f"phase stream-fanout-tiers[{n}]: {tier['resources']} resources, "
+            f"establish {tier['establish_s']:.1f}s; churn fanout ms "
+            f"{[round(x, 3) for x in tier['churn_fanout_ms']]}, quiet "
+            f"{[round(x, 4) for x in tier['quiet_fanout_ms']]} (walked "
+            f"{tier['quiet_walked']}: the subscribers of "
+            f"{tier['quiet_rows']} churned rows the rotation delivered); "
+            f"matched pairs {tier['matched_pairs']}, walked "
+            f"{tier['churn_subs_walked']}; {tier['pushed_subs']} subscribers "
+            f"pushed: every one of the {tier['flipped_rows']} rows taken past "
+            f"capacity, none of the other {tier['churned_rows'] - tier['flipped_rows']}"
+            f" churned rows; launches "
+            f"{tier['launches']} ({time.perf_counter() - t0:.1f}s)")
+        tiers.append(tier)
+    xs = np.log([t["subscribers"] for t in tiers])
+    ys = np.log([np.mean(t["churn_fanout_ms"]) for t in tiers])
+    exponent = float(np.polyfit(xs, ys, 1)[0])
+    say(f"phase stream-fanout-tiers: log-log exponent of the churn fanout "
+        f"time against subscribers {exponent:.3f} (reported; the reference's "
+        f"floor is 1.0)")
+    out["fanout_tiers"] = dict(tiers=tiers, exponent=exponent)
+    return out
+
+
 # -- the kernels' JSON line --------------------------------------------------
 
 def _time_ms(torch, fn, reps=20, queued=False):
@@ -3207,6 +3904,7 @@ def main() -> int:
         rt = phase_round_trip(torch, card)
         py = phase_python_store(torch, card)
         imm = phase_immediate(torch, card)
+        streams = phase_streams(torch, card)
         # The round-trip server's K1 launches and the Python-store
         # server's K3 launches (f32) join the main path's counts; every
         # path's count stands beside them.
@@ -3224,9 +3922,29 @@ def main() -> int:
             **{f"python-store {d}": v["launches"]["k3"] for d, v in py.items()},
         }
         k3["launches"] += py["f32"]["launches"]["k3"]
+        # K2 on the stream phases' tracked ticks (no stream phase carries
+        # a PRIORITY_BANDS resource, so none launches K3).
+        k2 = line["kernels"][1]
+        stream_k2 = {
+            "stream-parity": streams["stream_parity"]["launches"]["k2"],
+            "streams": streams["streams"]["launches"]["k2"],
+            "streams scoped": streams["streams_scoped"]["launches"]["k2"],
+            **{f"stream-fanout-tiers {t['subscribers']}": t["launches"]["k2"]
+               for t in streams["fanout_tiers"]["tiers"]},
+        }
+        k2["launches_by_path"] = {"tracked f32": k2["launches"], **stream_k2}
+        k2["launches"] += sum(stream_k2.values())
+        # K1 on the scoped ticks of the stream phases.
+        stream_k1 = {
+            "stream-parity": streams["stream_parity"]["launches"]["k1"],
+            "streams scoped": streams["streams_scoped"]["launches"]["k1"],
+        }
+        k1["launches_by_path"].update(stream_k1)
+        k1["launches"] += sum(stream_k1.values())
         line["round_trip"] = rt
         line["python_store"] = py
         line["immediate"] = imm
+        line["streams"] = streams
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3251,6 +3969,13 @@ def main() -> int:
         f"{rt['f32']['fused_p95']:.2f}); Python-store tick walls f32 "
         f"{[round(w, 1) for w in py['f32']['walls_ms']]} ms; immediate "
         f"request p50 {imm['p50_ms']:.3f} ms p99 {imm['p99_ms']:.3f} ms"
+        f"; streams: 100,000 subscriptions on the lane cell, churn fanout ms "
+        f"{[round(x, 1) for x in streams['streams']['filtered']['churn_fanout_ms']]}"
+        f" (check-all twin "
+        f"{[round(x, 1) for x in streams['streams']['check-all']['churn_fanout_ms']]})"
+        f", scoped "
+        f"{[round(x, 1) for x in streams['streams_scoped']['filtered']['churn_fanout_ms']]}"
+        f", fanout-tier exponent {streams['fanout_tiers']['exponent']:.3f}"
         f"; total {time.perf_counter() - t0:.1f}s")
     say(card)
     say(json.dumps(line))

@@ -2,7 +2,9 @@
 
     python -m doorman_tpu_torch.cmd.server --config file:cfg.yml \\
         [--mode immediate|batch] [--native-store] [--no-fused-tick] \\
-        [--device cuda] [--solver-dtype f32]
+        [--device cuda] [--solver-dtype f32] \\
+        [--stream-push [--max-streams-per-band N] [--stream-shards N]] \\
+        [--minimum-refresh-interval S]
 
 Loads the YAML config once (file: source), runs the trivial election
 and serves the Capacity gRPC service. The defaults are the reference's:
@@ -12,8 +14,9 @@ ticks the batched solve on `--device` (default cuda; a machine without
 a GPU must pass --device cpu, which every mode checks); `--native-store`
 backs the stores with the C++ engine and its device-resident tick, whose
 `--no-fused-tick` round-trip variant is kept for baselines and triage.
+`--stream-push` serves WatchCapacity: lease deltas pushed at tick edges.
 Flags not listed here — etcd election and config, persistence,
-admission, stream push, the frontend pool, TLS, the debug pages — are
+admission, the frontend pool, federation, TLS, the debug pages — are
 not ported yet.
 """
 
@@ -73,6 +76,28 @@ def make_parser() -> argparse.ArgumentParser:
                    help="resident ticks kept in flight: tick N's delivery "
                         "download overlaps the staging and solve of the "
                         "ticks after it")
+    p.add_argument("--stream-push", action="store_true",
+                   help="serve WatchCapacity: clients hold one stream "
+                        "and lease deltas are pushed at tick edges "
+                        "instead of answering per-interval polls; off "
+                        "leaves WatchCapacity UNIMPLEMENTED and "
+                        "stream-mode clients fall back to polling")
+    p.add_argument("--max-streams-per-band", type=int, default=0,
+                   help="stream push: cap on open WatchCapacity "
+                        "streams PER priority band — establishment "
+                        "past it sheds with RESOURCE_EXHAUSTED + "
+                        "retry-after so fanout cannot starve the "
+                        "tick; 0 = unlimited")
+    p.add_argument("--stream-shards", type=int, default=1,
+                   help="stream push: partition subscribers across "
+                        "this many fanout shards (stable client-id "
+                        "hash), each owning its subs/queues/refresh "
+                        "wheel; on the native store the tick-edge "
+                        "decide+serialize passes fan to worker threads. "
+                        "1 = the unsharded path")
+    p.add_argument("--minimum-refresh-interval", type=float, default=5.0,
+                   help="floor for client refresh intervals (the "
+                        "streams' silent-refresh cadence)")
     p.add_argument("--log-level", default="info",
                    help="debug/info/warning/error")
     return p
@@ -99,6 +124,10 @@ async def serve(args: argparse.Namespace, on_started=None) -> None:
         fused_tick=args.fused_tick,
         scoped_solve=args.scoped_solve,
         tick_pipeline_depth=args.tick_pipeline_depth,
+        minimum_refresh_interval=args.minimum_refresh_interval,
+        stream_push=args.stream_push,
+        max_streams_per_band=args.max_streams_per_band,
+        stream_shards=args.stream_shards,
         device=args.device,
     )
     port = await server.start(args.port, host=args.host)

@@ -1,6 +1,7 @@
 """The capacity server (port of doorman_tpu/server/server.py: immediate
 and batch mode, the Python and the native lease store, the resident
-paths narrow and wide, fused and round-trip, and the BatchSolver).
+paths narrow and wide, fused and round-trip, the BatchSolver, and
+streaming lease push).
 
 Immediate mode (the default, as in the reference) answers each
 GetCapacity with the scalar algorithm of its resource
@@ -23,15 +24,23 @@ and only the solve leaves it. Brand-new clients and resources in
 learning mode are answered by the scalar first-response algorithm.
 `fused_tick=False` runs the resident solvers' round-trip tick.
 
+Stream push (`stream_push=True`): WatchCapacity holds one stream per
+client and the tick edge pushes only the rows whose lease moved
+(server/streams.py). On a native-store batch server the narrow resident
+solver tracks deltas, and its changed rows are intersected on the device
+with the subscription incidence (server/match.py); wide and
+PRIORITY_BANDS rows, the Python store and immediate mode re-decide
+their subscribers every tick.
+
 What this port carries: both modes, both stores, the fused and the
 round-trip tick (scoped by default), lane and PRIORITY_BANDS resources
 of any width, capacity groups (batch mode only, as in the reference),
 the trivial election, and the Discovery / GetCapacity / ReleaseCapacity
-RPCs on the reference's wire service (doorman_tpu.Capacity). Not yet
-ported, and refused loudly rather than served another way: the
-intermediate-server role (GetServerCapacity) and stream push
-(WatchCapacity). Unlike the reference, asking for the native store
-where it cannot be built is an error, not a switch to the Python store.
+/ WatchCapacity RPCs on the reference's wire service
+(doorman_tpu.Capacity). Not yet ported, and refused loudly rather than
+served another way: the intermediate-server role (GetServerCapacity).
+Unlike the reference, asking for the native store where it cannot be
+built is an error, not a switch to the Python store.
 
 Concurrency model: one asyncio loop owns all state; the tick's dispatch
 and collect run in an executor thread (the native engine is
@@ -50,16 +59,20 @@ import grpc
 import numpy as np
 
 from doorman_tpu_torch import native
+from doorman_tpu_torch.admission.policy import RETRY_AFTER_KEY, Shed
 from doorman_tpu_torch.algorithms import Request
 from doorman_tpu_torch.algorithms.kinds import AlgoKind
 from doorman_tpu_torch.core.resource import Resource
 from doorman_tpu_torch.proto import doorman_pb2 as pb
+from doorman_tpu_torch.proto import doorman_stream_pb2 as spb
 from doorman_tpu_torch.proto.grpc_api import (
     CapacityServicer,
     add_capacity_servicer,
 )
 from doorman_tpu_torch.server import config as config_mod
 from doorman_tpu_torch.server.election import Election
+from doorman_tpu_torch.server.match import SubscriptionMatcher
+from doorman_tpu_torch.server.streams import StreamRegistry
 from doorman_tpu_torch.solver import batch as batch_mod
 from doorman_tpu_torch.solver.batch import BatchSolver
 from doorman_tpu_torch.solver.engine import PipelinedTicker
@@ -91,6 +104,10 @@ class CapacityServer(CapacityServicer):
         fused_tick: bool = True,
         scoped_solve: bool = True,
         tick_pipeline_depth: int = 1,
+        minimum_refresh_interval: float = 5.0,
+        stream_push: bool = False,
+        max_streams_per_band: int = 0,
+        stream_shards: int = 1,
         device="cuda",
     ):
         if mode not in ("immediate", "batch"):
@@ -106,6 +123,7 @@ class CapacityServer(CapacityServicer):
         self.election = election
         self.mode = mode
         self.tick_interval = tick_interval
+        self.minimum_refresh_interval = minimum_refresh_interval
         self._clock = clock
         self.solver_dtype = solver_dtype
         self._native_store = bool(native_store)
@@ -151,6 +169,41 @@ class CapacityServer(CapacityServicer):
         self._grpc_server: Optional[grpc.aio.Server] = None
         self.port: Optional[int] = None
 
+        # Streaming lease push (server/streams.py): clients hold one
+        # WatchCapacity stream instead of polling, and the tick-edge
+        # fanout pushes only the rows whose lease moved. Off by default
+        # (WatchCapacity answers UNIMPLEMENTED and clients fall back to
+        # polling).
+        self._streams: Optional[StreamRegistry] = None
+        if stream_push:
+            self._streams = StreamRegistry(
+                self, max_streams_per_band=max_streams_per_band,
+                shards=stream_shards,
+            )
+        # Delta bookkeeping for the fanout: ticks whose changes have no
+        # tracked source (Python store, overflow tick, wide/priority
+        # solver parts, config epoch moves) force a full subscription
+        # check instead of the engine's changed-rid filter.
+        self._stream_check_all = True
+        self._stream_force_ids: set = set()
+        self._stream_epoch_seen = -1
+        self._rid_map_key = None
+        self._rid_map: Dict[int, str] = {}
+        # Device-side changed-row -> subscriber matching (server/
+        # match.py): the incidence structure, the slot -> subscription
+        # map, and the membership key the bindings were last synced
+        # against. Native-store batch servers only (the Python-store
+        # fanout is check_all every tick anyway).
+        self._stream_matcher: Optional[SubscriptionMatcher] = None
+        self._stream_slots: Dict[int, object] = {}
+        self._stream_match_key = None
+        # Resources currently in learning mode: their scalar decisions
+        # move without store deliveries, so they ride the changed set
+        # every tick. Rebuilt on membership/epoch moves, pruned as
+        # learning windows lapse.
+        self._stream_learning_key = None
+        self._stream_learning: set = set()
+
     # ------------------------------------------------------------------
     # Lifecycle
     # ------------------------------------------------------------------
@@ -167,9 +220,16 @@ class CapacityServer(CapacityServicer):
         self._grpc_server = server
         if tick_loop and self.mode == "batch":
             self._tasks.append(asyncio.create_task(self._tick_loop()))
+        if self._streams is not None and self.mode != "batch":
+            # Batch servers push at tick edges (tick_once); an
+            # immediate-mode server has no tick, so the fanout gets its
+            # own beat at the same cadence.
+            self._tasks.append(asyncio.create_task(self._stream_loop()))
         return self.port
 
     async def stop(self) -> None:
+        if self._streams is not None:
+            self._streams.close()
         for t in self._tasks:
             t.cancel()
         for t in self._tasks:
@@ -246,6 +306,13 @@ class CapacityServer(CapacityServicer):
         else:
             log.warning("%s: this server lost mastership", self.id)
             self.became_master_at = 0.0
+            if self._streams is not None:
+                # Every open capacity stream ends with a terminal
+                # mastership redirect, the streaming analog of the
+                # unary mastership response. Clients fall back to
+                # polling and re-establish against the new master
+                # (resuming from their has-baseline).
+                self._streams.terminate_all(self._mastership())
         self.resources = {}
         self._reset_store_engine()
         # The engine was replaced: the resident solver's device tables
@@ -255,6 +322,15 @@ class CapacityServer(CapacityServicer):
         self._resident_pipe.drop()
         self._resident_wide = None
         self._resident_wide_pipe.drop()
+        self._stream_check_all = True
+        self._rid_map_key = None
+        # The matcher's rid bindings belong to the replaced engine; the
+        # terminated subs unbind lazily (their slots die with the map).
+        self._stream_matcher = None
+        self._stream_slots = {}
+        self._stream_match_key = None
+        self._stream_learning_key = None
+        self._stream_learning = set()
 
     async def _on_current_master(self, master: str) -> None:
         if master != self.current_master:
@@ -332,6 +408,13 @@ class CapacityServer(CapacityServicer):
                 [r for r in resources if r._decide_kind == prio],
             )
             self._partition_key = key
+            if self._streams is not None:
+                # Wide and priority rows solve outside the delta-tracked
+                # narrow path: their subscribers are checked every tick
+                # (the narrow rows keep the changed-rid filter).
+                self._stream_force_ids = self._wide_ids | {
+                    r.id for r in self._partition[2]
+                }
         return self._partition
 
     def _resident_solver(self) -> ResidentDenseSolver:
@@ -346,6 +429,12 @@ class CapacityServer(CapacityServicer):
                 rotate_ticks=None, tick_interval=self.tick_interval,
                 fused=self._fused_tick, scoped=self._scoped_solve,
             )
+            if self._streams is not None:
+                # Streaming lease push: the tick compares delivered rows
+                # against a resident previous-grants table (K2's
+                # epilogue on a full tick), so the fanout re-decides
+                # only the subscribers of rows that actually moved.
+                self._resident.enable_delta_tracking()
         return self._resident
 
     def _resident_wide_solver(self) -> WideResidentSolver:
@@ -378,6 +467,9 @@ class CapacityServer(CapacityServicer):
         tables."""
         async with self._tick_lock:
             await self._tick_once_locked()
+            # Tick-edge stream fanout: push lease deltas to the
+            # WatchCapacity subscribers of the rows this tick moved.
+            self.push_streams()
 
     async def _tick_once_locked(self) -> None:
         if not self.resources:
@@ -388,6 +480,7 @@ class CapacityServer(CapacityServicer):
             # Python stores: the pack and the write-back stay on the
             # event loop, so no RPC handler ever sees a half-packed or
             # half-applied store; only the device solve leaves it.
+            self._stream_check_all = True
             solver = self._get_solver()
             snap = solver.prepare(resources)
             ctx = contextvars.copy_context()
@@ -443,6 +536,10 @@ class CapacityServer(CapacityServicer):
                 self._partition_key = None
                 pipe.drop()
                 wide_pipe.drop()
+                # This tick applies grants with no delta tracking (and
+                # the dropped handles lost theirs). Serialized like the
+                # partition key.
+                self._stream_check_all = True
                 batch_tick(resources)
 
         ctx = contextvars.copy_context()
@@ -467,6 +564,206 @@ class CapacityServer(CapacityServicer):
                 await self.tick_once()
             except Exception:
                 log.exception("%s: batched tick failed", self.id)
+
+    def _fused_invalidate(self, resource_id: Optional[str] = None) -> None:
+        """Untracked-writer hook: a store write outside the coalescer's
+        grouped pass (the stream establishment decide) must drop the
+        touched row's staged pack — a stale entry would ship a pre-write
+        value whose dirty flag the next drain consumes
+        (engine.FusedStaging's freshness contract). resource_id=None
+        drops the whole cache."""
+        solver = self._resident
+        if solver is None or solver.staging is None:
+            return
+        if resource_id is None:
+            solver.staging.invalidate()
+            return
+        res = self.resources.get(resource_id)
+        if res is not None:
+            solver.staging.invalidate(res.store._rid)
+
+    # ------------------------------------------------------------------
+    # Streaming lease push (server/streams.py, server/match.py)
+    # ------------------------------------------------------------------
+
+    async def _stream_loop(self) -> None:
+        """The immediate-mode fanout beat (batch servers push from
+        tick_once instead)."""
+        while True:
+            await asyncio.sleep(self.tick_interval)
+            if self.is_master:
+                self.push_streams()
+
+    def push_streams(self) -> None:
+        """One tick-edge stream fanout: intersect the engine's changed
+        rids with the device-resident subscription incidence and hand
+        the registry exactly the matched (subscription, row) work — or
+        check_all when no tracked delta source covered this tick. Runs
+        on the event loop, driven by tick_once (batch mode), the
+        _stream_loop beat (immediate mode) or a stepped harness. A
+        fanout fault must not take down the tick: it is logged and
+        counted in status()["streams"]["fanout_errors"]."""
+        if self._streams is None or not self.is_master:
+            return
+        if not len(self._streams):
+            # Still drain the delta set so stale rids cannot flood the
+            # first subscriber's tick.
+            self._stream_changed_rids()
+            return
+        try:
+            changed_rids, check_all = self._stream_changed_rids()
+            matched = {} if check_all else self._stream_match(changed_rids)
+            self._streams.on_tick(check_all, matched)
+        except Exception:
+            # The changed rids were drained before the fault: re-decide
+            # every subscription next tick so no shrunk grant is lost.
+            self._stream_check_all = True
+            self._streams.fanout_errors += 1
+            log.exception("%s: stream fanout failed", self.id)
+
+    def _stream_changed_rids(self):
+        """(changed_rids, check_all) for this fanout: the delta-tracked
+        engine's changed rids, plus the rows forced by untracked solver
+        parts and the resources in learning mode (their scalar decisions
+        move without store deliveries); check_all when anything made the
+        filter unsound (config epoch move, overflow tick, Python store,
+        immediate mode)."""
+        check_all = self._stream_check_all or self.mode != "batch"
+        self._stream_check_all = False
+        if self._config_epoch != self._stream_epoch_seen:
+            # Config moves change safe_capacity / algorithms without any
+            # store delivery; recheck everything once.
+            self._stream_epoch_seen = self._config_epoch
+            check_all = True
+        solver = self._resident
+        if solver is None or not solver.delta_tracking:
+            return None, True
+        rids = set(solver.take_changed_rids())
+        if check_all:
+            return None, True
+        for resource_id in (
+            self._stream_force_ids | self._stream_learning_ids()
+        ):
+            res = self.resources.get(resource_id)
+            if res is not None and hasattr(res.store, "_rid"):
+                rids.add(res.store._rid)
+        return rids, False
+
+    def _stream_learning_ids(self) -> set:
+        """Resource ids currently in learning mode. Rebuilt by one
+        O(#resources) scan only when membership or config moved (the
+        cadence _rid_resource_map recomputes at); otherwise only the
+        current members are re-checked, so a quiet steady-state tick
+        pays O(|learning|) — zero once every window lapsed."""
+        key = (self._config_epoch, len(self.resources))
+        if key != self._stream_learning_key:
+            self._stream_learning_key = key
+            self._stream_learning = {
+                rid for rid, res in self.resources.items()
+                if res.in_learning_mode
+            }
+        elif self._stream_learning:
+            self._stream_learning = {
+                rid for rid in self._stream_learning
+                if (res := self.resources.get(rid)) is not None
+                and res.in_learning_mode
+            }
+        return self._stream_learning
+
+    def _stream_match(self, changed_rids) -> dict:
+        """Matched fanout work for one tick edge: subscription -> exactly
+        the changed resource ids it watches, through the device matcher.
+        Rows per subscription come back in the subscription's line
+        order, so push bytes are independent of match order."""
+        matcher = self._stream_matcher_sync()
+        if not changed_rids or matcher is None or not len(matcher):
+            return {}
+        pairs = matcher.match(sorted(changed_rids))
+        if not len(pairs):
+            return {}
+        rid_map = self._rid_resource_map()
+        hit: Dict[object, set] = {}
+        for slot, rid in pairs:
+            sub = self._stream_slots.get(int(slot))
+            resource_id = rid_map.get(int(rid))
+            if sub is not None and resource_id is not None:
+                hit.setdefault(sub, set()).add(resource_id)
+        return {
+            sub: [r for r in sub.lines if r in rows]
+            for sub, rows in hit.items()
+        }
+
+    def _stream_matcher_sync(self) -> Optional[SubscriptionMatcher]:
+        """The subscription matcher, its bindings synced against the
+        resource-membership key: a config reload or a mastership flip
+        can remap engine rids, so the incidence rebuilds from the live
+        subscriptions whenever the key moves (steady state: never —
+        subscribe/unsubscribe update it incrementally). None on the
+        Python store, whose fanout checks every subscription."""
+        if not self._native_store:
+            return None
+        key = (self._config_epoch, len(self.resources))
+        if self._stream_matcher is not None and key == self._stream_match_key:
+            return self._stream_matcher
+        matcher = SubscriptionMatcher(device=self.device)
+        slots: Dict[int, object] = {}
+        for sub in self._streams.iter_subs():
+            if sub.terminated:
+                continue
+            slot = matcher.add(self._stream_sub_rids(sub))
+            slots[slot] = sub
+            sub.match_slot = slot
+        self._stream_matcher = matcher
+        self._stream_slots = slots
+        self._stream_match_key = (self._config_epoch, len(self.resources))
+        return matcher
+
+    def _stream_sub_rids(self, sub) -> list:
+        """Engine rids of one subscription's lines (creating any resource
+        a sweep removed — its next decide would anyway)."""
+        return [
+            self.get_or_create_resource(resource_id).store._rid
+            for resource_id in sub.lines
+        ]
+
+    def _stream_match_add(self, sub) -> None:
+        """Establishment hook: bind the new subscription into the live
+        incidence structure (point scatters; no rebuild)."""
+        matcher = self._stream_matcher
+        if matcher is None or not self._native_store:
+            return
+        slot = matcher.add(self._stream_sub_rids(sub))
+        self._stream_slots[slot] = sub
+        sub.match_slot = slot
+        # Establishment may have created resources; keep the sync key
+        # current so the incremental bind is not immediately rebuilt.
+        self._stream_match_key = (self._config_epoch, len(self.resources))
+
+    def _stream_match_remove(self, sub) -> None:
+        """Stream-close hook: drop the subscription's incidence rows
+        (idempotent; a matcher rebuilt since establishment reassigned
+        slots, so only a still-current binding is removed)."""
+        matcher = self._stream_matcher
+        slot = sub.match_slot
+        sub.match_slot = None
+        if matcher is None or slot is None:
+            return
+        if self._stream_slots.get(slot) is sub:
+            matcher.remove(slot)
+            self._stream_slots.pop(slot, None)
+
+    def _rid_resource_map(self) -> Dict[int, str]:
+        """Engine rid -> resource id (native stores only), cached against
+        the config epoch and resource count."""
+        key = (self._config_epoch, len(self.resources))
+        if key != self._rid_map_key:
+            self._rid_map_key = key
+            self._rid_map = {
+                res.store._rid: rid
+                for rid, res in self.resources.items()
+                if hasattr(res.store, "_rid")
+            }
+        return self._rid_map
 
     # ------------------------------------------------------------------
     # RPC handlers
@@ -513,10 +810,52 @@ class CapacityServer(CapacityServicer):
         )
 
     async def WatchCapacity(self, request, context):
-        await context.abort(
-            grpc.StatusCode.UNIMPLEMENTED, "not yet ported: stream push"
-        )
-        yield  # pragma: no cover - makes this an async generator
+        """Streaming lease push: one subscription request, a stream of
+        tick-edge deltas. Establishment walks the same gate as a poll —
+        mastership, validation, the per-band stream cap — then the
+        registry owns the stream until it ends with a terminal
+        mastership redirect. (The reference's admission gate and
+        establishment ramp are not ported yet.)"""
+        if self._streams is None:
+            await context.abort(
+                grpc.StatusCode.UNIMPLEMENTED,
+                "stream push is disabled on this server (--stream-push)",
+            )
+        if not self.is_master:
+            out = spb.WatchCapacityResponse()
+            out.mastership.CopyFrom(self._mastership())
+            yield out
+            return
+        msg = config_mod.validate_get_capacity_request(request)
+        if msg is not None:
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, msg)
+        band = max((rr.priority for rr in request.resource), default=0)
+        shed: Optional[Shed] = self._streams.check_cap(band)
+        if shed is not None:
+            # Same wire contract as a shed poll: the pacing hint rides
+            # trailing metadata.
+            context.set_trailing_metadata((
+                (RETRY_AFTER_KEY, f"{shed.retry_after:.3f}"),
+            ))
+            await context.abort(
+                grpc.StatusCode.RESOURCE_EXHAUSTED, shed.reason
+            )
+        sub = self._streams.subscribe(request)
+        # Bind the new stream into the device matcher's incidence
+        # structure (a point scatter, not a rebuild).
+        self._stream_match_add(sub)
+        try:
+            while True:
+                out = await sub.queue.get()
+                yield out
+                # Data pushes are pre-serialized bytes (the stream
+                # serializer passes them through); a message OBJECT is
+                # the terminal mastership redirect.
+                if not isinstance(out, (bytes, bytearray)):
+                    return
+        finally:
+            self._streams.unsubscribe(sub)
+            self._stream_match_remove(sub)
 
     async def ReleaseCapacity(self, request, context):
         out = pb.ReleaseCapacityResponse()
@@ -572,14 +911,19 @@ class CapacityServer(CapacityServicer):
 
     def _phase_totals(self) -> dict:
         """Cumulative per-phase seconds of the resident paths; the wide
-        solver's keys are prefixed `wide.` (the BatchSolver's ride in
-        the `priority` block)."""
+        solver's keys are prefixed `wide.`, the stream matcher's
+        `stream.` (the BatchSolver's ride in the `priority` block)."""
         out = {}
         if self._resident is not None:
             out.update(self._resident.phase_s)
         if self._resident_wide is not None:
             for k, v in self._resident_wide.phase_s.items():
                 out[f"wide.{k}"] = v
+        if self._stream_matcher is not None:
+            # The stream fanout's staging/match/download laps.
+            for k, v in self._stream_matcher.phase_s.items():
+                if v:
+                    out[f"stream.{k}"] = v
         return out
 
     def status(self) -> dict:
@@ -615,4 +959,10 @@ class CapacityServer(CapacityServicer):
                 "last_tick_seconds": prio.last_tick_seconds,
                 "phase_s": dict(prio.phase_s),
             },
+            # Streaming lease push (None: stream push off).
+            "streams": (
+                self._streams.status()
+                if self._streams is not None
+                else None
+            ),
         }

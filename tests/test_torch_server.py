@@ -148,9 +148,9 @@ def test_port_server_serves_every_mode_and_store_and_refuses_unported_rpcs():
     """Immediate mode and the Python lease store are the defaults, as in
     the reference; a grouped config loads in batch mode and is refused
     in immediate mode; the BatchSolver ticks a lane resource on either
-    store. GetServerCapacity and WatchCapacity still answer
-    UNIMPLEMENTED (the intermediate-server role and stream push are not
-    ported)."""
+    store. GetServerCapacity answers UNIMPLEMENTED (the intermediate
+    server role is not ported), and so does WatchCapacity on a server
+    without `stream_push`, as the reference's does."""
     from doorman_tpu.proto import doorman_stream_pb2 as spb
     from doorman_tpu_torch.core.store import LeaseStore
     from doorman_tpu_torch.server.config import ConfigError
