@@ -52,6 +52,16 @@ subscription every tick (equal pushes, byte for byte, and equal stores);
 and bench.py's fanout tiers of 1,000 to 100,000 subscriptions (quiet
 ticks walk no subscription, every churned row's subscribers are pushed).
 
+Then the capacity tree: tools/drives/drive_tree3.py's root <- region <-
+leaf, three servers in this process over loopback gRPC with the client
+library's Clients on the leaf, converging to the banded and proportional
+allocation with capacity conserved at every hop, and losing it once the
+root stops and the parent leases lapse; and a root holding 100
+downstream servers' band sub-leases over 1,000 resources, whose every
+GetServerCapacity answer equals its store's band grants and whose
+grants hold to the f64 oracles (K1/K2 over the lane rows, K3 over the
+PRIORITY_BANDS rows, each against its plain version on those tables).
+
 Prints one line per phase, the card's name and power limit, one JSON line
 of per-kernel measurements, and last the JSON result line. Exits non-zero
 (and prints no result) without a CUDA device, outside a checkout of the
@@ -3838,6 +3848,542 @@ def kernel_line(torch, server, tracked_launches, main_launches, worst,
     return {"kernels": entries}
 
 
+# -- phases 18-19: the capacity tree --------------------------------------------
+
+# Phase tree: tools/drives/drive_tree3.py's topology (root <- region <-
+# leaf, after the reference's simulation scenario five), three port
+# servers in this process over loopback gRPC, batch + native store on
+# the card at f64, tick 0.4 s, minimum refresh 1.0 s on the lower hops.
+# Each runs with stream push on (no subscriber), so its resident tick
+# tracks deltas: full ticks run K2, scoped ones K1.
+TREE_ROOT_CAP = 400.0
+TREE_LANE_CAP = 50.0
+TREE_HI, TREE_LO, TREE_WANTS = 4, 8, 40.0  # priority 9 and priority 1
+TREE_LANE_WANTS = (90.0, 60.0)
+TREE_TICK_S = 0.4
+# drive_tree3's lease_length is 30 s; cut to 6 s so the lapse after the
+# root stops shows within seconds.
+TREE_LEASE_S = 6
+TREE_CONVERGE_BOUND_S = 60.0  # drive_tree3.py's CONVERGE_BOUND_S
+TREE_REL = 1e-9
+
+# Phase tree-root: one root at scale, 100 downstream servers' band
+# sub-leases over 1,000 resources (900 PROPORTIONAL_SHARE, 100
+# PRIORITY_BANDS). Cut from the lane cell's 10,000 resources: the root's
+# per-band decide is Python per lease in both packages.
+TR_SERVERS = 100
+TR_LANE = 900
+TR_PRIO = 100
+TR_RUNS = (("f32", 3, 81), ("f64", 2, 82))  # (dtype, rounds, seed)
+
+
+def _tree_yaml():
+    algo = ("lease_length: {lease}, refresh_interval: 2, "
+            "learning_mode_duration: 0")
+    algo = algo.format(lease=TREE_LEASE_S)
+    return (
+        "resources:\n"
+        f"  - identifier_glob: shared\n    capacity: {TREE_ROOT_CAP}\n"
+        f"    algorithm: {{kind: PRIORITY_BANDS, {algo}}}\n"
+        f"  - identifier_glob: '*'\n    capacity: {TREE_LANE_CAP}\n"
+        f"    algorithm: {{kind: PROPORTIONAL_SHARE, {algo}}}\n"
+    )
+
+
+def _band_has(server, rid, sid):
+    """Σ of `server`'s grants to downstream server `sid`'s bands of
+    resource `rid`."""
+    from doorman_tpu_torch.server.server import _band_key
+
+    res = server.resources[rid]
+    prios = server._server_bands.get((rid, sid), set())
+    return sum(res.store.get(_band_key(sid, p)).has for p in sorted(prios))
+
+
+async def _drive_tree(torch):
+    import numpy as np
+
+    from doorman_tpu_torch.client import Client
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer, _band_key
+    from doorman_tpu_torch.solver import dense_cuda
+
+    def make(sid, parent=""):
+        return CapacityServer(
+            sid, TrivialElection(), parent_addr=parent, mode="batch",
+            native_store=True, tick_interval=TREE_TICK_S,
+            minimum_refresh_interval=1.0 if parent else 5.0,
+            stream_push=True, device=DEVICE,
+        )
+
+    dense_cuda.reset_launches()  # the tree path starts here
+    root = make("root")
+    root_port = await root.start(0, host="127.0.0.1", tick_loop=False)
+    await root.load_config(parse_yaml_config(_tree_yaml()))
+    region = make("region", f"127.0.0.1:{root_port}")
+    region_port = await region.start(0, host="127.0.0.1", tick_loop=False)
+    leaf = make("leaf", f"127.0.0.1:{region_port}")
+    leaf_port = await leaf.start(0, host="127.0.0.1", tick_loop=False)
+    servers = {"root": root, "region": region, "leaf": leaf}
+    for s in (region, leaf):
+        # Skip the default template's 20 s learning window, as the
+        # reference's tests/test_hierarchy.py does.
+        s.became_master_at -= 1000.0
+    # The region's parent exchanges, timed.
+    exchange_walls = []
+    perform = region._perform_parent_requests
+
+    async def timed_exchange(retry):
+        t = time.perf_counter()
+        out = await perform(retry)
+        if out[1] == 0:  # the successful exchanges
+            exchange_walls.append(time.perf_counter() - t)
+        return out
+
+    region._perform_parent_requests = timed_exchange
+    stats = {n: {"k1": 0, "k2": 0, "k3": 0, "ticks": 0, "full": 0,
+                 "scoped": 0, "config_epoch_full": 0, "walls": []}
+             for n in servers}
+    live = dict.fromkeys(servers, True)
+
+    async def ticker():
+        # One tick of each server in turn every TREE_TICK_S: the kernel
+        # launches between two reads of the counters are that server's
+        # (nothing else in this process launches).
+        while True:
+            await asyncio.sleep(TREE_TICK_S)
+            for name, s in servers.items():
+                if not live[name]:
+                    continue
+                before = dict(dense_cuda.LAUNCHES)
+                modes = (dict(s._resident.solve_modes)
+                         if s._resident is not None else {})
+                t = time.perf_counter()
+                await s.tick_once()
+                st = stats[name]
+                st["walls"].append(time.perf_counter() - t)
+                st["ticks"] += 1
+                for k in ("k1", "k2", "k3"):
+                    st[k] += dense_cuda.LAUNCHES[k] - before[k]
+                if s._resident is not None:
+                    for m in ("full", "scoped"):
+                        moved = s._resident.solve_modes.get(m, 0) - modes.get(
+                            m, 0)
+                        st[m] += moved
+                        if (m == "full" and moved and s._resident
+                                .last_full_reason == "config-epoch"):
+                            st["config_epoch_full"] += 1
+
+    tick_task = asyncio.create_task(ticker())
+    clients, hi, lo, lane = [], [], [], []
+    t_start = time.perf_counter()
+    try:
+        addr = f"127.0.0.1:{leaf_port}"
+        for group, n, prio in ((hi, TREE_HI, 9), (lo, TREE_LO, 1)):
+            for i in range(n):
+                c = await Client.connect(addr, f"p{prio}.{i}",
+                                         minimum_refresh_interval=1.0)
+                clients.append(c)
+                group.append(await c.resource("shared", TREE_WANTS, prio))
+        for i, w in enumerate(TREE_LANE_WANTS):
+            c = await Client.connect(addr, f"lane{i}",
+                                     minimum_refresh_interval=1.0)
+            clients.append(c)
+            lane.append(await c.resource("lane", w))
+        lo_share = (TREE_ROOT_CAP - TREE_HI * TREE_WANTS) / TREE_LO
+        lane_want = [TREE_LANE_CAP * w / sum(TREE_LANE_WANTS)
+                     for w in TREE_LANE_WANTS]
+        want = ([TREE_WANTS] * TREE_HI + [lo_share] * TREE_LO + lane_want)
+        ress = hi + lo + lane
+
+        def worst():
+            got = np.array([r.current_capacity() for r in ress])
+            return float((np.abs(got - want) / np.asarray(want)).max())
+
+        deadline = time.perf_counter() + TREE_CONVERGE_BOUND_S
+        stable, converged_s = 0, None
+        while time.perf_counter() < deadline:
+            await asyncio.sleep(1.0)
+            stable = stable + 1 if worst() <= TREE_REL else 0
+            if stable >= 2:
+                converged_s = time.perf_counter() - t_start
+                break
+        check(converged_s is not None,
+              f"tree: not converged within {TREE_CONVERGE_BOUND_S:g}s "
+              f"(worst relative error {worst():.3g}; grants "
+              f"{[r.current_capacity() for r in ress]})")
+        err = worst()
+        # Conservation at every hop, from each server's own state.
+        hops = {}
+        for rid, cap in (("shared", TREE_ROOT_CAP), ("lane", TREE_LANE_CAP)):
+            leaf_r, region_r = leaf.resources[rid], region.resources[rid]
+            leaf_sum = leaf_r.store.sum_has
+            leaf_grant = _band_has(region, rid, "leaf")
+            region_grant = _band_has(root, rid, "region")
+            root_sum = root.resources[rid].store.sum_has
+            h = dict(leaf_sum=leaf_sum, leaf_cap=leaf_r.capacity,
+                     region_grant=leaf_grant,
+                     region_sum=region_r.store.sum_has,
+                     region_cap=region_r.capacity,
+                     root_grant=region_grant, root_sum=root_sum,
+                     root_cap=cap)
+            tol = 1 + TREE_REL
+            check(leaf_sum <= leaf_r.capacity * tol
+                  and abs(leaf_r.capacity - leaf_grant) <= TREE_REL * cap
+                  and h["region_sum"] <= region_r.capacity * tol
+                  and abs(region_r.capacity - region_grant) <= TREE_REL * cap
+                  and root_sum <= cap * tol,
+                  f"tree: conservation broken on {rid}: {h}")
+            hops[rid] = h
+        band = {p: root.resources["shared"].store.get(
+            _band_key("region", p)).wants for p in (9, 1)}
+        check(band == {9: TREE_HI * TREE_WANTS, 1: TREE_LO * TREE_WANTS},
+              f"tree: the root's band sub-leases of the region: {band}")
+        # The root stops: the region's parent lease lapses, then the
+        # leaf's (the region grants it nothing once its capacity is 0).
+        await root.stop()
+        live["root"] = False
+        t_stop = time.perf_counter()
+        lapse = {}
+        deadline = t_stop + TREE_LEASE_S + 20.0
+        while time.perf_counter() < deadline and len(lapse) < 4:
+            await asyncio.sleep(0.2)
+            for name, s in (("region", region), ("leaf", leaf)):
+                for rid in ("shared", "lane"):
+                    if (name, rid) not in lapse and (
+                            s.resources[rid].capacity == 0.0):
+                        lapse[(name, rid)] = time.perf_counter() - t_stop
+        check(len(lapse) == 4,
+              f"tree: capacity not 0 after the parent lease lapsed: "
+              f"{ {(n, r): servers[n].resources[r].capacity for n in ('region', 'leaf') for r in ('shared', 'lane')} }")
+        tick_task.cancel()
+        try:
+            await tick_task
+        except asyncio.CancelledError:
+            pass
+        torch.cuda.synchronize()
+        launches = dict(dense_cuda.LAUNCHES)  # read just after
+    finally:
+        tick_task.cancel()
+        for c in clients:
+            c.conn.max_retries = 0
+            c.RELEASE_TIMEOUT = 2.0
+            await c.close()
+        for name, s in servers.items():
+            if live[name]:
+                await s.stop()
+    for name, st in stats.items():
+        check(st["k3"] > 0, f"tree: K3 never launched on the {name}")
+        check(st["k1"] + st["k2"] > 0,
+              f"tree: neither K1 nor K2 launched on the {name}")
+    return dict(converged_s=converged_s, worst_rel_err=err, hops=hops,
+                root_bands=band, lapse_s={f"{n} {r}": v
+                                          for (n, r), v in lapse.items()},
+                exchange_walls=exchange_walls, stats=stats,
+                launches=launches)
+
+
+def _tree_root_layout(rng):
+    """Resource ids, capacities, kinds (0 lane, 1 priority), and each
+    downstream server's band composition: one band a lane resource, 1-2
+    bands a PRIORITY_BANDS one, at wire priorities from PRIORITIES,
+    with 1-50 clients each."""
+    import numpy as np
+
+    n = TR_LANE + TR_PRIO
+    tier = rng.integers(0, len(CAP_TIERS), n)
+    ids = [f"tl.t{t}.r{i}" if i < TR_LANE else f"tb.t{t}.r{i}"
+           for i, t in enumerate(tier)]
+    cap = np.asarray(CAP_TIERS)[tier]
+    comp = []
+    for _s in range(TR_SERVERS):
+        rows = []
+        for i in range(n):
+            k = 1 if i < TR_LANE else int(rng.integers(1, 3))
+            prios = rng.choice(np.asarray(PRIORITIES), k, replace=False)
+            rows.append([(int(p), int(rng.integers(1, 51))) for p in prios])
+        comp.append(rows)
+    return ids, cap, comp
+
+
+def _tree_root_yaml():
+    lines = ["resources:"]
+    for t, cap in enumerate(CAP_TIERS):
+        for prefix, kind in (("tl", "PROPORTIONAL_SHARE"),
+                             ("tb", "PRIORITY_BANDS")):
+            lines.append(
+                f"  - identifier_glob: '{prefix}.t{t}.*'\n"
+                f"    capacity: {cap}\n    algorithm: {{kind: {kind}, "
+                "lease_length: 60, refresh_interval: 1, "
+                "learning_mode_duration: 0}")
+    lines.append("  - identifier_glob: '*'\n    capacity: 0\n"
+                 "    algorithm: {kind: 0, lease_length: 60,"
+                 " refresh_interval: 1, learning_mode_duration: 0}")
+    return "\n".join(lines) + "\n"
+
+
+def _tree_root_requests(rng, ids, comp, prev):
+    """Each downstream server's GetServerCapacityRequest as
+    _build_server_capacity_request forms it: per resource the bands with
+    demand (fresh wants 0-99 this round), the previous round's grant as
+    `has` while it is positive, no line where no band has demand.
+    Returns ([(server id, request, each line's band priorities)], the
+    number of bands sent)."""
+    from doorman_tpu_torch.proto import doorman_pb2 as pb
+
+    out, nbands = [], 0
+    for s, rows in enumerate(comp):
+        sid = f"mid{s}"
+        req = pb.GetServerCapacityRequest(server_id=sid)
+        wants = rng.integers(0, 100, sum(len(r) for r in rows))
+        k = 0
+        lines = []
+        for rid, row in zip(ids, rows):
+            bands = []
+            for p, n in row:
+                if wants[k] > 0:
+                    bands.append((p, n, float(wants[k])))
+                k += 1
+            if not bands:
+                continue
+            rr = req.resource.add()
+            rr.resource_id = rid
+            lease = prev.get((sid, rid))
+            if lease is not None and lease.capacity > 0:
+                rr.has.capacity = lease.capacity
+                rr.has.expiry_time = lease.expiry_time
+            for p, n, w in bands:
+                band = rr.wants.add()
+                band.priority, band.num_clients, band.wants = p, n, w
+            lines.append([p for p, _n, _w in bands])
+            nbands += len(bands)
+        out.append((sid, req, lines))
+    return out, nbands
+
+
+def _tree_root_kernels(torch, server, dtype_name):
+    """K1 (and K2 on a tracked root) and K3 against their plain versions
+    on the root's own tables after its last tick: comparison launches,
+    not counted."""
+    from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
+    from doorman_tpu_torch.solver import dense_cuda
+    from doorman_tpu_torch.solver.dense import DenseBatch, solve_dense
+    from doorman_tpu_torch.solver.priority import solve_priority
+
+    solver = server._resident
+    cfg = solver._config
+    batch = DenseBatch(
+        wants=solver._wants, has=solver._has, subclients=solver._sub,
+        active=solver._act, capacity=cfg.cap_d, algo_kind=cfg.kind_d,
+        learning=cfg.learn_d, static_capacity=cfg.statc_d,
+    )
+    bound = F64_RTOL if dtype_name == "f64" else F32_PARITY_REL_BOUND
+    saved = dict(dense_cuda.LAUNCHES)
+    k1 = dense_cuda.solve_dense_k1(batch)
+    part = server._solver.last_snapshot.priority_part
+    k3 = solve_priority(part.batch, part.num_bands, use_kernel=True)
+    dense_cuda.LAUNCHES.update(saved)
+    out = {"k1": _rel_err(torch, k1, solve_dense(batch), batch)}
+    check(bool(torch.isfinite(k1).all()), "tree-root: K1 non-finite")
+    check(out["k1"] <= bound, f"tree-root: K1 vs plain {out['k1']:.3g}")
+    plain3 = solve_priority(part.batch, part.num_bands, use_kernel=False)
+    scale = part.batch.capacity.double().clamp_min(1e-30)[:, None]
+    out["k3"] = ((k3.double() - plain3.double()).abs() / scale).max().item()
+    check(out["k3"] <= K3_SOLVE_RTOL, f"tree-root: K3 vs plain {out['k3']:.3g}")
+    if solver.delta_tracking:
+        delivered = torch.ones(batch.wants.shape[0], dtype=torch.bool,
+                               device=batch.wants.device)
+        _res, _abs, out["k2"] = _check_k2(torch, batch, solver._prev,
+                                          delivered, "tree-root")
+    return out
+
+
+async def _drive_tree_root(torch, dtype_name, rounds, seed):
+    import numpy as np
+
+    from doorman_tpu_torch.algorithms.kinds import AlgoKind
+    from doorman_tpu_torch.algorithms.priority import priority_alloc
+    from doorman_tpu_torch.algorithms.tick import (
+        F32_PARITY_REL_BOUND,
+        oracle_row,
+    )
+    from doorman_tpu_torch.client.connection import Connection
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer, _band_key
+    from doorman_tpu_torch.solver import dense_cuda
+
+    rng = np.random.default_rng(seed)
+    ids, cap, comp = _tree_root_layout(rng)
+    tracked = dtype_name == "f64"
+    server = CapacityServer(
+        "smoke-root", TrivialElection(), mode="batch", native_store=True,
+        solver_dtype=dtype_name, tick_interval=1.0, stream_push=tracked,
+        device=DEVICE,
+    )
+    port = await server.start(0, host="127.0.0.1", tick_loop=False)
+    conns = [Connection(f"127.0.0.1:{port}", max_retries=0)
+             for _ in range(TR_SERVERS)]
+    bound = 1e-12 if dtype_name == "f64" else F32_PARITY_REL_BOUND
+    prev, round_s, us_band, tick_walls = {}, [], [], []
+    worst_lane = worst_prio = 0.0
+    try:
+        await server.load_config(parse_yaml_config(_tree_root_yaml()))
+        dense_cuda.reset_launches()  # the tree-root path starts here
+        for _r in range(rounds):
+            reqs, nbands = _tree_root_requests(rng, ids, comp, prev)
+            t = time.perf_counter()
+            outs = [await c.execute(
+                lambda stub, req=req: stub.GetServerCapacity(req))
+                for c, (_sid, req, _l) in zip(conns, reqs)]
+            round_s.append(time.perf_counter() - t)
+            us_band.append(round_s[-1] * 1e6 / nbands)
+            # Every response's capacity is the sum of the store's grants
+            # to that server's bands, in the order the root summed them.
+            mism = 0
+            for (sid, req, lines), out in zip(reqs, outs):
+                check(len(out.response) == len(req.resource),
+                      "tree-root: a response misses lines")
+                for rr, pr, prios in zip(req.resource, out.response, lines):
+                    store = server.resources[rr.resource_id].store
+                    total = 0.0
+                    for p in prios:
+                        total += store.get(_band_key(sid, p)).has
+                    mism += total != pr.gets.capacity
+                    prev[(sid, rr.resource_id)] = pr.gets
+            check(mism == 0, f"tree-root: {mism} response lines differ from "
+                  "the sum of the store's band grants")
+            # The solve's inputs, then one tick, collected.
+            inputs = {rid: server.resources[rid].store.dump_rows()
+                      for rid in ids[:TR_LANE]}
+            t = time.perf_counter()
+            await server.tick_once()
+            await server.flush_ticks()
+            torch.cuda.synchronize()
+            tick_walls.append(time.perf_counter() - t)
+            for i, rid in enumerate(ids):
+                total = server.resources[rid].store.sum_has
+                check(total <= cap[i] * (1 + 1e-6),
+                      f"tree-root {rid}: {total:.9g} > capacity {cap[i]}")
+            for i, rid in enumerate(ids[:TR_LANE]):
+                rows = inputs[rid]
+                w = np.array([r[4] for r in rows])
+                h = np.array([r[3] for r in rows])
+                s = np.array([r[5] for r in rows], np.float64)
+                got = dict((r[0], r[3]) for r in
+                           server.resources[rid].store.dump_rows())
+                g = np.array([got[r[0]] for r in rows])
+                want = oracle_row(AlgoKind.PROPORTIONAL_SHARE, float(cap[i]),
+                                  0.0, w, h, s)
+                err = float(np.abs(g - want).max()) / max(cap[i], w.max())
+                worst_lane = max(worst_lane, err)
+            solver = server._solver
+            part = solver.last_snapshot.priority_part
+            b = part.batch
+            wt = b.weights.double().cpu().numpy()
+            ww = b.wants.double().cpu().numpy()
+            bd = b.band.cpu().numpy()
+            a = b.active.cpu().numpy()
+            c = b.capacity.double().cpu().numpy()
+            gets = part.gets
+            name = server._store_engine.client_name
+            starts = np.searchsorted(part.ridx, np.arange(len(c) + 1))
+            smism = 0
+            for r in range(len(c)):
+                m = a[r]
+                want = priority_alloc(c[r], ww[r, m], wt[r, m], bd[r, m])
+                scale = max(c[r], float(ww[r, m].max()))
+                worst_prio = max(worst_prio, float(
+                    np.abs(gets[r, m] - want).max()) / scale)
+                store = server.resources[part.resource_ids[r]].store
+                for e in range(starts[r], starts[r + 1]):
+                    smism += store.get(name(int(part.cids[e]))).has != float(
+                        gets[r, part.pos[e]])
+            check(smism == 0, f"tree-root: {smism} priority store grants "
+                  "differ from the solve")
+        check(worst_lane <= bound,
+              f"tree-root[{dtype_name}]: lane grants vs f64 oracle "
+              f"{worst_lane:.3g}")
+        check(worst_prio <= bound,
+              f"tree-root[{dtype_name}]: PRIORITY_BANDS grants vs f64 "
+              f"oracle {worst_prio:.3g}")
+        launches = dict(dense_cuda.LAUNCHES)  # read just after
+        check(launches["k1"] + launches["k2"] > 0 and launches["k3"] > 0,
+              f"tree-root[{dtype_name}]: launches {launches}")
+        kern = _tree_root_kernels(torch, server, dtype_name)
+        leases = server.status()["leases"]
+        modes = dict(server._resident.solve_modes)
+        phases = {k: v * 1e3 / rounds
+                  for k, v in server._resident.phase_s.items() if v > 0}
+        prio_phases = {k: v * 1e3 / rounds
+                       for k, v in server._solver.phase_s.items() if v > 0}
+    finally:
+        for c in conns:
+            await c.close()
+        await server.stop()
+    return dict(leases=leases, round_s=round_s, us_per_band=us_band,
+                tick_walls_ms=[w * 1e3 for w in tick_walls],
+                lane_oracle_err=worst_lane, prio_oracle_err=worst_prio,
+                kernel_vs_plain=kern, launches=launches, solve_modes=modes,
+                phase_ms=phases, priority_phase_ms=prio_phases)
+
+
+def phase_tree(torch, card):
+    """The capacity tree: drive_tree3's three hops, then a root holding
+    100 downstream servers' band sub-leases over 1,000 resources."""
+    out = {}
+    t0 = time.perf_counter()
+    tree = asyncio.run(_drive_tree(torch))
+    ex = tree["exchange_walls"]
+    ex_p50, ex_p95 = _pcts(ex) if ex else (float("nan"), float("nan"))
+    say(f"phase tree: root <- region <- leaf (batch, native store, f64, "
+        f"tick {TREE_TICK_S:g}s), {TREE_HI} + {TREE_LO} clients on a "
+        f"PRIORITY_BANDS resource of {TREE_ROOT_CAP:g} and 2 on a lane one "
+        f"of {TREE_LANE_CAP:g}: converged in {tree['converged_s']:.1f}s "
+        f"(bound {TREE_CONVERGE_BOUND_S:g}s), worst grant vs the banded and "
+        f"proportional allocation {tree['worst_rel_err']:.3g}; conservation "
+        f"held at every hop {tree['hops']}; root bands of the region "
+        f"{tree['root_bands']}; capacity 0 after the root stopped (lease "
+        f"{TREE_LEASE_S}s) at {tree['lapse_s']} s; region parent exchange "
+        f"p50 {ex_p50:.2f} ms p95 {ex_p95:.2f} ms over {len(ex)}; per "
+        "server: " + "; ".join(
+            f"{n} ticks {s['ticks']} (full {s['full']}, of them "
+            f"{s['config_epoch_full']} on a config-epoch move, scoped "
+            f"{s['scoped']}), K1 {s['k1']} K2 {s['k2']} K3 {s['k3']}"
+            for n, s in tree["stats"].items())
+        + f" ({time.perf_counter() - t0:.1f}s); card {card}")
+    for s in tree["stats"].values():
+        s["tick_p50_ms"], s["tick_p95_ms"] = _pcts(s.pop("walls"))
+    tree["exchange_p50_ms"], tree["exchange_p95_ms"] = ex_p50, ex_p95
+    tree.pop("exchange_walls")
+    out["tree"] = tree
+    roots = {}
+    for dtype_name, rounds, seed in TR_RUNS:
+        t0 = time.perf_counter()
+        run = asyncio.run(_drive_tree_root(torch, dtype_name, rounds, seed))
+        p50, p95 = _pcts([w / 1e3 for w in run["tick_walls_ms"]])
+        run["tick_p50_ms"], run["tick_p95_ms"] = p50, p95
+        say(f"phase tree-root[{dtype_name}]: {TR_SERVERS} downstream "
+            f"servers over loopback gRPC, {TR_LANE} PROPORTIONAL_SHARE + "
+            f"{TR_PRIO} PRIORITY_BANDS resources, {run['leases']} band "
+            f"sub-leases; {rounds} rounds: walls "
+            f"{[round(x, 2) for x in run['round_s']]} s, "
+            f"{[round(x, 1) for x in run['us_per_band']]} us a band; root "
+            f"tick p50 {p50:.1f} ms p95 {p95:.1f} ms ({run['solve_modes']}"
+            f"), resident host ms a tick {run['phase_ms']}, BatchSolver ms "
+            f"a tick {run['priority_phase_ms']}; responses == store band "
+            f"sums bit for bit; vs f64 oracles lane "
+            f"{run['lane_oracle_err']:.3g} priority "
+            f"{run['prio_oracle_err']:.3g}; kernels vs plain "
+            f"{run['kernel_vs_plain']}; capacities held; launches "
+            f"{run['launches']} ({time.perf_counter() - t0:.1f}s); card "
+            f"{card}")
+        roots[dtype_name] = run
+    out["tree_root"] = roots
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3945,6 +4491,17 @@ def main() -> int:
         line["python_store"] = py
         line["immediate"] = imm
         line["streams"] = streams
+        # The capacity tree: each kernel's launches on the tree's three
+        # servers and on the root at scale.
+        tree = phase_tree(torch, card)
+        tree_by = {"tree": tree["tree"]["launches"], **{
+            f"tree-root {d}": v["launches"]
+            for d, v in tree["tree_root"].items()}}
+        for key, entry in (("k1", k1), ("k2", k2), ("k3", k3)):
+            adds = {path: n[key] for path, n in tree_by.items()}
+            entry["launches_by_path"].update(adds)
+            entry["launches"] += sum(adds.values())
+        line["tree"] = tree
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3976,7 +4533,12 @@ def main() -> int:
         f", scoped "
         f"{[round(x, 1) for x in streams['streams_scoped']['filtered']['churn_fanout_ms']]}"
         f", fanout-tier exponent {streams['fanout_tiers']['exponent']:.3f}"
-        f"; total {time.perf_counter() - t0:.1f}s")
+        f"; tree converged in {tree['tree']['converged_s']:.1f}s, region "
+        f"parent exchange p50 {tree['tree']['exchange_p50_ms']:.2f} ms; "
+        f"tree-root round walls s " + ", ".join(
+            f"{d} {[round(x, 2) for x in v['round_s']]}"
+            for d, v in tree["tree_root"].items())
+        + f"; total {time.perf_counter() - t0:.1f}s")
     say(card)
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {

@@ -5,9 +5,13 @@
         [--device cuda] [--solver-dtype f32] \\
         [--stream-push [--max-streams-per-band N] [--stream-shards N]] \\
         [--minimum-refresh-interval S]
+    python -m doorman_tpu_torch.cmd.server --parent HOST:PORT [...]
 
 Loads the YAML config once (file: source), runs the trivial election
-and serves the Capacity gRPC service. The defaults are the reference's:
+and serves the Capacity gRPC service. `--parent` makes the server an
+intermediate of the capacity tree: it leases its capacity from that
+server and configures itself from the grants, so it needs no --config
+(a root does). The defaults are the reference's:
 `--mode immediate` (each request answered by its resource's scalar
 algorithm, no device work) on the Python lease store. `--mode batch`
 ticks the batched solve on `--device` (default cuda; a machine without
@@ -16,8 +20,8 @@ backs the stores with the C++ engine and its device-resident tick, whose
 `--no-fused-tick` round-trip variant is kept for baselines and triage.
 `--stream-push` serves WatchCapacity: lease deltas pushed at tick edges.
 Flags not listed here — etcd election and config, persistence,
-admission, the frontend pool, federation, TLS, the debug pages — are
-not ported yet.
+admission, the frontend pool, federation, TLS (the server's own and
+--parent-tls / --parent-tls-ca), the debug pages — are not ported yet.
 """
 
 from __future__ import annotations
@@ -43,8 +47,12 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--host", default="[::]", help="address to bind")
     p.add_argument("--server-id", default="",
                    help="this server's id (default: host:port)")
-    p.add_argument("--config", required=True,
-                   help='config source: "file:<path>"')
+    p.add_argument("--parent", default="",
+                   help="parent server address; empty means root")
+    p.add_argument("--config", default="",
+                   help='config source: "file:<path>" (a root needs '
+                        "one; an intermediate configures itself from its "
+                        "parent's grants)")
     p.add_argument("--mode", choices=("immediate", "batch"),
                    default="immediate",
                    help="allocation mode: per-request scalar or per-tick "
@@ -113,10 +121,13 @@ def read_config(source: str):
 async def serve(args: argparse.Namespace, on_started=None) -> None:
     """Run the server until cancelled. `on_started(server)` fires once the
     gRPC listener is bound."""
-    repo = read_config(args.config)
+    if not (args.config or args.parent):
+        raise SystemExit("a root server needs --config")
+    repo = read_config(args.config) if args.config else None
     server = CapacityServer(
         args.server_id or f"{args.host}:{args.port}",
         TrivialElection(),
+        parent_addr=args.parent,
         mode=args.mode,
         tick_interval=args.tick_interval,
         native_store=args.native_store,
@@ -134,8 +145,12 @@ async def serve(args: argparse.Namespace, on_started=None) -> None:
     log.info("serving gRPC on %s:%d (%s mode, %s store, tick device %s)",
              args.host, port, server.mode,
              "native" if args.native_store else "Python", server.device)
-    await server.load_config(repo)
-    log.info("config loaded (%d templates)", len(repo.resources))
+    if repo is not None:
+        await server.load_config(repo)
+        log.info("config loaded (%d templates)", len(repo.resources))
+    else:
+        log.info("intermediate of %s: configured from its grants",
+                 args.parent)
     if on_started is not None:
         on_started(server)
     try:

@@ -1,7 +1,7 @@
 """The capacity server (port of doorman_tpu/server/server.py: immediate
 and batch mode, the Python and the native lease store, the resident
-paths narrow and wide, fused and round-trip, the BatchSolver, and
-streaming lease push).
+paths narrow and wide, fused and round-trip, the BatchSolver, streaming
+lease push, and the capacity tree's root and intermediate roles).
 
 Immediate mode (the default, as in the reference) answers each
 GetCapacity with the scalar algorithm of its resource
@@ -32,15 +32,27 @@ with the subscription incidence (server/match.py); wide and
 PRIORITY_BANDS rows, the Python store and immediate mode re-decide
 their subscribers every tick.
 
+The capacity tree: GetServerCapacity serves downstream servers. Each
+(downstream server, priority band) is one sub-lease in the resource's
+store (_band_key), so the batch tick solves bands as ordinary rows: K1/K2
+over lane resources, K3 over PRIORITY_BANDS ones. A server built with
+`parent_addr` is an intermediate: it starts from the default "*"
+template (capacity 0), and its updater leases its capacity from the
+parent with one GetServerCapacity per interval, aggregating its own
+store by band, and re-templates its resources from the grants (each
+resource's capacity falls to 0 once its parent lease expires).
+
 What this port carries: both modes, both stores, the fused and the
 round-trip tick (scoped by default), lane and PRIORITY_BANDS resources
 of any width, capacity groups (batch mode only, as in the reference),
-the trivial election, and the Discovery / GetCapacity / ReleaseCapacity
-/ WatchCapacity RPCs on the reference's wire service
-(doorman_tpu.Capacity). Not yet ported, and refused loudly rather than
-served another way: the intermediate-server role (GetServerCapacity).
-Unlike the reference, asking for the native store where it cannot be
-built is an error, not a switch to the Python store.
+the trivial election, the root and intermediate roles, and the
+Discovery / GetCapacity / GetServerCapacity / ReleaseCapacity /
+WatchCapacity RPCs on the reference's wire service
+(doorman_tpu.Capacity). Cut seams: the parent exchange opens no trace
+span and sends no trace metadata (obs/trace is not ported), and the
+parent is dialed without TLS. Unlike the reference, asking for the
+native store where it cannot be built is an error, not a switch to the
+Python store.
 
 Concurrency model: one asyncio loop owns all state; the tick's dispatch
 and collect run in an executor thread (the native engine is
@@ -62,6 +74,7 @@ from doorman_tpu_torch import native
 from doorman_tpu_torch.admission.policy import RETRY_AFTER_KEY, Shed
 from doorman_tpu_torch.algorithms import Request
 from doorman_tpu_torch.algorithms.kinds import AlgoKind
+from doorman_tpu_torch.client.connection import Connection
 from doorman_tpu_torch.core.resource import Resource
 from doorman_tpu_torch.proto import doorman_pb2 as pb
 from doorman_tpu_torch.proto import doorman_stream_pb2 as spb
@@ -82,20 +95,66 @@ from doorman_tpu_torch.solver.resident import (
 )
 from doorman_tpu_torch.solver.resident_wide import WideResidentSolver
 from doorman_tpu_torch.utils.backend import device_info, resolve_device
+from doorman_tpu_torch.utils.backoff import (
+    MAX_BACKOFF,
+    MIN_BACKOFF,
+    VERY_LONG_TIME,
+    backoff,
+)
 
 log = logging.getLogger(__name__)
+
+DEFAULT_PRIORITY = 1
+# Matching reference defaults (server.go:42-90).
+DEFAULT_INTERVAL = 1.0
+# How often (at most) GetServerCapacity scans for vanished downstream
+# servers' band-composition entries.
+BAND_SWEEP_INTERVAL = 10.0
+
+# Separator for per-band sub-lease keys. Control characters are rejected
+# by request validation (config.validate_*), so band keys never collide
+# with real clients; \x01 (not NUL) keeps the key a valid C string for
+# the native store engine's interning table.
+_BAND_SEP = "\x01band\x01"
+
+
+def _band_key(server_id: str, priority: int) -> str:
+    """Store key for one priority band of a downstream server's aggregate.
+
+    The reference keeps the full band list on each server record
+    (simulation/server.py:300-306); this design flattens each band into its
+    own sub-lease so the batched solver sees bands as ordinary rows."""
+    return f"{server_id}{_BAND_SEP}{priority}"
+
+
+def default_resource_template() -> pb.ResourceTemplate:
+    """The "*" template an intermediate server starts from
+    (server.go:53-63)."""
+    return pb.ResourceTemplate(
+        identifier_glob="*",
+        capacity=0.0,
+        safe_capacity=0.0,
+        algorithm=pb.Algorithm(
+            kind=pb.Algorithm.FAIR_SHARE,
+            refresh_interval=int(DEFAULT_INTERVAL),
+            lease_length=20,
+            learning_mode_duration=20,
+        ),
+    )
 
 
 class CapacityServer(CapacityServicer):
     """A doorman server, immediate or batch mode, on the Python or the
     native lease store, with its batch tick on `device` ("cuda" by
-    default; "cpu" only when asked)."""
+    default; "cpu" only when asked): a root if `parent_addr` is empty,
+    else an intermediate."""
 
     def __init__(
         self,
         server_id: str,
         election: Election,
         *,
+        parent_addr: str = "",
         mode: str = "immediate",  # "immediate" | "batch"
         tick_interval: float = 1.0,
         clock: Callable[[], float] = time.time,
@@ -135,12 +194,23 @@ class CapacityServer(CapacityServicer):
         self._store_factory = None
         self._reset_store_engine()
         self.resources: Dict[str, Resource] = {}
+        # Band composition of each downstream server's last request,
+        # keyed (resource_id, server_id) -> set of wire priorities; used
+        # to release band sub-leases the server stopped reporting (the
+        # reference replaces the whole band list per request,
+        # simulation/server.py:303-306).
+        self._server_bands: Dict[tuple, set] = {}
+        self._last_band_sweep = 0.0
         self.is_master = False
         self.became_master_at: float = 0.0
         self.mastership_epoch = 0
         self.current_master = ""
         self.config: Optional[pb.ResourceRepository] = None
         self.is_configured = asyncio.Event()
+        self.parent_addr = parent_addr
+        # The updater's channel to the parent (created at its first
+        # exchange).
+        self._parent_conn: Optional[Connection] = None
         self._tasks: List[asyncio.Task] = []
         # At most one tick in flight (see tick_once).
         self._tick_lock = asyncio.Lock()
@@ -218,6 +288,14 @@ class CapacityServer(CapacityServicer):
         self.port = server.add_insecure_port(f"{host}:{port}")
         await server.start()
         self._grpc_server = server
+        if self.parent_addr:
+            # Intermediate servers self-configure from parent grants
+            # (server.go:575-586) and keep refreshing them.
+            await self.load_config(
+                pb.ResourceRepository(resources=[default_resource_template()]),
+                {},
+            )
+            self._tasks.append(asyncio.create_task(self._updater_loop()))
         if tick_loop and self.mode == "batch":
             self._tasks.append(asyncio.create_task(self._tick_loop()))
         if self._streams is not None and self.mode != "batch":
@@ -239,6 +317,8 @@ class CapacityServer(CapacityServicer):
                 pass
         self._tasks.clear()
         await self.election.stop()
+        if self._parent_conn is not None:
+            await self._parent_conn.close()
         if self._grpc_server is not None:
             await self._grpc_server.stop(grace=None)
             self._grpc_server = None
@@ -314,6 +394,7 @@ class CapacityServer(CapacityServicer):
                 # (resuming from their has-baseline).
                 self._streams.terminate_all(self._mastership())
         self.resources = {}
+        self._server_bands = {}
         self._reset_store_engine()
         # The engine was replaced: the resident solver's device tables
         # and any in-flight ticks refer to the old one.
@@ -567,7 +648,8 @@ class CapacityServer(CapacityServicer):
 
     def _fused_invalidate(self, resource_id: Optional[str] = None) -> None:
         """Untracked-writer hook: a store write outside the coalescer's
-        grouped pass (the stream establishment decide) must drop the
+        grouped pass (the stream establishment decide, release paths,
+        GetServerCapacity's band sub-leases, band sweeps) must drop the
         touched row's staged pack — a stale entry would ship a pre-write
         value whose dirty flag the next drain consumes
         (engine.FusedStaging's freshness contract). resource_id=None
@@ -804,10 +886,111 @@ class CapacityServer(CapacityServicer):
         return out
 
     async def GetServerCapacity(self, request, context):
-        await context.abort(
-            grpc.StatusCode.UNIMPLEMENTED,
-            "not yet ported: the intermediate-server role",
-        )
+        """One downstream server's aggregated demand, one sub-lease per
+        (server, priority band): each band is decided as a client of the
+        resource and the response carries the sum of the band grants.
+        (The reference's admission tally and request log are not ported
+        yet.)"""
+        out = pb.GetServerCapacityResponse()
+        if not self.is_master:
+            out.mastership.CopyFrom(self._mastership())
+            return out
+        msg = config_mod.validate_get_server_capacity_request(request)
+        if msg is not None:
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, msg)
+        self._sweep_server_bands()
+        for req in request.resource:
+            # The store keeps the downstream server's band composition
+            # (reference carries sr.wants as the full band list,
+            # simulation/server.py:300-306), so a PRIORITY_BANDS
+            # resource discriminates bands across the tree and this
+            # server's own upstream aggregation re-emits them.
+            bands = list(req.wants) or [
+                pb.PriorityBandAggregate(
+                    priority=DEFAULT_PRIORITY, num_clients=1, wants=0.0
+                )
+            ]
+            wants_total = sum(band.wants for band in bands)
+            has_total = req.has.capacity if req.HasField("has") else 0.0
+            res = self.get_or_create_resource(req.resource_id)
+            key = (req.resource_id, request.server_id)
+            prios = {band.priority for band in bands}
+            for stale in self._server_bands.get(key, set()) - prios:
+                res.release(_band_key(request.server_id, stale))
+            self._server_bands[key] = prios
+            granted, lease = 0.0, None
+            for band in bands:
+                # Per-band has: this server granted the band's previous
+                # lease itself, so the stored value is exact; the
+                # wants-proportional split of the aggregate wire `has`
+                # only seeds bands it has no live record of (the wire
+                # carries one aggregate has per resource).
+                bkey = _band_key(request.server_id, band.priority)
+                prev = res.store.get(bkey)
+                # Missing bands return ZERO_LEASE (expiry 0), so one
+                # expiry check covers both absent and lapsed.
+                if prev.expiry >= self._clock():
+                    has_band = prev.has
+                elif wants_total > 0:
+                    has_band = has_total * (band.wants / wants_total)
+                else:
+                    has_band = has_total / len(bands)
+                lease, res = self._decide(
+                    req.resource_id,
+                    Request(
+                        bkey, has_band, band.wants,
+                        max(band.num_clients, 1),
+                        priority=band.priority,
+                    ),
+                )
+                granted += lease.has
+            # Untracked writes: the band sub-lease decides above bypass
+            # the coalescer's stage (see _fused_invalidate).
+            self._fused_invalidate(req.resource_id)
+            resp = out.response.add()
+            resp.resource_id = req.resource_id
+            resp.gets.expiry_time = int(lease.expiry)
+            resp.gets.refresh_interval = int(lease.refresh_interval)
+            resp.gets.capacity = granted
+            resp.algorithm.CopyFrom(res.template.algorithm)
+            # The template's field, not Resource.safe_capacity(): a
+            # downstream server gets no dynamic per-client fallback.
+            resp.safe_capacity = (
+                res.template.safe_capacity
+                if res.template.HasField("safe_capacity")
+                else 0.0
+            )
+        return out
+
+    def _sweep_server_bands(self) -> None:
+        """Drop (resource, server) band-composition entries whose
+        sub-leases have all expired out of the store: downstream servers
+        that vanished without a ReleaseCapacity would otherwise leak an
+        entry forever. Time-gated: the underlying expiry state only
+        changes as leases lapse, so scanning more than once per interval
+        buys nothing."""
+        now = self._clock()
+        if now - self._last_band_sweep < BAND_SWEEP_INTERVAL:
+            return
+        self._last_band_sweep = now
+        stale = []
+        swept = set()
+        for (resource_id, server_id), prios in self._server_bands.items():
+            res = self.resources.get(resource_id)
+            if res is not None and resource_id not in swept:
+                # has_client counts expired leases as live; sweep them
+                # out first so vanished servers actually disappear even
+                # in immediate mode (where no batch tick cleans stores).
+                res.store.clean()
+                # Untracked removal (see _fused_invalidate).
+                self._fused_invalidate(resource_id)
+                swept.add(resource_id)
+            if res is None or not any(
+                res.store.has_client(_band_key(server_id, p)) for p in prios
+            ):
+                stale.append((resource_id, server_id))
+        for key in stale:
+            del self._server_bands[key]
 
     async def WatchCapacity(self, request, context):
         """Streaming lease push: one subscription request, a stream of
@@ -867,8 +1050,17 @@ class CapacityServer(CapacityServicer):
             await context.abort(grpc.StatusCode.INVALID_ARGUMENT, msg)
         for resource_id in request.resource_id:
             res = self.resources.get(resource_id)
-            if res is not None:
-                res.release(request.client_id)
+            if res is None:
+                continue
+            res.release(request.client_id)
+            # A downstream *server* holds per-band sub-leases; release
+            # them too and forget its band composition.
+            key = (resource_id, request.client_id)
+            for prio in self._server_bands.pop(key, set()):
+                res.release(_band_key(request.client_id, prio))
+            # Untracked write: a staged pack of this row predates the
+            # release (see _fused_invalidate).
+            self._fused_invalidate(resource_id)
         return out
 
     def _decide(self, resource_id: str, request: Request):
@@ -904,6 +1096,116 @@ class CapacityServer(CapacityServicer):
         if lease is None:
             lease = res.decide(request)
         return lease, res
+
+    # ------------------------------------------------------------------
+    # Intermediate-server updater (refresh capacity from the parent)
+    # ------------------------------------------------------------------
+
+    def _build_server_capacity_request(self) -> pb.GetServerCapacityRequest:
+        """Aggregate every local resource into per-band aggregates.
+
+        Clients and downstream servers' bands group by wire priority
+        (simulation/server_state_wrapper.py:305-334), so band structure
+        survives every upstream hop. The current parent lease rides
+        along as `has` so the parent's algorithms see this server as a
+        returning client."""
+        out = pb.GetServerCapacityRequest(server_id=self.id)
+        for resource_id, res in self.resources.items():
+            if res.store.sum_wants > 0:
+                rr = out.resource.add()
+                rr.resource_id = resource_id
+                if res.parent_expiry is not None and res.capacity > 0:
+                    rr.has.capacity = res.capacity
+                    rr.has.expiry_time = int(res.parent_expiry)
+                # One aggregation call per resource (the native store
+                # does it in C: a 1M-lease store must not be walked
+                # per lease on the event loop).
+                for priority, wants, num_clients in (
+                    res.store.band_aggregates()
+                ):
+                    if wants <= 0:
+                        continue
+                    band = rr.wants.add()
+                    band.priority = priority
+                    band.num_clients = max(int(num_clients), 1)
+                    band.wants = wants
+        if not out.resource:
+            # Probe request so the parent link stays warm (server.go:66-79).
+            rr = out.resource.add()
+            rr.resource_id = "*"
+            band = rr.wants.add()
+            band.priority = DEFAULT_PRIORITY
+            band.num_clients = 1
+            band.wants = 0.0
+        return out
+
+    async def _perform_parent_requests(self, retry_number: int):
+        """One GetServerCapacity exchange with the parent: send the
+        aggregated demand, re-template local resources from the grants
+        (server.go:227-323). Returns (next_interval, next_retry_number)."""
+        if self._parent_conn is None:
+            self._parent_conn = Connection(
+                self.parent_addr,
+                minimum_refresh_interval=self.minimum_refresh_interval,
+            )
+        request = self._build_server_capacity_request()
+        try:
+            out = await self._parent_conn.execute(
+                lambda stub: stub.GetServerCapacity(request)
+            )
+        except Exception:
+            log.exception("%s: GetServerCapacity to parent failed", self.id)
+            return (
+                backoff(MIN_BACKOFF, MAX_BACKOFF, retry_number),
+                retry_number + 1,
+            )
+
+        interval = VERY_LONG_TIME
+        templates: List[pb.ResourceTemplate] = []
+        expiry_times: Dict[str, float] = {}
+        for pr in out.response:
+            if pr.resource_id not in self.resources:
+                if pr.resource_id != "*":
+                    log.error(
+                        "%s: response for unknown resource %r",
+                        self.id, pr.resource_id,
+                    )
+                continue
+            expiry_times[pr.resource_id] = float(pr.gets.expiry_time)
+            tpl = pb.ResourceTemplate(
+                identifier_glob=pr.resource_id,
+                capacity=pr.gets.capacity,
+                safe_capacity=pr.safe_capacity,
+            )
+            tpl.algorithm.CopyFrom(pr.algorithm)
+            templates.append(tpl)
+            interval = min(interval, float(pr.gets.refresh_interval))
+        templates.append(default_resource_template())
+        try:
+            # Bumps the config epoch: the next resident tick solves the
+            # whole table and the stream fanout checks every
+            # subscription, as in the reference.
+            await self.load_config(
+                pb.ResourceRepository(resources=templates), expiry_times
+            )
+        except config_mod.ConfigError:
+            log.exception("%s: loading parent-derived config failed", self.id)
+            return (
+                backoff(MIN_BACKOFF, MAX_BACKOFF, retry_number),
+                retry_number + 1,
+            )
+        if (
+            interval < self.minimum_refresh_interval
+            or interval == VERY_LONG_TIME
+        ):
+            interval = self.minimum_refresh_interval
+        return interval, 0
+
+    async def _updater_loop(self) -> None:
+        interval, retry = DEFAULT_INTERVAL, 0
+        while True:
+            await asyncio.sleep(interval)
+            interval, retry = await self._perform_parent_requests(retry)
 
     # ------------------------------------------------------------------
     # Status

@@ -148,9 +148,10 @@ def test_port_server_serves_every_mode_and_store_and_refuses_unported_rpcs():
     """Immediate mode and the Python lease store are the defaults, as in
     the reference; a grouped config loads in batch mode and is refused
     in immediate mode; the BatchSolver ticks a lane resource on either
-    store. GetServerCapacity answers UNIMPLEMENTED (the intermediate
-    server role is not ported), and so does WatchCapacity on a server
-    without `stream_push`, as the reference's does."""
+    store. GetServerCapacity is served (this unconfigured server is not
+    the master, so it answers with a mastership redirect, as the
+    reference's does), and WatchCapacity on a server without
+    `stream_push` answers UNIMPLEMENTED, as the reference's does."""
     from doorman_tpu.proto import doorman_stream_pb2 as spb
     from doorman_tpu_torch.core.store import LeaseStore
     from doorman_tpu_torch.server.config import ConfigError
@@ -181,11 +182,10 @@ def test_port_server_serves_every_mode_and_store_and_refuses_unported_rpcs():
         try:
             async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
                 stub = CapacityStub(ch)
-                with pytest.raises(grpc.aio.AioRpcError) as err:
-                    await stub.GetServerCapacity(
-                        pb.GetServerCapacityRequest(server_id="s")
-                    )
-                assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
+                out = await stub.GetServerCapacity(
+                    pb.GetServerCapacityRequest(server_id="s")
+                )
+                assert out.HasField("mastership") and not out.response
                 with pytest.raises(grpc.aio.AioRpcError) as err:
                     async for _ in stub.WatchCapacity(
                         spb.WatchCapacityRequest()
