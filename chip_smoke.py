@@ -62,6 +62,14 @@ GetServerCapacity answer equals its store's band grants and whose
 grants hold to the f64 oracles (K1/K2 over the lane rows, K3 over the
 PRIORITY_BANDS rows, each against its plain version on those tables).
 
+Last, observability (obs/): the f64 lane cell with the reference's obs
+defaults and every other obs part on (tracer, history, audit, detector, a
+torch.profiler capture of its first ticks) beside its twin with all of
+them off; the audit's flags by class and a corrupted grant it must catch;
+the priority cell under a capture; the device's busy share and each
+kernel's profiler time beside its CUDA-event time; and the server
+binary's /metrics and /debug/status on --debug-port.
+
 Prints one line per phase, the card's name and power limit, one JSON line
 of per-kernel measurements, and last the JSON result line. Exits non-zero
 (and prints no result) without a CUDA device, outside a checkout of the
@@ -72,6 +80,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -695,7 +704,8 @@ async def _drive_server(torch, dtype_name, ticks, quiet, seed, fused=True,
     server = CapacityServer(
         "smoke", TrivialElection(), mode="batch", native_store=True,
         solver_dtype=dtype_name, fused_tick=fused, scoped_solve=True,
-        tick_pipeline_depth=3, tick_interval=1.0, device=DEVICE,
+        tick_pipeline_depth=3, tick_interval=1.0, flightrec_capacity=0,
+        device=DEVICE,
     )
     port = await server.start(0, host="127.0.0.1", tick_loop=False)
     try:
@@ -1014,7 +1024,7 @@ async def _prio_requests(torch, server, port, resources):
         return served + 1
 
 
-async def _drive_prio(torch, dtype_name, ticks, seed):
+async def _drive_prio(torch, dtype_name, ticks, seed, **server_kw):
     import numpy as np
 
     from doorman_tpu_torch.server.config import parse_yaml_config
@@ -1029,6 +1039,7 @@ async def _drive_prio(torch, dtype_name, ticks, seed):
         "smoke-prio", TrivialElection(), mode="batch", native_store=True,
         solver_dtype=dtype_name, fused_tick=True, scoped_solve=True,
         tick_pipeline_depth=3, tick_interval=1.0, device=DEVICE,
+        **{"flightrec_capacity": 0, **server_kw},
     )
     port = await server.start(0, host="127.0.0.1", tick_loop=False)
     try:
@@ -1604,6 +1615,7 @@ WIDE_NARROW_CLIENTS = 50
 WIDE_TICKS = 12
 WIDE_F64_TICKS = 3
 WIDE_QUIET = 8  # > one delivery rotation (5) plus the pipeline's depth
+WIDE_FLIGHTREC = 64  # the wide servers' flight recorder holds every tick
 LANE_MIX_CLIENTS = 20_000
 
 
@@ -1656,7 +1668,8 @@ async def _drive_wide(torch, label, n_wide, clients, dtype_name, ticks,
     server = CapacityServer(
         f"smoke-{label}", TrivialElection(), mode="batch", native_store=True,
         solver_dtype=dtype_name, fused_tick=fused, scoped_solve=True,
-        tick_pipeline_depth=3, tick_interval=1.0, device=DEVICE,
+        tick_pipeline_depth=3, tick_interval=1.0,
+        flightrec_capacity=WIDE_FLIGHTREC, device=DEVICE,
     )
     await server.start(0, host="127.0.0.1", tick_loop=False)
     try:
@@ -1802,6 +1815,29 @@ def _check_wide(torch, run, label, lanes=False):
                 batch=batch, lanes=lanes_present)
 
 
+def _flight_ticks(label, dtype_name, run, ticks):
+    """Each tick's flight record (its wall and its host phase laps, the
+    `wide.*` ones included), and the churn tick with the largest wall of
+    those the p95 covers, named with its largest phases."""
+    recs = run["server"].flightrec.snapshot()
+    check(len(recs) == len(run["walls"]),
+          f"{len(recs)} flight records for {len(run['walls'])} ticks")
+    for i, r in enumerate(recs):
+        top = sorted(r.get("phases", {}).items(), key=lambda kv: -kv[1])
+        say(f"phase {label}[{dtype_name}]: flight record {i} (tick "
+            f"{r['tick']}, {r.get('solve_mode')}): wall {r['wall_ms']:.2f}"
+            f" ms; phases ms " + ", ".join(f"{k} {v:.2f}" for k, v in top))
+    lo = 2 if ticks > 3 else 1
+    i = max(range(lo, ticks), key=lambda k: recs[k]["wall_ms"])
+    top = sorted(recs[i].get("phases", {}).items(), key=lambda kv: -kv[1])
+    spike = {"index": i, "tick": recs[i]["tick"],
+             "wall_ms": recs[i]["wall_ms"],
+             "solve_mode": recs[i].get("solve_mode"),
+             "phases_ms": dict(top[:4])}
+    say(f"phase {label}[{dtype_name}]: largest churn tick: {spike}")
+    return spike
+
+
 def phase_wide(torch, card):
     """bench.py's wide shapes and the lane mix through
     CapacityServer.tick_once: f32, and a few ticks at f64."""
@@ -1843,8 +1879,9 @@ def phase_wide(torch, card):
                     f"resources; host phase ms per tick: " + ", ".join(
                         f"{k} {v * 1000.0 / len(walls):.3f}"
                         for k, v in phases.items() if v > 0))
+                spike = _flight_ticks(label, dtype_name, run, ticks)
                 out[f"{label} {dtype_name}"] = dict(
-                    p50=p50, p95=p95, run=run, check=chk)
+                    p50=p50, p95=p95, run=run, check=chk, spike=spike)
 
     asyncio.run(drive())
     return out
@@ -2046,7 +2083,8 @@ async def _drive_wide_prio(torch, dtype_name, seed):
     server = CapacityServer(
         "smoke-wide-prio", TrivialElection(), mode="batch", native_store=True,
         solver_dtype=dtype_name, fused_tick=True, scoped_solve=True,
-        tick_pipeline_depth=3, tick_interval=1.0, device=DEVICE,
+        tick_pipeline_depth=3, tick_interval=1.0, flightrec_capacity=0,
+        device=DEVICE,
     )
     await server.start(0, host="127.0.0.1", tick_loop=False)
     try:
@@ -2434,7 +2472,8 @@ async def _drive_py(torch, dtype_name, seed):
     ticks = PY_TICKS[dtype_name]
     server = CapacityServer(
         "smoke-py", TrivialElection(), mode="batch", native_store=False,
-        solver_dtype=dtype_name, tick_interval=1.0, device=DEVICE,
+        solver_dtype=dtype_name, tick_interval=1.0, flightrec_capacity=0,
+        device=DEVICE,
     )
     await server.start(0, host="127.0.0.1", tick_loop=False)
     try:
@@ -2475,7 +2514,7 @@ async def _native_priority_part(torch, run, dtype_name):
 
     server = CapacityServer(
         "smoke-py-native", TrivialElection(), mode="batch", native_store=True,
-        solver_dtype=dtype_name, device=DEVICE,
+        solver_dtype=dtype_name, flightrec_capacity=0, device=DEVICE,
     )
     try:
         await server.load_config(parse_yaml_config(_prio_yaml(run["gcap"])))
@@ -2671,7 +2710,7 @@ async def _drive_immediate(torch):
     repo = parse_yaml_config(_imm_yaml())
     dense_cuda.reset_launches()  # the whole phase
     server = CapacityServer("smoke-immediate", TrivialElection(),
-                            clock=clock, device=DEVICE)
+                            clock=clock, flightrec_capacity=0, device=DEVICE)
     check(server.mode == "immediate" and server._store_engine is None,
           "the defaults are not immediate mode on the Python store")
     port = await server.start(0, host="127.0.0.1")
@@ -2965,7 +3004,8 @@ async def _stream_parity(torch):
         s = CapacityServer(
             "parity", TrivialElection(), mode="batch", tick_interval=1.0,
             minimum_refresh_interval=0.0, clock=lambda: t[0],
-            native_store=True, stream_push=push, device=DEVICE)
+            native_store=True, stream_push=push, flightrec_capacity=0,
+            device=DEVICE)
         port = await s.start(0, host="127.0.0.1", tick_loop=False)
         await s.load_config(parse_yaml_config(SP_CONFIG))
         await asyncio.sleep(0)
@@ -3201,6 +3241,7 @@ async def _stream_lane_run(torch, side, scoped, ticks):
             name, TrivialElection(), mode="batch", native_store=True,
             solver_dtype="f32", scoped_solve=scoped, tick_interval=1.0,
             clock=lambda: t[0], stream_push=True, stream_shards=ST_SHARDS,
+            flightrec_capacity=0,
             device=DEVICE)
         side[name] = dict(server=server)
         await server.start(0, host="127.0.0.1", tick_loop=False)
@@ -3353,7 +3394,7 @@ async def _fanout_tier(torch, n_subs):
     server = CapacityServer(
         "fanout", TrivialElection(), mode="batch", tick_interval=1.0,
         minimum_refresh_interval=0.0, native_store=True, stream_push=True,
-        stream_shards=ST_SHARDS, device=DEVICE)
+        stream_shards=ST_SHARDS, flightrec_capacity=0, device=DEVICE)
     await server.start(0, host="127.0.0.1", tick_loop=False)
     try:
         await server.load_config(parse_yaml_config(FT_CONFIG))
@@ -3914,7 +3955,7 @@ async def _drive_tree(torch):
             sid, TrivialElection(), parent_addr=parent, mode="batch",
             native_store=True, tick_interval=TREE_TICK_S,
             minimum_refresh_interval=1.0 if parent else 5.0,
-            stream_push=True, device=DEVICE,
+            stream_push=True, flightrec_capacity=0, device=DEVICE,
         )
 
     dense_cuda.reset_launches()  # the tree path starts here
@@ -4220,6 +4261,7 @@ async def _drive_tree_root(torch, dtype_name, rounds, seed):
     server = CapacityServer(
         "smoke-root", TrivialElection(), mode="batch", native_store=True,
         solver_dtype=dtype_name, tick_interval=1.0, stream_push=tracked,
+        flightrec_capacity=0,
         device=DEVICE,
     )
     port = await server.start(0, host="127.0.0.1", tick_loop=False)
@@ -4384,6 +4426,598 @@ def phase_tree(torch, card):
     return out
 
 
+# -- the last phase: observability (obs/) on the lane and priority cells ------
+
+OBS_WARM, OBS_CHURN = 6, 14  # warm ticks without churn, then 5% churn
+OBS_PROFILE_TICKS = 8  # the lane capture; the priority capture is 4 ticks
+OBS_PRIO_PROFILE_TICKS = 4
+OBS_AUDIT_SAMPLE = 4
+OBS_GAP = 1e-12  # a store-vs-oracle gap above this is a grant fault
+OBS_REPS = 50  # launches a kernel is timed over, by events and profiler
+
+_KERNEL_NAME = re.compile(
+    r"(dense_solve(?:_warp)?_kernel|banded_fill\w*_kernel)<([^>]*)>")
+
+
+def _kernel_label(name: str):
+    """K1 / K2 / K3 for a demangled kernel name from a profiler trace
+    (K2 is K1's template with kFused = true), else None."""
+    m = _KERNEL_NAME.search(name)
+    if m is None:
+        return None
+    if m.group(1).startswith("banded"):
+        return "K3"
+    args = [a.strip() for a in m.group(2).split(",")]
+    return "K2" if len(args) > 2 and args[2] == "true" else "K1"
+
+
+def _trace_summary(path):
+    """From a torch.profiler Chrome trace: the window (first to last
+    event), the device's busy time (the union of its kernel, memcpy and
+    memset intervals) and share of the window, and per kernel label
+    (K1/K2/K3) and per kernel name the launches and device time."""
+    doc = json.loads(Path(path).read_text())
+    evs = [e for e in doc["traceEvents"]
+           if e.get("ph") == "X" and "ts" in e]
+    check(evs, f"profiler trace {path} holds no events")
+    lo = min(float(e["ts"]) for e in evs)
+    hi = max(float(e["ts"]) + float(e.get("dur", 0.0)) for e in evs)
+    dev = sorted(
+        (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+        for e in evs if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, None
+    for a, b in dev:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    by_label, by_name = {}, {}
+    for e in evs:
+        if e.get("cat") != "kernel":
+            continue
+        dur = float(e.get("dur", 0.0))
+        name = e["name"]
+        n = by_name.setdefault(name, [0, 0.0])
+        n[0] += 1
+        n[1] += dur
+        label = _kernel_label(name)
+        if label is not None:
+            k = by_label.setdefault(label, {"launches": 0, "sum_ms": 0.0})
+            k["launches"] += 1
+            k["sum_ms"] += dur / 1e3
+    for k in by_label.values():
+        k["mean_ms"] = k["sum_ms"] / k["launches"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    window_ms = (hi - lo) / 1e3
+    return {
+        "window_ms": window_ms, "busy_ms": busy / 1e3,
+        "busy_share": busy / 1e3 / window_ms if window_ms > 0 else 0.0,
+        "device_events": len(dev), "kernels": by_label,
+        "top_kernels": [{"name": n[:90], "launches": c, "sum_ms": s / 1e3}
+                        for n, (c, s) in top],
+    }
+
+
+async def _drive_obs_lane(torch, obs, tmp, seed=91):
+    """The lane cell at f64 from `seed` (delta tracking on, so full ticks
+    run K2 and scoped ticks K1): OBS_WARM ticks, then OBS_CHURN with 5%
+    churn. `obs`: the tracer, the flight recorder at the reference's 512,
+    the history, the audit every OBS_AUDIT_SAMPLE ticks, the detector and
+    a profiler capture of the first OBS_PROFILE_TICKS ticks; else every
+    obs part off. Launches are counted over the ticks."""
+    import logging
+
+    import numpy as np
+
+    from doorman_tpu_torch.obs import trace as trace_mod
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer
+    from doorman_tpu_torch.solver import dense_cuda
+
+    rng = np.random.default_rng(seed)
+    kw = dict(flightrec_capacity=0)
+    if obs:
+        kw = dict(flightrec_capacity=512, history_dir=str(Path(tmp) / "hist"),
+                  audit_sample=OBS_AUDIT_SAMPLE, detect=True,
+                  profile_dir=str(Path(tmp) / "lane-trace"),
+                  profile_ticks=OBS_PROFILE_TICKS)
+    server = CapacityServer(
+        "smoke-obs" if obs else "smoke-obs-off", TrivialElection(),
+        mode="batch", native_store=True, solver_dtype="f64",
+        fused_tick=True, scoped_solve=True, tick_pipeline_depth=3,
+        tick_interval=1.0, device=DEVICE, **kw,
+    )
+    tracer = trace_mod.default_tracer()
+    if obs:
+        tracer.clear()
+        tracer.enable(capacity=65536)
+        # One log line a confirmed flag (thousands here): the phase
+        # prints the flags by class instead.
+        logging.getLogger("doorman_tpu_torch.obs.audit").setLevel(
+            logging.CRITICAL)
+    await server.start(0, host="127.0.0.1", tick_loop=False)
+    try:
+        await server.load_config(parse_yaml_config(_config_yaml()))
+        resources, rids, cids = _populate(server, rng)
+        solver = server._resident_solver()
+        solver.enable_delta_tracking()
+        seen = _audit_record(server, solver) if obs else None
+        dense_cuda.reset_launches()  # the obs lane path starts here
+        walls, records, capture_ticks, k_at_stop = [], [], None, None
+        for i in range(OBS_WARM + OBS_CHURN):
+            if i >= OBS_WARM:
+                _churn(server._store_engine, rng, rids, cids)
+            t = time.perf_counter()
+            await server.tick_once()
+            walls.append(time.perf_counter() - t)
+            solver.take_changed_rids()
+            if obs:
+                # This tick's record, read now: the audit's error records
+                # (one a flag) push tick records out of the 512 ring.
+                records.append(next(r for r in reversed(
+                    server.flightrec.snapshot()) if "wall_ms" in r))
+            if obs and capture_ticks is None and server.profile_trace:
+                torch.cuda.synchronize()
+                capture_ticks, k_at_stop = i + 1, dict(dense_cuda.LAUNCHES)
+        await server.flush_ticks()
+        torch.cuda.synchronize()
+        launches = dict(dense_cuda.LAUNCHES)  # read just after
+        out = dict(server=server, walls=walls, launches=launches,
+                   records=records, resources=resources,
+                   capture_ticks=capture_ticks,
+                   launches_at_capture_stop=k_at_stop)
+        if obs:
+            out.update(_obs_audit(server, tracer, seen))
+        return out
+    finally:
+        await server.stop()
+        if obs:
+            tracer.disable()
+            tracer.clear()
+
+
+def _audit_gap(detail):
+    """The largest relative gap between the store's grant and the
+    oracle's over one flagged row's reported clients."""
+    gap = 0.0
+    for h, e in zip(detail["has"], detail["expected"]):
+        scale = max(abs(h), abs(e))
+        if scale > 0:
+            gap = max(gap, abs(h - e) / scale)
+    return gap
+
+
+def _audit_record(server, solver):
+    """Instruments the obs lane server for the audit's classes: every
+    confirmed flag (past the auditor's bounded detail list), the ticks
+    it sampled, and the tick after which each row was last written to
+    the store (the resident solver's deliveries)."""
+    import numpy as np
+
+    from doorman_tpu_torch.obs import trace as trace_mod
+
+    aud = server.shadow_audit
+    seen = dict(flags=[], sampled=[], delivered={}, watch=None)
+    hook, sample, apply = aud.on_divergence, aud.maybe_sample, \
+        solver._apply_grants
+
+    def flagged(d):
+        seen["flags"].append(d)
+        hook(d)
+        if d["rid"] == seen["watch"]:
+            # What the server's divergence hook left behind for this
+            # flag, read before later flags push it out of the rings.
+            key = f"audit.divergence: {d['rid']}"
+            seen["watch_records"] = [
+                r for r in server.flightrec.snapshot()[-4:]
+                if str(r.get("error", "")).startswith(key)]
+            seen["watch_instants"] = [
+                e for e in trace_mod.default_tracer().snapshot()[-4:]
+                if e.name == "audit.divergence"
+                and (e.args or {}).get("resource") == d["rid"]]
+
+    aud.on_divergence = flagged
+
+    def sampled(tick, mode, resources):
+        took = sample(tick, mode, resources)
+        if took:
+            seen["sampled"].append(tick)
+        return took
+
+    def delivered(handle, gets):
+        n = apply(handle, gets)
+        tick = solver.ticks + 1  # the applied tick this delivery lands in
+        for rid in np.asarray(handle.rids).tolist():
+            seen["delivered"].setdefault(int(rid), []).append(tick)
+        return n
+
+    aud.maybe_sample = sampled
+    solver._apply_grants = delivered
+    return seen
+
+
+def _audit_classes(server, seen):
+    """Each flag of the ticking run, by why its store row did not match
+    the oracle at two samples: `unwritten` (tick 0 with every reported
+    grant 0: no tick had written the store yet; a tick pipeline deeper
+    than 1 samples tick 0 more than once), `undelivered` (the row was not
+    written between the two samples that confirmed it: the store held
+    the grant of an earlier delivery while the device moved on), or
+    `delivered` (written in between, and still not the oracle's: the
+    grant itself; its gap is held to OBS_GAP)."""
+    out = {"unwritten": [], "undelivered": [], "delivered": []}
+    ticks = seen["sampled"]
+    for d in seen["flags"]:
+        d = dict(d, gap=_audit_gap(d))
+        t = d["tick"]
+        prior = [x for x in ticks[:len(ticks) - ticks[::-1].index(t) - 1]] \
+            if t in ticks else []
+        t_prev = prior[-1] if prior else -1
+        rid = server.resources[d["rid"]].store._rid
+        if t == 0 and not any(d["has"]):
+            out["unwritten"].append(d)
+        elif not any(t_prev < x <= t for x in seen["delivered"].get(rid, ())):
+            out["undelivered"].append(d)
+        else:
+            out["delivered"].append(d)
+    return out
+
+
+def _obs_audit(server, tracer, seen):
+    """After the ticks: the auditor's tally and its flags by class
+    (_audit_classes); the digest's and the audit snapshot's own cost;
+    then one grant of a converged FAIR_SHARE row written 1% high, which
+    the auditor must confirm within two samples, with the flight
+    record's error entry and the audit.divergence instant."""
+    import numpy as np
+
+    from doorman_tpu_torch.algorithms.kinds import AlgoKind
+    from doorman_tpu_torch.algorithms.tick import oracle_row
+    from doorman_tpu_torch.core.resource import algo_kind_for, static_param
+    from doorman_tpu_torch.obs.flightrec import store_digest
+
+    aud = server.shadow_audit
+    aud.drain()
+    ticked = aud.status()
+    classes = _audit_classes(server, seen)
+    n_flags = len(seen["flags"])
+    digest_s = []
+    for _ in range(3):
+        t = time.perf_counter()
+        store_digest(server.resources)
+        digest_s.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    aud.snapshot(server.resources, 0)
+    snapshot_s = time.perf_counter() - t
+    # A converged row: the oracle's next tick equals the store exactly.
+    target = None
+    for rid, res in server.resources.items():
+        if algo_kind_for(res.template) != AlgoKind.FAIR_SHARE:
+            continue
+        rows = res.store.dump_rows()
+        has = np.array([r[3] for r in rows])
+        want = oracle_row(int(AlgoKind.FAIR_SHARE), float(res.capacity),
+                          float(static_param(res.template)),
+                          np.array([r[4] for r in rows]), has,
+                          np.array([r[5] for r in rows], np.float64))
+        pos = np.nonzero(has > 0)[0]
+        if len(pos) and np.array_equal(want, has):
+            target = (rid, rows[pos[0]][0])
+            break
+    check(target is not None, "obs: no converged FAIR_SHARE row to corrupt")
+    rid, client = target
+    store = server.resources[rid].store
+    store.regrant(client, store.get(client).has * 1.01)
+    before = aud.divergences
+    seen["watch"] = rid
+    base = (server._ticks_done // aud.sample + 1) * aud.sample
+    caught_at = None
+    for n, tick in enumerate((base, base + aud.sample), 1):
+        aud.maybe_sample(tick, server._solve_mode(), server.resources)
+        aud.drain()
+        if any(d["rid"] == rid for d in seen["flags"][n_flags:]):
+            caught_at = n
+            break
+    check(caught_at is not None,
+          f"obs: the audit missed the corrupted grant of {rid}/{client}")
+    check(seen.get("watch_records"),
+          f"obs: no flight-record error entry for {rid}")
+    check(seen.get("watch_instants"),
+          f"obs: no audit.divergence instant for {rid}")
+    forced = [dict(d, gap=_audit_gap(d)) for d in seen["flags"][n_flags:]
+              if d["rid"] != rid]
+    return dict(
+        audit=dict(ticked, details=None), classes=classes,
+        digest_ms=float(np.median(digest_s)) * 1e3,
+        audit_snapshot_ms=snapshot_s * 1e3,
+        injected=dict(resource=rid, client=client, caught_at_sample=caught_at,
+                      divergences_added=aud.divergences - before,
+                      others_flagged_by_the_forced_samples=len(forced),
+                      forced_max_gap=max((d["gap"] for d in forced),
+                                         default=0.0)),
+        spans=sum(1 for e in tracer.snapshot() if e.name == "server.tick"),
+    )
+
+
+def _profiled_kernels(torch, lane_server, prio):
+    """K1 and K2 on the f32 lane server's tables and K3 on the f32
+    priority server's (the tables the kernels line timed): OBS_REPS
+    launches queued behind a spin, timed with CUDA events, then the same
+    under the profiler; the profiler's mean device time per launch beside
+    the events' time. Comparison launches: not counted."""
+    import tempfile
+
+    from doorman_tpu_torch.obs.trace import (
+        start_torch_capture,
+        stop_torch_capture,
+    )
+    from doorman_tpu_torch.solver import dense_cuda
+    from doorman_tpu_torch.solver.dense import DenseBatch
+    from doorman_tpu_torch.solver.priority_cuda import alloc_banded_k3
+
+    solver = lane_server._resident
+    cfg = solver._config
+    batch = DenseBatch(
+        wants=solver._wants, has=solver._has, subclients=solver._sub,
+        active=solver._act, capacity=cfg.cap_d, algo_kind=cfg.kind_d,
+        learning=cfg.learn_d, static_capacity=cfg.statc_d,
+    )
+    R = batch.wants.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(4)
+    delivered = (torch.rand(R, generator=g) < 0.2).cuda()
+    prev = solver._has.clone()
+    prev[::3] += 1.0
+    snap = prio["server"]._solver.last_snapshot.priority_part
+    b, nb = snap.batch, snap.num_bands
+    half = torch.where(b.group >= 0, 0.5, 1.0).to(b.capacity.dtype)
+    k3_args = (torch.where(b.active, b.wants, 0),
+               torch.where(b.active, b.weights, 0), b.band, b.active,
+               b.capacity * half, nb)
+    runs = {
+        "K1": lambda: dense_cuda.solve_dense_k1(batch),
+        "K2": lambda: dense_cuda.fused_tick_k2(batch, prev, delivered),
+        "K3": lambda: alloc_banded_k3(*k3_args),
+    }
+    saved = dict(dense_cuda.LAUNCHES)
+    event_ms = {name: _time_ms(torch, fn, reps=OBS_REPS, queued=True)
+                for name, fn in runs.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        # One session; the first records after CUPTI starts can be lost
+        # (a few of 50 in separate sessions), so each kernel runs a few
+        # launches before its queued ones, all of them in the mean.
+        prof = start_torch_capture(tmp)
+        for fn in runs.values():
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            torch.cuda._sleep(20_000_000)
+            for _ in range(OBS_REPS):
+                fn()
+            torch.cuda.synchronize()
+        summ = _trace_summary(stop_torch_capture(prof, tmp))
+    out = {}
+    for name in runs:
+        k = summ["kernels"].get(name, {})
+        check(k.get("launches", 0) > 0,
+              f"obs: the profiler saw no {name} launch; its kernels "
+              f"{summ['kernels']}, top {summ['top_kernels']}")
+        out[name] = {"event_ms": event_ms[name], "profiler_ms": k["mean_ms"],
+                     "profiler_over_event": k["mean_ms"] / event_ms[name],
+                     "profiler_launches": k["launches"],
+                     "launched": OBS_REPS + 5}
+    dense_cuda.LAUNCHES.update(saved)
+    return out
+
+
+async def _obs_binary():
+    """The server binary with --mode batch --native-store --debug-port on
+    a small config, in a process of its own: GetCapacity from three
+    clients, then /metrics and /debug/status fetched while it ticks."""
+    import os
+    import socket
+    import tempfile
+    import urllib.request
+
+    import grpc
+
+    from doorman_tpu_torch.proto import doorman_pb2 as pb
+    from doorman_tpu_torch.proto.grpc_api import CapacityStub
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    def fetch(port, path):
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}{path}", timeout=30) as resp:
+            return resp.read().decode()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Path(tmp) / "cfg.yml"
+        cfg.write_text(_config_yaml())
+        port, dport = free_port(), free_port()
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        with open(Path(tmp) / "server.log", "w+") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "doorman_tpu_torch.cmd.server",
+                 "--config", f"file:{cfg}", "--host", "127.0.0.1",
+                 "--port", str(port), "--debug-port", str(dport),
+                 "--mode", "batch", "--native-store", "--device", DEVICE,
+                 "--tick-interval", "0.2", "--log-level", "warning"],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+            )
+            try:
+                deadline = time.time() + 120.0
+                async with grpc.aio.insecure_channel(
+                        f"127.0.0.1:{port}") as ch:
+                    stub = CapacityStub(ch)
+                    while True:
+                        check(proc.poll() is None and time.time() < deadline,
+                              "obs: the server binary did not come up")
+                        try:
+                            d = await stub.Discovery(pb.DiscoveryRequest(),
+                                                     timeout=1.0)
+                            if d.is_master:
+                                break
+                        except grpc.aio.AioRpcError:
+                            pass
+                        await asyncio.sleep(0.5)
+                    for c in range(3):
+                        req = pb.GetCapacityRequest(client_id=f"c{c}")
+                        for r in range(20):
+                            rr = req.resource.add()
+                            rr.resource_id = f"prop.t{r % 4}.r{r}"
+                            rr.wants, rr.priority = 10.0 + c, 1
+                        await stub.GetCapacity(req)
+                    pages = {}
+                    while time.time() < deadline:
+                        await asyncio.sleep(1.0)
+                        pages = {p: await asyncio.to_thread(fetch, dport, p)
+                                 for p in ("/metrics", "/debug/status")}
+                        if (f"backend: {DEVICE}" in pages["/debug/status"]
+                                and 'component="resident"'
+                                in pages["/metrics"]):
+                            break
+                check(proc.poll() is None, "obs: the server binary exited")
+            except PhaseFailed:
+                log.seek(0)
+                say(log.read()[-4000:])
+                raise
+            finally:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+    metrics, status = pages.get("/metrics", ""), pages.get("/debug/status", "")
+    phases = [ln for ln in metrics.splitlines() if ln.startswith(
+        'doorman_tick_phase_seconds_count{component="resident"')]
+    reqs = [ln for ln in metrics.splitlines() if ln.startswith(
+        'doorman_server_requests_count{method="GetCapacity"}')]
+    check(phases, "obs: /metrics has no doorman_tick_phase_seconds for "
+          "the resident component")
+    check(reqs, "obs: /metrics has no GetCapacity request count")
+    check(f"backend: {DEVICE}" in status,
+          f"obs: /debug/status does not show the backend as {DEVICE}")
+    return {"tick_phase_series": len(phases), "requests": reqs[0],
+            "status_bytes": len(status)}
+
+
+def phase_obs(torch, card, servers, prio):
+    """The obs package on the card: the lane cell at f64 with every obs
+    part on, its twin from the same seed with every part off, the
+    priority cell at f32 under the profiler, the kernels' profiler times
+    beside their CUDA-event times on the kernels line's tables, and the
+    server binary's debug pages."""
+    import tempfile
+
+    import numpy as np
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        on = asyncio.run(_drive_obs_lane(torch, True, tmp))
+        off = asyncio.run(_drive_obs_lane(torch, False, tmp))
+        check(on["server"].profile_trace, "obs: the lane capture wrote no "
+              "profiler trace")
+        lane = _trace_summary(on["server"].profile_trace)
+        check(lane["kernels"].get("K1", {}).get("launches", 0)
+              + lane["kernels"].get("K2", {}).get("launches", 0) > 0,
+              f"obs: the lane trace holds no K1 or K2 launch: {lane}")
+        cap = on["launches_at_capture_stop"]
+        for k in ("K1", "K2"):
+            got = lane["kernels"].get(k, {}).get("launches", 0)
+            check(got == cap[k.lower()],
+                  f"obs: the lane trace holds {got} {k} launches, the "
+                  f"counters {cap[k.lower()]} over the captured ticks")
+        prio_run = asyncio.run(_drive_prio(
+            torch, "f32", OBS_PRIO_PROFILE_TICKS + 1, 92,
+            profile_dir=str(Path(tmp) / "prio-trace"),
+            profile_ticks=OBS_PRIO_PROFILE_TICKS))
+        ptrace = prio_run["server"].profile_trace
+        check(ptrace, "obs: the priority capture wrote no profiler trace")
+        pr = _trace_summary(ptrace)
+        k3 = pr["kernels"].get("K3", {}).get("launches", 0)
+        check(k3 == 38 * OBS_PRIO_PROFILE_TICKS,
+              f"obs: the priority trace holds {k3} K3 launches over "
+              f"{OBS_PRIO_PROFILE_TICKS} ticks, not 38 a tick")
+    kernels = _profiled_kernels(torch, servers["f32"]["server"], prio["f32"])
+    binary = asyncio.run(_obs_binary())
+    won, woff = on["walls"][OBS_WARM:], off["walls"][OBS_WARM:]
+    p50, p95 = _pcts(won)
+    op50, op95 = _pcts(woff)
+    after = won[max(on["capture_ticks"] - OBS_WARM, 0):]
+    a50, a95 = _pcts(after) if after else (float("nan"), float("nan"))
+    say(f"phase obs: lane cell f64, {OBS_WARM} warm + {OBS_CHURN} churn "
+        f"ticks; every obs part on: churn tick p50 {p50:.2f} ms p95 "
+        f"{p95:.2f} ms ({len(after)} churn ticks after the capture closed: "
+        f"p50 {a50:.2f} p95 {a95:.2f}); every part off, same seed: p50 "
+        f"{op50:.2f} ms p95 {op95:.2f} ms; launches on {on['launches']} off "
+        f"{off['launches']}; card {card}")
+    say("phase obs: tick walls ms on " + ", ".join(
+        f"{w * 1e3:.1f}" for w in on["walls"]) + "; off " + ", ".join(
+        f"{w * 1e3:.1f}" for w in off["walls"]))
+    for r in on["records"]:
+        top = sorted(r.get("phases", {}).items(), key=lambda kv: -kv[1])
+        say(f"phase obs: flight record tick {r['tick']} "
+            f"{r.get('solve_mode')}: wall {r['wall_ms']:.2f} ms; phases ms "
+            + ", ".join(f"{k} {v:.2f}" for k, v in top))
+    au = on["audit"]
+    classes = {}
+    for name, flags in on["classes"].items():
+        kinds, ticks = {}, {}
+        for d in flags:
+            kinds[d["kind"]] = kinds.get(d["kind"], 0) + 1
+            ticks[d["tick"]] = ticks.get(d["tick"], 0) + 1
+        classes[name] = dict(count=len(flags), by_lane_kind=kinds,
+                             by_tick=ticks, max_gap=max(
+                                 (d["gap"] for d in flags), default=0.0))
+    say(f"phase obs: store_digest over {len(on['resources'])} resources "
+        f"{on['digest_ms']:.2f} ms a tick; the audit's host snapshot "
+        f"{on['audit_snapshot_ms']:.1f} ms a sampled tick; audit "
+        f"{au['samples']} sampled ticks, {au['compared_resources']} "
+        f"resources compared, {au['divergences']} divergences; by class "
+        f"{classes}; injected: {on['injected']}")
+    bad = [d for d in on["classes"]["delivered"] if d["gap"] > OBS_GAP]
+    check(not bad, f"obs: {len(bad)} flagged rows written between their "
+          f"two samples are above {OBS_GAP} of the oracle (a grant fault): "
+          f"{bad[:3]}")
+    say(f"phase obs: lane capture ({on['capture_ticks']} ticks): window "
+        f"{lane['window_ms']:.1f} ms, device busy {lane['busy_ms']:.3f} ms "
+        f"= {lane['busy_share'] * 100:.3f}%, kernels {lane['kernels']}")
+    say(f"phase obs: priority capture ({OBS_PRIO_PROFILE_TICKS} ticks): "
+        f"window {pr['window_ms']:.1f} ms, device busy {pr['busy_ms']:.3f} "
+        f"ms = {pr['busy_share'] * 100:.3f}%, kernels {pr['kernels']}")
+    say(f"phase obs: top kernels of the lane capture {lane['top_kernels']}")
+    say("phase obs: profiler vs CUDA events, same tables, "
+        f"{OBS_REPS} queued launches: " + ", ".join(
+            f"{k} {v['profiler_ms']:.5f} vs {v['event_ms']:.5f} ms "
+            f"({v['profiler_over_event']:.3f})" for k, v in kernels.items()))
+    say(f"phase obs: the server binary's /metrics and /debug/status: "
+        f"{binary}")
+    out.update(
+        lane_on=dict(p50=p50, p95=p95, after_capture_p50=a50,
+                     after_capture_p95=a95, walls_ms=[w * 1e3 for w in on["walls"]],
+                     launches=on["launches"], capture_ticks=on["capture_ticks"],
+                     tick_spans=on["spans"]),
+        lane_off=dict(p50=op50, p95=op95,
+                      walls_ms=[w * 1e3 for w in off["walls"]],
+                      launches=off["launches"]),
+        digest_ms=on["digest_ms"], audit_snapshot_ms=on["audit_snapshot_ms"],
+        audit=dict(on["audit"], classes=classes),
+        injected=on["injected"], lane_trace=lane, prio_trace=pr,
+        prio_launches=prio_run["launches"],
+        prio_walls_ms=[w * 1e3 for w in prio_run["walls"]],
+        kernels=kernels, binary=binary,
+    )
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4446,6 +5080,8 @@ def main() -> int:
         }
         line["wide"] = _wide_entry(torch, wide)
         line["wide"]["overflow"] = overflow
+        line["wide"]["largest_churn_tick"] = {
+            k: v["spike"] for k, v in wide.items()}
         line["kernels"][0]["batch_dense_lanes"] = batch_lanes
         rt = phase_round_trip(torch, card)
         py = phase_python_store(torch, card)
@@ -4502,6 +5138,23 @@ def main() -> int:
             entry["launches_by_path"].update(adds)
             entry["launches"] += sum(adds.values())
         line["tree"] = tree
+        # Observability: each kernel's launches on the obs lane and
+        # priority runs, and its profiler times beside its CUDA-event
+        # times.
+        obs = phase_obs(torch, card, servers, prio)
+        obs_by = {"obs lane f64": obs["lane_on"]["launches"],
+                  "obs priority f32": obs["prio_launches"]}
+        for key, entry in (("k1", k1), ("k2", k2), ("k3", k3)):
+            adds = {path: n[key] for path, n in obs_by.items()}
+            entry["launches_by_path"].update(adds)
+            entry["launches"] += sum(adds.values())
+            label = key.upper()
+            entry["profiler"] = {
+                "same_tables": obs["kernels"][label],
+                "lane_capture": obs["lane_trace"]["kernels"].get(label),
+                "priority_capture": obs["prio_trace"]["kernels"].get(label),
+            }
+        line["obs"] = {k: v for k, v in obs.items() if k != "kernels"}
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4538,7 +5191,12 @@ def main() -> int:
         f"tree-root round walls s " + ", ".join(
             f"{d} {[round(x, 2) for x in v['round_s']]}"
             for d, v in tree["tree_root"].items())
-        + f"; total {time.perf_counter() - t0:.1f}s")
+        + f"; obs lane f64 p50 {obs['lane_on']['p50']:.2f} ms p95 "
+        f"{obs['lane_on']['p95']:.2f} ms (obs off {obs['lane_off']['p50']:.2f}"
+        f" / {obs['lane_off']['p95']:.2f}), digest "
+        f"{obs['digest_ms']:.1f} ms a tick, device busy "
+        f"{obs['lane_trace']['busy_share'] * 100:.3f}% of the lane capture"
+        f"; total {time.perf_counter() - t0:.1f}s")
     say(card)
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {

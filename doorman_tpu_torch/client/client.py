@@ -8,10 +8,9 @@ minimum_refresh_interval), pushes capacity changes to per-resource queues
 their next read), zeroes capacity when a lease expires during an outage,
 and releases capacity on close.
 
-Port of doorman_tpu/client/client.py. Cut seam: the reference wraps the
-refresh, its GetCapacity and the WatchCapacity establishment in obs/trace
-spans and sends their context as gRPC metadata; the port's obs/trace is
-not ported yet, so this client opens no span and sends no trace metadata.
+Port of doorman_tpu/client/client.py: the refresh, its GetCapacity and
+the WatchCapacity establishment open obs/trace spans and send their
+context as gRPC metadata, as in the reference.
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ import grpc
 
 from doorman_tpu_torch.admission.policy import RETRY_AFTER_KEY
 from doorman_tpu_torch.client.connection import Connection
+from doorman_tpu_torch.obs import trace as trace_mod
 from doorman_tpu_torch.proto import doorman_pb2 as pb
 from doorman_tpu_torch.proto import doorman_stream_pb2 as spb
 from doorman_tpu_torch.utils.backoff import MAX_BACKOFF, MIN_BACKOFF, VERY_LONG_TIME, backoff
@@ -312,6 +312,16 @@ class Client:
         return retry == 0
 
     async def _perform_requests(self, retry_number: int):
+        # The refresh span is the root of one tick's client-side trace;
+        # the RPC child span's context crosses the gRPC hop as metadata,
+        # making the server's handler span this refresh's descendant.
+        with trace_mod.default_tracer().span(
+            "client.refresh", cat="client",
+            args={"client": self.id, "resources": len(self.resources)},
+        ):
+            return await self._refresh_cycle(retry_number)
+
+    async def _refresh_cycle(self, retry_number: int):
         request = pb.GetCapacityRequest(client_id=self.id)
         for resource_id, res in self.resources.items():
             rr = request.resource.add()
@@ -347,10 +357,19 @@ class Client:
         start = time.monotonic()  # doorman: allow[seeded-determinism]
         shed_after: Optional[float] = None
         try:
-            out = await asyncio.wait_for(
-                self.conn.execute(lambda stub: stub.GetCapacity(request)),
-                timeout=bound,
-            )
+            # Metadata resolves inside the lambda, per attempt, under
+            # the RPC span — retries re-send the current context.
+            with trace_mod.default_tracer().span(
+                "client.GetCapacity", cat="client"
+            ):
+                out = await asyncio.wait_for(
+                    self.conn.execute(
+                        lambda stub: stub.GetCapacity(
+                            request, metadata=trace_mod.grpc_metadata()
+                        )
+                    ),
+                    timeout=bound,
+                )
             failed = False
         except grpc.aio.AioRpcError as e:
             failed = True
@@ -606,7 +625,13 @@ class Client:
             log.warning("%s: dial for capacity stream failed", self.id)
             self._watch_fail_backoff()
             return
-        call = self.conn.stub.WatchCapacity(self._watch_request())
+        with trace_mod.default_tracer().span(
+            "client.WatchCapacity", cat="client",
+            args={"client": self.id, "resources": len(self.resources)},
+        ):
+            call = self.conn.stub.WatchCapacity(
+                self._watch_request(), metadata=trace_mod.grpc_metadata()
+            )
         pending: Optional[asyncio.Task] = None
         wake_task: Optional[asyncio.Task] = None
         try:
@@ -689,7 +714,8 @@ class Client:
             try:
                 await self.conn.ensure()
                 self._watch_call = self.conn.stub.WatchCapacity(
-                    self._watch_request()
+                    self._watch_request(),
+                    metadata=trace_mod.grpc_metadata(),
                 )
                 self._watch_last = now
                 out["events"].append("establish")

@@ -4,7 +4,10 @@
         [--mode immediate|batch] [--native-store] [--no-fused-tick] \\
         [--device cuda] [--solver-dtype f32] \\
         [--stream-push [--max-streams-per-band N] [--stream-shards N]] \\
-        [--minimum-refresh-interval S]
+        [--minimum-refresh-interval S] [--debug-port N] \\
+        [--profile-dir DIR [--profile-ticks N]] [--trace [--trace-buffer N]] \\
+        [--flightrec-buffer N] [--flightrec-dir DIR] \\
+        [--history-dir DIR [--history-buffer N]] [--audit-sample K] [--detect]
     python -m doorman_tpu_torch.cmd.server --parent HOST:PORT [...]
 
 Loads the YAML config once (file: source), runs the trivial election
@@ -19,9 +22,13 @@ a GPU must pass --device cpu, which every mode checks); `--native-store`
 backs the stores with the C++ engine and its device-resident tick, whose
 `--no-fused-tick` round-trip variant is kept for baselines and triage.
 `--stream-push` serves WatchCapacity: lease deltas pushed at tick edges.
-Flags not listed here — etcd election and config, persistence,
-admission, the frontend pool, federation, TLS (the server's own and
---parent-tls / --parent-tls-ca), the debug pages — are not ported yet.
+The debug pages (/debug/status, /metrics, /debug/traces, /debug/flightrec,
+...) listen on `--debug-port` (15050; 0 picks one, -1 disables);
+`--profile-dir` writes a torch.profiler Chrome trace of the first
+`--profile-ticks` batch ticks; the other observability flags are the
+reference's. Flags not listed here — etcd election and config,
+persistence, admission, the frontend pool, federation, TLS (the server's
+own and --parent-tls / --parent-tls-ca) — are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +36,15 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import sys
 
+from doorman_tpu_torch.obs.debug import DebugServer, add_status_part
+from doorman_tpu_torch.obs.metrics import (
+    Registry,
+    default_registry,
+    instrument_server,
+)
+from doorman_tpu_torch.obs.trace import default_tracer
 from doorman_tpu_torch.server import config as config_mod
 from doorman_tpu_torch.server.election import TrivialElection
 from doorman_tpu_torch.server.server import CapacityServer
@@ -44,6 +59,9 @@ def make_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--port", type=int, default=15000,
                    help="port to bind the gRPC service to")
+    p.add_argument("--debug-port", type=int, default=15050,
+                   help="port for the debug HTTP pages "
+                        "(0 picks one, -1 disables)")
     p.add_argument("--host", default="[::]", help="address to bind")
     p.add_argument("--server-id", default="",
                    help="this server's id (default: host:port)")
@@ -106,6 +124,57 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--minimum-refresh-interval", type=float, default=5.0,
                    help="floor for client refresh intervals (the "
                         "streams' silent-refresh cadence)")
+    p.add_argument("--profile-dir", default="",
+                   help="batch mode: write a torch.profiler Chrome trace "
+                        "(CPU ops, CUDA kernels and copies) of the first "
+                        "--profile-ticks ticks to this directory")
+    p.add_argument("--profile-ticks", type=int, default=8)
+    p.add_argument("--trace", action="store_true",
+                   help="enable the span tracer: client/server/solver "
+                        "spans land in a ring buffer served at "
+                        "/debug/traces (?format=chrome for Perfetto)")
+    p.add_argument("--trace-buffer", type=int, default=65536,
+                   help="span ring-buffer capacity (with --trace)")
+    p.add_argument("--flightrec-buffer", type=int, default=512,
+                   help="per-tick flight-recorder ring capacity: each "
+                        "tick records phase laps, solve mode, dispatch "
+                        "counts, mastership epoch and a store digest; "
+                        "auto-dumped on an unhandled tick exception and "
+                        "served at /debug/flightrec (0 disables)")
+    p.add_argument("--flightrec-dir", default="",
+                   help="directory for flight-recorder auto-dumps "
+                        "(JSON + Chrome-trace overlay per dump); "
+                        "defaults to $DOORMAN_FLIGHTREC_DIR, empty "
+                        "keeps dumps in-memory only")
+    p.add_argument("--history-dir", default="",
+                   help="durable flight-record history: per-tick "
+                        "records append to checksummed segment files "
+                        "in this directory (torn-tail tolerant) and "
+                        "are replayed at startup, so SLO windows and "
+                        "trajectory deltas span restarts; served at "
+                        "/debug/history and queryable offline with "
+                        "python -m doorman_tpu_torch.cmd.obs (empty "
+                        "disables)")
+    p.add_argument("--history-buffer", type=int, default=4096,
+                   help="history raw-ring capacity (decimated tiers "
+                        "extend past it at bounded memory)")
+    p.add_argument("--audit-sample", type=int, default=0,
+                   help="shadow-oracle audit: every K ticks (and on "
+                        "every solve_mode transition) replay each "
+                        "store's staged inputs through the numpy host "
+                        "oracles off the hot path and compare grants "
+                        "bit-exactly (few-ulp for iterative lanes); a "
+                        "two-strike-confirmed divergence raises the "
+                        "doorman_audit_divergence counter, a flight-"
+                        "recorder error + auto-dump, and a standing "
+                        "failing SLO gate (0 disables)")
+    p.add_argument("--detect", action="store_true",
+                   help="online anomaly detection over the per-tick "
+                        "record streams (tick wall ms, dispatch "
+                        "accounting, scoped rows) with EWMA + MAD "
+                        "robust z-scores; detections land as "
+                        "detect.anomaly trace instants, chrome-overlay "
+                        "tracks and an SLO verdict")
     p.add_argument("--log-level", default="info",
                    help="debug/info/warning/error")
     return p
@@ -119,8 +188,9 @@ def read_config(source: str):
 
 
 async def serve(args: argparse.Namespace, on_started=None) -> None:
-    """Run the server until cancelled. `on_started(server)` fires once the
-    gRPC listener is bound."""
+    """Run the server until cancelled. `on_started(server, debug_server)`
+    fires once the gRPC (and debug, if enabled) listeners are bound —
+    tests and embedders use it to learn the ephemeral ports."""
     if not (args.config or args.parent):
         raise SystemExit("a root server needs --config")
     repo = read_config(args.config) if args.config else None
@@ -139,12 +209,46 @@ async def serve(args: argparse.Namespace, on_started=None) -> None:
         stream_push=args.stream_push,
         max_streams_per_band=args.max_streams_per_band,
         stream_shards=args.stream_shards,
+        profile_dir=args.profile_dir or None,
+        profile_ticks=args.profile_ticks,
+        flightrec_capacity=args.flightrec_buffer,
+        flightrec_dir=args.flightrec_dir or None,
+        history_dir=args.history_dir or None,
+        history_capacity=args.history_buffer,
+        audit_sample=args.audit_sample,
+        detect=args.detect,
         device=args.device,
     )
+    if args.history_dir:
+        log.info("durable history in %s (run %d, replayed %d records)",
+                 args.history_dir, server.history.run,
+                 len(server.history.records()))
+    if args.audit_sample:
+        log.info("shadow-oracle audit every %d ticks", args.audit_sample)
     port = await server.start(args.port, host=args.host)
     log.info("serving gRPC on %s:%d (%s mode, %s store, tick device %s)",
              args.host, port, server.mode,
              "native" if args.native_store else "Python", server.device)
+    if args.trace:
+        default_tracer().enable(capacity=args.trace_buffer)
+        log.info("span tracer enabled (ring %d); see /debug/traces",
+                 args.trace_buffer)
+    debug = None
+    if args.debug_port >= 0:
+        # A fresh registry per serve() call: repeated serves in one
+        # process must not accumulate collectors for dead servers; the
+        # process-global default registry (tick-phase histograms) is
+        # re-exported at scrape time so /metrics stays one surface.
+        registry = instrument_server(server, Registry())
+        registry.add_collector(default_registry().metrics)
+        debug = DebugServer(port=args.debug_port, registry=registry)
+        debug.add_server(server, asyncio.get_running_loop())
+        add_status_part(
+            "flags",
+            lambda: "<pre>" + "\n".join(sys.argv[1:]) + "</pre>",
+        )
+        debug.start()
+        log.info("debug pages on :%d", debug.port)
     if repo is not None:
         await server.load_config(repo)
         log.info("config loaded (%d templates)", len(repo.resources))
@@ -152,10 +256,12 @@ async def serve(args: argparse.Namespace, on_started=None) -> None:
         log.info("intermediate of %s: configured from its grants",
                  args.parent)
     if on_started is not None:
-        on_started(server)
+        on_started(server, debug)
     try:
         await asyncio.Event().wait()
     finally:
+        if debug is not None:
+            debug.stop()
         await server.stop()
 
 

@@ -36,7 +36,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from doorman_tpu_torch.solver.engine import PHASES, PhaseLaps, ceil_to, place
+from doorman_tpu_torch.obs.phases import PhaseRecorder
+from doorman_tpu_torch.solver.engine import PHASES, ceil_to, place
 from doorman_tpu_torch.utils import dispatch as dispatch_mod
 
 __all__ = ["SubscriptionMatcher"]
@@ -162,7 +163,7 @@ class SubscriptionMatcher:
         total = sum(len(self._members[r]) for r in work)
         if total == 0:
             return np.zeros((0, 2), np.int32)
-        ph = PhaseLaps(self.phase_s)
+        ph = PhaseRecorder(self.component, self.phase_s)
         if self._use_device:
             pairs = self._match_device(work, total, ph)
         else:
@@ -185,7 +186,7 @@ class SubscriptionMatcher:
         return np.concatenate(parts) if parts else np.zeros((0, 2), np.int32)
 
     def _match_device(self, work: List[int], total: int,
-                      ph: PhaseLaps) -> np.ndarray:
+                      ph: PhaseRecorder) -> np.ndarray:
         self._sync_device()
         ph.lap("staging")  # incidence scatters / (re)placement
         cpad = _pow2(len(work))

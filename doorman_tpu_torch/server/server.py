@@ -48,11 +48,14 @@ of any width, capacity groups (batch mode only, as in the reference),
 the trivial election, the root and intermediate roles, and the
 Discovery / GetCapacity / GetServerCapacity / ReleaseCapacity /
 WatchCapacity RPCs on the reference's wire service
-(doorman_tpu.Capacity). Cut seams: the parent exchange opens no trace
-span and sends no trace metadata (obs/trace is not ported), and the
-parent is dialed without TLS. Unlike the reference, asking for the
-native store where it cannot be built is an error, not a switch to the
-Python store.
+(doorman_tpu.Capacity), and the reference's observability (obs/): the
+RPC, tick, parent-exchange and fanout trace spans, the request hook and
+request log, the per-tick flight recorder (on by default), the durable
+history, the shadow audit, the anomaly detector, the SLO evaluation, the
+debug pages' status, and a torch.profiler capture of the first
+`profile_ticks` batch ticks (`profile_dir`). Cut seam: the parent is
+dialed without TLS. Unlike the reference, asking for the native store
+where it cannot be built is an error, not a switch to the Python store.
 
 Concurrency model: one asyncio loop owns all state; the tick's dispatch
 and collect run in an executor thread (the native engine is
@@ -76,6 +79,15 @@ from doorman_tpu_torch.algorithms import Request
 from doorman_tpu_torch.algorithms.kinds import AlgoKind
 from doorman_tpu_torch.client.connection import Connection
 from doorman_tpu_torch.core.resource import Resource
+from doorman_tpu_torch.obs import metrics as metrics_mod
+from doorman_tpu_torch.obs import phases as phases_mod
+from doorman_tpu_torch.obs import slo as slo_mod
+from doorman_tpu_torch.obs import trace as trace_mod
+from doorman_tpu_torch.obs.audit import ShadowAuditor
+from doorman_tpu_torch.obs.detect import AnomalyDetector
+from doorman_tpu_torch.obs.flightrec import FlightRecorder, store_digest
+from doorman_tpu_torch.obs.history import HistoryStore
+from doorman_tpu_torch.obs.requests import RequestLog
 from doorman_tpu_torch.proto import doorman_pb2 as pb
 from doorman_tpu_torch.proto import doorman_stream_pb2 as spb
 from doorman_tpu_torch.proto.grpc_api import (
@@ -94,6 +106,7 @@ from doorman_tpu_torch.solver.resident import (
     ResidentOverflow,
 )
 from doorman_tpu_torch.solver.resident_wide import WideResidentSolver
+from doorman_tpu_torch.utils import dispatch as dispatch_mod
 from doorman_tpu_torch.utils.backend import device_info, resolve_device
 from doorman_tpu_torch.utils.backoff import (
     MAX_BACKOFF,
@@ -167,6 +180,15 @@ class CapacityServer(CapacityServicer):
         stream_push: bool = False,
         max_streams_per_band: int = 0,
         stream_shards: int = 1,
+        profile_dir: Optional[str] = None,
+        profile_ticks: int = 8,
+        flightrec_capacity: int = 512,
+        flightrec_dir: Optional[str] = None,
+        history_dir: Optional[str] = None,
+        history_capacity: int = 4096,
+        audit_sample: int = 0,
+        audit_inline: bool = False,
+        detect: bool = False,
         device="cuda",
     ):
         if mode not in ("immediate", "batch"):
@@ -237,7 +259,13 @@ class CapacityServer(CapacityServicer):
         # stores; the resident solver caches its config reads against it.
         self._config_epoch = 0
         self._grpc_server: Optional[grpc.aio.Server] = None
+        # The serving loop (set by start): the debug pages and the
+        # metrics collector snapshot state on it (metrics.call_on_loop).
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
         self.port: Optional[int] = None
+        # The reference's takeover-restore summary; the port restores
+        # nothing (no persist), so status() reports None.
+        self.last_restore: Optional[dict] = None
 
         # Streaming lease push (server/streams.py): clients hold one
         # WatchCapacity stream instead of polling, and the tick-edge
@@ -274,6 +302,67 @@ class CapacityServer(CapacityServicer):
         self._stream_learning_key = None
         self._stream_learning: set = set()
 
+        # Per-tick flight recorder (obs/flightrec.py): one structured
+        # record per tick_once, auto-dumped on an unhandled tick
+        # exception; /debug/flightrec serves the ring on demand.
+        # flightrec_capacity=0 disables.
+        self.flightrec: Optional[FlightRecorder] = (
+            FlightRecorder(
+                flightrec_capacity,
+                component=f"server:{server_id}",
+                clock=clock,
+                dump_dir=flightrec_dir,
+            )
+            if flightrec_capacity > 0
+            else None
+        )
+        # Continuous telemetry, all off by default: the durable history
+        # of the flight records, the shadow auditor (every store
+        # replayed through the numpy host oracles every `audit_sample`
+        # ticks and on solve-mode transitions, off the hot path) and the
+        # anomaly detector (robust z / pinned floors over each record).
+        self.history: Optional[HistoryStore] = (
+            HistoryStore(
+                history_dir,
+                ring=history_capacity,
+                component=f"server:{server_id}",
+                clock=clock,
+            )
+            if history_dir is not None
+            else None
+        )
+        self.shadow_audit: Optional[ShadowAuditor] = (
+            ShadowAuditor(
+                sample=audit_sample,
+                inline=audit_inline,
+                on_divergence=self._on_audit_divergence,
+                clock=clock,
+            )
+            if audit_sample > 0
+            else None
+        )
+        self.detector: Optional[AnomalyDetector] = (
+            AnomalyDetector() if detect else None
+        )
+        self._flight_phase_prev: Dict[str, float] = {}
+        # Dispatch accounting baseline (utils.dispatch is process-global
+        # and monotone; each tick record carries the delta).
+        self._flight_dispatch_prev: Dict[str, int] = {}
+        # Last SLO evaluation (evaluate_slos); status() and /debug/slo
+        # read it. None until the first evaluation.
+        self.last_slo: Optional[dict] = None
+        # Metrics hook; obs.metrics.instrument_server replaces it.
+        self.on_request: Callable[[str, float, bool], None] = lambda *a: None
+        # Always-on request sampling for /debug/requests.
+        self.request_log = RequestLog(clock=self._clock)
+        # torch.profiler capture of the first `profile_ticks` batch
+        # ticks into `profile_dir` (a Chrome trace; Perfetto loads it).
+        self.profile_dir = profile_dir
+        self.profile_ticks = profile_ticks
+        self._profiler = None
+        self._profile_done = False
+        self.profile_trace: Optional[str] = None
+
     # ------------------------------------------------------------------
     # Lifecycle
     # ------------------------------------------------------------------
@@ -283,6 +372,7 @@ class CapacityServer(CapacityServicer):
         """Start serving gRPC and, in batch mode (unless `tick_loop` is
         False, for callers that drive tick_once themselves), the tick
         loop; returns the bound port."""
+        self._loop = asyncio.get_running_loop()
         server = grpc.aio.server()
         add_capacity_servicer(server, self)
         self.port = server.add_insecure_port(f"{host}:{port}")
@@ -306,6 +396,7 @@ class CapacityServer(CapacityServicer):
         return self.port
 
     async def stop(self) -> None:
+        self._stop_profiler()
         if self._streams is not None:
             self._streams.close()
         for t in self._tasks:
@@ -316,6 +407,10 @@ class CapacityServer(CapacityServicer):
             except (asyncio.CancelledError, Exception):
                 pass
         self._tasks.clear()
+        if self.shadow_audit is not None:
+            self.shadow_audit.close()
+        if self.history is not None:
+            self.history.close()
         await self.election.stop()
         if self._parent_conn is not None:
             await self._parent_conn.close()
@@ -516,6 +611,8 @@ class CapacityServer(CapacityServicer):
                 # epilogue on a full tick), so the fanout re-decides
                 # only the subscribers of rows that actually moved.
                 self._resident.enable_delta_tracking()
+            if self.flightrec is not None:
+                self._resident.on_anomaly = self._solver_anomaly
         return self._resident
 
     def _resident_wide_solver(self) -> WideResidentSolver:
@@ -529,7 +626,29 @@ class CapacityServer(CapacityServicer):
                 rotate_ticks=None, tick_interval=self.tick_interval,
                 fused=self._fused_tick, scoped=self._scoped_solve,
             )
+            if self.flightrec is not None:
+                self._resident_wide.on_anomaly = self._solver_anomaly
         return self._resident_wide
+
+    def _solver_anomaly(self, kind: str, detail: dict) -> None:
+        """Tick-engine anomaly hook: an engine-detected invariant at
+        risk (e.g. an out-of-range dirty rid aliasing a live row) lands
+        as a flight-recorder error record BEFORE the engine raises, so
+        the dump explains the tick that died."""
+        fr = self.flightrec
+        if fr is None:
+            return
+        try:
+            fr.record(
+                t=self._clock(),
+                tick=self._ticks_done,
+                is_master=self.is_master,
+                epoch=self.mastership_epoch,
+                error=f"solver_anomaly:{kind}",
+                detail=detail,
+            )
+        except Exception:
+            log.exception("%s: anomaly record failed", self.id)
 
     @property
     def _ticks_done(self) -> int:
@@ -547,14 +666,74 @@ class CapacityServer(CapacityServicer):
         in flight would interleave their in-place updates of the resident
         tables."""
         async with self._tick_lock:
-            await self._tick_once_locked()
-            # Tick-edge stream fanout: push lease deltas to the
-            # WatchCapacity subscribers of the rows this tick moved.
-            self.push_streams()
+            tick_start = self._clock()
+            try:
+                with trace_mod.default_tracer().span(
+                    "server.tick", cat="tick",
+                    args={"server": self.id,
+                          "resources": len(self.resources)},
+                ):
+                    await self._tick_once_locked()
+                    # Tick-edge stream fanout: push lease deltas to the
+                    # WatchCapacity subscribers of the rows this tick
+                    # moved.
+                    self.push_streams()
+            except Exception as exc:
+                # The black box's trigger: an unhandled tick exception
+                # dumps the last N ticks before the error propagates.
+                self._flight_abort(tick_start, exc)
+                raise
+            # Shadow audit BEFORE the flight record so an inline
+            # auditor's fresh divergence count rides this very tick's
+            # record (the executor-backed default may lag a tick; the
+            # counter is cumulative either way).
+            self._audit_step()
+            self._flight_record_tick(tick_start)
 
     async def _tick_once_locked(self) -> None:
         if not self.resources:
             return
+        self._start_profiler()
+        try:
+            await self._tick_body()
+        finally:
+            if (
+                self._profiler is not None
+                and self._ticks_done >= self.profile_ticks
+            ):
+                self._stop_profiler()
+
+    def _start_profiler(self) -> None:
+        """Open the one-shot profiler capture at the first batch tick.
+        Best effort: capture trouble (another session active, no
+        profiler) is logged and never blocks solving."""
+        if not self.profile_dir or self._profiler or self._profile_done:
+            return
+        try:
+            self._profiler = trace_mod.start_torch_capture(self.profile_dir)
+        except Exception:
+            log.exception("%s: profiler capture unavailable", self.id)
+            self._profile_done = True
+
+    def _stop_profiler(self) -> None:
+        """Finish the one-shot capture and write its trace (also on
+        shutdown, so a server stopped mid-window still writes it)."""
+        prof, self._profiler = self._profiler, None
+        if prof is None:
+            return
+        self._profile_done = True
+        try:
+            self.profile_trace = trace_mod.stop_torch_capture(
+                prof, self.profile_dir
+            )
+            log.info(
+                "%s: wrote a torch.profiler trace of %d ticks to %s",
+                self.id, self._ticks_done, self.profile_trace,
+            )
+        except Exception:
+            log.exception("%s: profiler capture failed", self.id)
+
+    async def _tick_body(self) -> None:
         resources = list(self.resources.values())
         loop = asyncio.get_running_loop()
         if not self._native_store:
@@ -634,6 +813,263 @@ class CapacityServer(CapacityServicer):
             for pipe in (self._resident_pipe, self._resident_wide_pipe):
                 await loop.run_in_executor(None, pipe.flush)
 
+    # ------------------------------------------------------------------
+    # Flight recorder, shadow audit, SLO evaluation
+    # ------------------------------------------------------------------
+
+    def _solve_mode(self) -> Optional[str]:
+        """The last tick's solve mode across the active resident paths
+        ("scoped", "full", or "full:<reason>"; None before any resident
+        tick), shared by the flight record and the audit sampler's
+        transition trigger."""
+        solvers = [
+            s
+            for s in (self._resident, self._resident_wide)
+            if s is not None and s.ticks
+        ]
+        if not solvers:
+            return None
+        forced = [
+            s.last_full_reason
+            for s in solvers
+            if s.last_solve_mode == "full" and s.last_full_reason
+        ]
+        if forced:
+            return f"full:{forced[0]}"
+        if any(s.last_solve_mode == "full" for s in solvers):
+            return "full"
+        return "scoped"
+
+    def _audit_step(self) -> None:
+        """Per-tick shadow-audit hook (tick lock held): a cheap
+        predicate, a host-side snapshot when a sample is due, and the
+        oracle replay on the audit executor (inline when asked). Never
+        raises: the auditor observes the plane, it must not fly it."""
+        aud = self.shadow_audit
+        if aud is None or not self.resources:
+            return
+        try:
+            aud.maybe_sample(
+                self._ticks_done, self._solve_mode(), self.resources
+            )
+        except Exception:
+            log.exception("%s: shadow audit sampling failed", self.id)
+
+    def _on_audit_divergence(self, detail: dict) -> None:
+        """A confirmed divergence: the counter, the trace instant, a
+        flight-recorder error record and an auto-dump. Runs on the audit
+        executor (or the tick loop when inline); everything touched here
+        is thread-safe."""
+        metrics_mod.default_registry().counter(
+            "doorman_audit_divergence",
+            "Confirmed shadow-oracle audit divergences (store of "
+            "record vs numpy oracle fixpoint).",
+            labels=("server", "resource"),
+        ).inc(self.id, str(detail.get("rid", "?")))
+        trace_mod.default_tracer().instant(
+            "audit.divergence", cat="audit",
+            args={
+                "server": self.id,
+                "resource": detail.get("rid"),
+                "digest": detail.get("digest"),
+            },
+        )
+        fr = self.flightrec
+        if fr is not None:
+            try:
+                fr.record(
+                    t=self._clock(),
+                    tick=detail.get("tick"),
+                    is_master=self.is_master,
+                    epoch=self.mastership_epoch,
+                    error=(
+                        f"audit.divergence: {detail.get('rid')} store "
+                        f"{detail.get('has')} vs oracle "
+                        f"{detail.get('expected')}"
+                    ),
+                    audit=dict(detail),
+                )
+                fr.dump("audit_divergence")
+            except Exception:
+                log.exception(
+                    "%s: audit divergence dump failed", self.id
+                )
+
+    def _flight_record_tick(self, tick_start: float) -> None:
+        """One structured record per applied tick: wall time, per-phase
+        lap deltas, solve mode and scope, dispatch deltas, the stream
+        fanout's load, the audit and detector counters, and a store
+        digest. O(#resources): the stores keep running sums. The
+        reference's admission, federation, frontend and persist fields
+        are absent, as in the reference when those parts are off."""
+        fr = self.flightrec
+        if fr is None and self.history is None and self.detector is None:
+            return
+        now = self._clock()
+        totals = self._phase_totals()
+        phases = {
+            k: round((v - self._flight_phase_prev.get(k, 0.0)) * 1000.0, 3)
+            for k, v in totals.items()
+            if v - self._flight_phase_prev.get(k, 0.0) > 0
+        }
+        self._flight_phase_prev = totals
+        rec = {
+            "t": now,
+            "tick": self._ticks_done,
+            "wall_ms": round((now - tick_start) * 1000.0, 3),
+            "is_master": self.is_master,
+            "epoch": self.mastership_epoch,
+            "resources": len(self.resources),
+            "digest": store_digest(self.resources),
+        }
+        if phases:
+            rec["phases"] = phases
+        if self._resident is not None:
+            # Fused-window depth of the last resident dispatch.
+            lf = self._resident.last_fused
+            if lf.get("windows") or lf.get("rows"):
+                rec["fused_windows"] = int(lf.get("windows", 0))
+                rec["fused_rows"] = int(lf.get("rows", 0))
+        # Scoped-solve shape of the last resident dispatch(es): narrow
+        # and wide fold (a forced full solve on either is the record's
+        # mode; the scope tallies sum).
+        solvers = [
+            s
+            for s in (self._resident, self._resident_wide)
+            if s is not None and s.ticks
+        ]
+        if solvers:
+            rec["solve_mode"] = self._solve_mode()
+            rec["scoped_rows"] = sum(
+                int(s.last_scope.get("rows", 0)) for s in solvers
+            )
+            rec["scoped_resources"] = sum(
+                int(s.last_scope.get("resources", 0)) for s in solvers
+            )
+        # Dispatch accounting: device dispatches and device->host syncs
+        # this tick asked of the card (process-global counters, so the
+        # narrow and wide paths fold into one delta).
+        dcur = dispatch_mod.snapshot()
+        if self._flight_dispatch_prev:
+            rec["dispatches"] = (
+                dcur["dispatches"]
+                - self._flight_dispatch_prev["dispatches"]
+            )
+            rec["host_syncs"] = (
+                dcur["host_syncs"]
+                - self._flight_dispatch_prev["host_syncs"]
+            )
+        self._flight_dispatch_prev = dcur
+        depth_used = max(
+            len(self._resident_pipe), len(self._resident_wide_pipe)
+        )
+        if depth_used > 1:
+            rec["pipeline_in_flight"] = depth_used
+        if self._streams is not None:
+            # Stream-push load of this tick.
+            st = self._streams.take_tick_stats()
+            rec["subscribers"] = st["subscribers"]
+            rec["deltas_pushed"] = st["deltas_pushed"]
+            rec["push_bytes"] = st["push_bytes"]
+            rec["stream_shards"] = st["stream_shards"]
+            rec["matched_pairs"] = st["matched_pairs"]
+            rec["serialized_bytes"] = st["serialized_bytes"]
+        shards = phases_mod.last_shard_bytes()
+        if shards:
+            rec["shard_bytes"] = {
+                f"{c}/{d}": list(v) for (c, d), v in sorted(shards.items())
+            }
+        if self.shadow_audit is not None:
+            # Cumulative confirmed divergences.
+            rec["audit_divergence"] = self.shadow_audit.divergences
+        if self.detector is not None:
+            try:
+                detections = self.detector.observe(rec)
+            except Exception:
+                detections = []
+                log.exception("%s: anomaly detector failed", self.id)
+            rec["anomalies"] = self.detector.anomalies
+            if detections:
+                rec["anomaly_detections"] = detections
+                for det in detections:
+                    trace_mod.default_tracer().instant(
+                        "detect.anomaly", cat="detect",
+                        args={"server": self.id, **det},
+                    )
+        if fr is not None:
+            fr.record(**rec)
+        if self.history is not None:
+            # History gets its own copy: the recorder stamps seq on its
+            # dict and history stamps hseq/run on this one.
+            self.history.append(dict(rec))
+
+    def _flight_abort(self, tick_start: float, exc: BaseException) -> None:
+        """Record the failed tick and auto-dump the ring. Never raises:
+        the black box must not mask the exception it documents."""
+        fr = self.flightrec
+        if fr is None:
+            return
+        try:
+            now = self._clock()
+            fr.record(
+                t=now,
+                tick=self._ticks_done,
+                wall_ms=round((now - tick_start) * 1000.0, 3),
+                is_master=self.is_master,
+                epoch=self.mastership_epoch,
+                error=f"{type(exc).__name__}: {exc}",
+            )
+            fr.dump("tick_exception")
+        except Exception:
+            log.exception("%s: flight-recorder dump failed", self.id)
+
+    def evaluate_slos(self, registry=None) -> List[dict]:
+        """Evaluate the standing SLO set (obs.slo.server_slos) over the
+        flight-recorder window (the history's, when one is kept) and the
+        request histograms in `registry` (default: the process-global
+        one). Caches the result in `last_slo` for status() and
+        /debug/slo."""
+        samples: Dict[str, list] = {}
+        if self.history is not None:
+            # The durable ring spans process lifetimes, so the tick
+            # budget's window survives a restart.
+            ticks = self.history.series("wall_ms")
+        elif self.flightrec is not None:
+            ticks = [
+                r["wall_ms"]
+                for r in self.flightrec.snapshot()
+                if isinstance(r.get("wall_ms"), (int, float))
+            ]
+        else:
+            ticks = []
+        if ticks:
+            samples["tick_ms"] = ticks
+        scalars: Dict[str, float] = {}
+        specs = slo_mod.server_slos()
+        if self.shadow_audit is not None:
+            # Any confirmed divergence fails the SLO block until the
+            # process is replaced.
+            scalars["audit_divergence"] = float(
+                self.shadow_audit.divergences
+            )
+            specs.append(slo_mod.audit_divergence_spec())
+        if self.detector is not None:
+            scalars["detector_anomalies"] = float(self.detector.anomalies)
+            specs.append(slo_mod.detector_anomaly_spec())
+        inputs = slo_mod.SloInputs(
+            registry=registry or metrics_mod.default_registry(),
+            samples=samples,
+            scalars=scalars,
+            band_tallies={},
+        )
+        verdicts = slo_mod.SloEngine(specs).evaluate(inputs)
+        self.last_slo = {
+            "at": self._clock(),
+            "ok": all(v["status"] != "fail" for v in verdicts),
+            "verdicts": verdicts,
+        }
+        return verdicts
+
     async def _tick_loop(self) -> None:
         while True:
             await asyncio.sleep(self.tick_interval)
@@ -693,9 +1129,17 @@ class CapacityServer(CapacityServicer):
             self._stream_changed_rids()
             return
         try:
-            changed_rids, check_all = self._stream_changed_rids()
-            matched = {} if check_all else self._stream_match(changed_rids)
-            self._streams.on_tick(check_all, matched)
+            with trace_mod.default_tracer().span(
+                "stream.fanout", cat="server",
+                args={"server": self.id,
+                      "subscribers": len(self._streams),
+                      "shards": len(self._streams.shards)},
+            ):
+                changed_rids, check_all = self._stream_changed_rids()
+                matched = (
+                    {} if check_all else self._stream_match(changed_rids)
+                )
+                self._streams.on_tick(check_all, matched)
         except Exception:
             # The changed rids were drained before the fault: re-decide
             # every subscription next tick so no shrunk grant is lost.
@@ -862,105 +1306,152 @@ class CapacityServer(CapacityServicer):
         out.mastership.CopyFrom(self._mastership())
         return out
 
+    def _rpc_span(self, method: str, context, caller: str):
+        """A handler span, parented to the caller's span when the RPC
+        carried trace metadata (the gRPC hop of the trace context)."""
+        tracer = trace_mod.default_tracer()
+        if not tracer.enabled:
+            return trace_mod.NOOP_SPAN
+        return tracer.span(
+            f"server.{method}", cat="server",
+            parent=trace_mod.parent_from_grpc_context(context),
+            args={"server": self.id, "caller": caller,
+                  "is_master": self.is_master},
+        )
+
     async def GetCapacity(self, request, context):
+        start = self._clock()
         out = pb.GetCapacityResponse()
-        if not self.is_master:
-            out.mastership.CopyFrom(self._mastership())
-            return out
-        msg = config_mod.validate_get_capacity_request(request)
-        if msg is not None:
-            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, msg)
-        for req in request.resource:
-            has = req.has.capacity if req.HasField("has") else 0.0
-            lease, res = self._decide(
-                req.resource_id,
-                Request(request.client_id, has, req.wants, 1,
-                        priority=req.priority),
-            )
-            resp = out.response.add()
-            resp.resource_id = req.resource_id
-            resp.gets.expiry_time = int(lease.expiry)
-            resp.gets.refresh_interval = int(lease.refresh_interval)
-            resp.gets.capacity = lease.has
-            resp.safe_capacity = res.safe_capacity()
-        return out
+        err = False
+        with self._rpc_span("GetCapacity", context, request.client_id):
+            try:
+                if not self.is_master:
+                    out.mastership.CopyFrom(self._mastership())
+                    return out
+                msg = config_mod.validate_get_capacity_request(request)
+                if msg is not None:
+                    err = True
+                    await context.abort(grpc.StatusCode.INVALID_ARGUMENT, msg)
+                for req in request.resource:
+                    has = req.has.capacity if req.HasField("has") else 0.0
+                    lease, res = self._decide(
+                        req.resource_id,
+                        Request(request.client_id, has, req.wants, 1,
+                                priority=req.priority),
+                    )
+                    resp = out.response.add()
+                    resp.resource_id = req.resource_id
+                    resp.gets.expiry_time = int(lease.expiry)
+                    resp.gets.refresh_interval = int(lease.refresh_interval)
+                    resp.gets.capacity = lease.has
+                    resp.safe_capacity = res.safe_capacity()
+                return out
+            finally:
+                dur = self._clock() - start
+                self.on_request("GetCapacity", dur, err)
+                self.request_log.record(
+                    "GetCapacity", request.client_id,
+                    [r.resource_id for r in request.resource],
+                    sum(r.wants for r in request.resource),
+                    dur, err,
+                )
 
     async def GetServerCapacity(self, request, context):
         """One downstream server's aggregated demand, one sub-lease per
         (server, priority band): each band is decided as a client of the
         resource and the response carries the sum of the band grants.
-        (The reference's admission tally and request log are not ported
-        yet.)"""
+        (The reference's admission tally is not ported yet.)"""
+        start = self._clock()
         out = pb.GetServerCapacityResponse()
-        if not self.is_master:
-            out.mastership.CopyFrom(self._mastership())
-            return out
-        msg = config_mod.validate_get_server_capacity_request(request)
-        if msg is not None:
-            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, msg)
-        self._sweep_server_bands()
-        for req in request.resource:
-            # The store keeps the downstream server's band composition
-            # (reference carries sr.wants as the full band list,
-            # simulation/server.py:300-306), so a PRIORITY_BANDS
-            # resource discriminates bands across the tree and this
-            # server's own upstream aggregation re-emits them.
-            bands = list(req.wants) or [
-                pb.PriorityBandAggregate(
-                    priority=DEFAULT_PRIORITY, num_clients=1, wants=0.0
-                )
-            ]
-            wants_total = sum(band.wants for band in bands)
-            has_total = req.has.capacity if req.HasField("has") else 0.0
-            res = self.get_or_create_resource(req.resource_id)
-            key = (req.resource_id, request.server_id)
-            prios = {band.priority for band in bands}
-            for stale in self._server_bands.get(key, set()) - prios:
-                res.release(_band_key(request.server_id, stale))
-            self._server_bands[key] = prios
-            granted, lease = 0.0, None
-            for band in bands:
-                # Per-band has: this server granted the band's previous
-                # lease itself, so the stored value is exact; the
-                # wants-proportional split of the aggregate wire `has`
-                # only seeds bands it has no live record of (the wire
-                # carries one aggregate has per resource).
-                bkey = _band_key(request.server_id, band.priority)
-                prev = res.store.get(bkey)
-                # Missing bands return ZERO_LEASE (expiry 0), so one
-                # expiry check covers both absent and lapsed.
-                if prev.expiry >= self._clock():
-                    has_band = prev.has
-                elif wants_total > 0:
-                    has_band = has_total * (band.wants / wants_total)
-                else:
-                    has_band = has_total / len(bands)
-                lease, res = self._decide(
-                    req.resource_id,
-                    Request(
-                        bkey, has_band, band.wants,
-                        max(band.num_clients, 1),
-                        priority=band.priority,
-                    ),
-                )
-                granted += lease.has
-            # Untracked writes: the band sub-lease decides above bypass
-            # the coalescer's stage (see _fused_invalidate).
-            self._fused_invalidate(req.resource_id)
-            resp = out.response.add()
-            resp.resource_id = req.resource_id
-            resp.gets.expiry_time = int(lease.expiry)
-            resp.gets.refresh_interval = int(lease.refresh_interval)
-            resp.gets.capacity = granted
-            resp.algorithm.CopyFrom(res.template.algorithm)
-            # The template's field, not Resource.safe_capacity(): a
-            # downstream server gets no dynamic per-client fallback.
-            resp.safe_capacity = (
-                res.template.safe_capacity
-                if res.template.HasField("safe_capacity")
-                else 0.0
+        err = False
+        with self._rpc_span("GetServerCapacity", context, request.server_id):
+            return await self._get_server_capacity(
+                request, context, out, start, err
             )
-        return out
+
+    async def _get_server_capacity(self, request, context, out, start, err):
+        try:
+            if not self.is_master:
+                out.mastership.CopyFrom(self._mastership())
+                return out
+            msg = config_mod.validate_get_server_capacity_request(request)
+            if msg is not None:
+                err = True
+                await context.abort(grpc.StatusCode.INVALID_ARGUMENT, msg)
+            self._sweep_server_bands()
+            for req in request.resource:
+                # The store keeps the downstream server's band composition
+                # (reference carries sr.wants as the full band list,
+                # simulation/server.py:300-306), so a PRIORITY_BANDS
+                # resource discriminates bands across the tree and this
+                # server's own upstream aggregation re-emits them.
+                bands = list(req.wants) or [
+                    pb.PriorityBandAggregate(
+                        priority=DEFAULT_PRIORITY, num_clients=1, wants=0.0
+                    )
+                ]
+                wants_total = sum(band.wants for band in bands)
+                has_total = req.has.capacity if req.HasField("has") else 0.0
+                res = self.get_or_create_resource(req.resource_id)
+                key = (req.resource_id, request.server_id)
+                prios = {band.priority for band in bands}
+                for stale in self._server_bands.get(key, set()) - prios:
+                    res.release(_band_key(request.server_id, stale))
+                self._server_bands[key] = prios
+                granted, lease = 0.0, None
+                for band in bands:
+                    # Per-band has: this server granted the band's previous
+                    # lease itself, so the stored value is exact; the
+                    # wants-proportional split of the aggregate wire `has`
+                    # only seeds bands it has no live record of (the wire
+                    # carries one aggregate has per resource).
+                    bkey = _band_key(request.server_id, band.priority)
+                    prev = res.store.get(bkey)
+                    # Missing bands return ZERO_LEASE (expiry 0), so one
+                    # expiry check covers both absent and lapsed.
+                    if prev.expiry >= self._clock():
+                        has_band = prev.has
+                    elif wants_total > 0:
+                        has_band = has_total * (band.wants / wants_total)
+                    else:
+                        has_band = has_total / len(bands)
+                    lease, res = self._decide(
+                        req.resource_id,
+                        Request(
+                            bkey, has_band, band.wants,
+                            max(band.num_clients, 1),
+                            priority=band.priority,
+                        ),
+                    )
+                    granted += lease.has
+                # Untracked writes: the band sub-lease decides above bypass
+                # the coalescer's stage (see _fused_invalidate).
+                self._fused_invalidate(req.resource_id)
+                resp = out.response.add()
+                resp.resource_id = req.resource_id
+                resp.gets.expiry_time = int(lease.expiry)
+                resp.gets.refresh_interval = int(lease.refresh_interval)
+                resp.gets.capacity = granted
+                resp.algorithm.CopyFrom(res.template.algorithm)
+                # The template's field, not Resource.safe_capacity(): a
+                # downstream server gets no dynamic per-client fallback.
+                resp.safe_capacity = (
+                    res.template.safe_capacity
+                    if res.template.HasField("safe_capacity")
+                    else 0.0
+                )
+            return out
+        finally:
+            self.on_request("GetServerCapacity", self._clock() - start, err)
+            self.request_log.record(
+                "GetServerCapacity", request.server_id,
+                [r.resource_id for r in request.resource],
+                sum(
+                    band.wants for r in request.resource
+                    for band in r.wants
+                ),
+                self._clock() - start, err,
+            )
 
     def _sweep_server_bands(self) -> None:
         """Drop (resource, server) band-composition entries whose
@@ -999,34 +1490,55 @@ class CapacityServer(CapacityServicer):
         registry owns the stream until it ends with a terminal
         mastership redirect. (The reference's admission gate and
         establishment ramp are not ported yet.)"""
-        if self._streams is None:
-            await context.abort(
-                grpc.StatusCode.UNIMPLEMENTED,
-                "stream push is disabled on this server (--stream-push)",
+        start = self._clock()
+        err = True
+        try:
+            with self._rpc_span("WatchCapacity", context,
+                                request.client_id):
+                if self._streams is None:
+                    await context.abort(
+                        grpc.StatusCode.UNIMPLEMENTED,
+                        "stream push is disabled on this server "
+                        "(--stream-push)",
+                    )
+                if not self.is_master:
+                    out = spb.WatchCapacityResponse()
+                    out.mastership.CopyFrom(self._mastership())
+                    err = False
+                    yield out
+                    return
+                msg = config_mod.validate_get_capacity_request(request)
+                if msg is not None:
+                    await context.abort(
+                        grpc.StatusCode.INVALID_ARGUMENT, msg
+                    )
+                band = max(
+                    (rr.priority for rr in request.resource), default=0
+                )
+                shed: Optional[Shed] = self._streams.check_cap(band)
+                if shed is not None:
+                    # Same wire contract as a shed poll: the pacing hint
+                    # rides trailing metadata.
+                    context.set_trailing_metadata((
+                        (RETRY_AFTER_KEY, f"{shed.retry_after:.3f}"),
+                    ))
+                    await context.abort(
+                        grpc.StatusCode.RESOURCE_EXHAUSTED, shed.reason
+                    )
+                sub = self._streams.subscribe(request)
+                # Bind the new stream into the device matcher's
+                # incidence structure (a point scatter, not a rebuild).
+                self._stream_match_add(sub)
+                err = False
+        finally:
+            dur = self._clock() - start
+            self.on_request("WatchCapacity", dur, err)
+            self.request_log.record(
+                "WatchCapacity", request.client_id,
+                [r.resource_id for r in request.resource],
+                sum(r.wants for r in request.resource),
+                dur, err,
             )
-        if not self.is_master:
-            out = spb.WatchCapacityResponse()
-            out.mastership.CopyFrom(self._mastership())
-            yield out
-            return
-        msg = config_mod.validate_get_capacity_request(request)
-        if msg is not None:
-            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, msg)
-        band = max((rr.priority for rr in request.resource), default=0)
-        shed: Optional[Shed] = self._streams.check_cap(band)
-        if shed is not None:
-            # Same wire contract as a shed poll: the pacing hint rides
-            # trailing metadata.
-            context.set_trailing_metadata((
-                (RETRY_AFTER_KEY, f"{shed.retry_after:.3f}"),
-            ))
-            await context.abort(
-                grpc.StatusCode.RESOURCE_EXHAUSTED, shed.reason
-            )
-        sub = self._streams.subscribe(request)
-        # Bind the new stream into the device matcher's incidence
-        # structure (a point scatter, not a rebuild).
-        self._stream_match_add(sub)
         try:
             while True:
                 out = await sub.queue.get()
@@ -1041,27 +1553,44 @@ class CapacityServer(CapacityServicer):
             self._stream_match_remove(sub)
 
     async def ReleaseCapacity(self, request, context):
+        start = self._clock()
         out = pb.ReleaseCapacityResponse()
-        if not self.is_master:
-            out.mastership.CopyFrom(self._mastership())
+        err = False
+        with self._rpc_span("ReleaseCapacity", context, request.client_id):
+            return await self._release_capacity(
+                request, context, out, start, err
+            )
+
+    async def _release_capacity(self, request, context, out, start, err):
+        try:
+            if not self.is_master:
+                out.mastership.CopyFrom(self._mastership())
+                return out
+            msg = config_mod.validate_release_capacity_request(request)
+            if msg is not None:
+                err = True
+                await context.abort(grpc.StatusCode.INVALID_ARGUMENT, msg)
+            for resource_id in request.resource_id:
+                res = self.resources.get(resource_id)
+                if res is None:
+                    continue
+                res.release(request.client_id)
+                # A downstream *server* holds per-band sub-leases;
+                # release them too and forget its band composition.
+                key = (resource_id, request.client_id)
+                for prio in self._server_bands.pop(key, set()):
+                    res.release(_band_key(request.client_id, prio))
+                # Untracked write: a staged pack of this row predates
+                # the release (see _fused_invalidate).
+                self._fused_invalidate(resource_id)
             return out
-        msg = config_mod.validate_release_capacity_request(request)
-        if msg is not None:
-            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, msg)
-        for resource_id in request.resource_id:
-            res = self.resources.get(resource_id)
-            if res is None:
-                continue
-            res.release(request.client_id)
-            # A downstream *server* holds per-band sub-leases; release
-            # them too and forget its band composition.
-            key = (resource_id, request.client_id)
-            for prio in self._server_bands.pop(key, set()):
-                res.release(_band_key(request.client_id, prio))
-            # Untracked write: a staged pack of this row predates the
-            # release (see _fused_invalidate).
-            self._fused_invalidate(resource_id)
-        return out
+        finally:
+            self.on_request("ReleaseCapacity", self._clock() - start, err)
+            self.request_log.record(
+                "ReleaseCapacity", request.client_id,
+                list(request.resource_id), 0.0,
+                self._clock() - start, err,
+            )
 
     def _decide(self, resource_id: str, request: Request):
         """Produce a lease for one resource request. Immediate mode (and
@@ -1150,9 +1679,18 @@ class CapacityServer(CapacityServicer):
             )
         request = self._build_server_capacity_request()
         try:
-            out = await self._parent_conn.execute(
-                lambda stub: stub.GetServerCapacity(request)
-            )
+            # The metadata is computed inside the lambda, at call time,
+            # so each attempt carries the parent_refresh span context
+            # over the GetServerCapacity hop.
+            with trace_mod.default_tracer().span(
+                "server.parent_refresh", cat="server",
+                args={"server": self.id, "parent": self.parent_addr},
+            ):
+                out = await self._parent_conn.execute(
+                    lambda stub: stub.GetServerCapacity(
+                        request, metadata=trace_mod.grpc_metadata()
+                    )
+                )
         except Exception:
             log.exception("%s: GetServerCapacity to parent failed", self.id)
             return (
@@ -1211,16 +1749,21 @@ class CapacityServer(CapacityServicer):
     # Status
     # ------------------------------------------------------------------
 
-    def _phase_totals(self) -> dict:
-        """Cumulative per-phase seconds of the resident paths; the wide
-        solver's keys are prefixed `wide.`, the stream matcher's
-        `stream.` (the BatchSolver's ride in the `priority` block)."""
-        out = {}
+    def _phase_totals(self) -> Dict[str, float]:
+        """Cumulative per-phase seconds across every active solver path;
+        the wide solver's keys are prefixed `wide.`, the BatchSolver's
+        `batch.` and the stream matcher's `stream.`, so a mixed config
+        reads unambiguously (the same breakdown /metrics carries as the
+        doorman_tick_phase_seconds histograms)."""
+        out: Dict[str, float] = {}
         if self._resident is not None:
             out.update(self._resident.phase_s)
         if self._resident_wide is not None:
             for k, v in self._resident_wide.phase_s.items():
                 out[f"wide.{k}"] = v
+        if self._solver is not None:
+            for k, v in self._solver.phase_s.items():
+                out[f"batch.{k}"] = v
         if self._stream_matcher is not None:
             # The stream fanout's staging/match/download laps.
             for k, v in self._stream_matcher.phase_s.items():
@@ -1228,29 +1771,106 @@ class CapacityServer(CapacityServicer):
                     out[f"stream.{k}"] = v
         return out
 
+    def _last_tick_seconds(self) -> float:
+        return max(
+            (
+                s.last_tick_seconds
+                for s in (self._solver, self._resident, self._resident_wide)
+                if s is not None
+            ),
+            default=0.0,
+        )
+
+    def _backend_platform(self) -> str:
+        """The torch device type the ticks run on ("" before the first
+        tick, as the reference)."""
+        if self._ticks_done <= 0:
+            return ""
+        return self.device.type
+
     def status(self) -> dict:
+        """The reference's status keys (the debug pages, the SLO engine
+        and the flight record read them; parts not ported yet report
+        None, as the reference does when they are off), plus the port's
+        own: store and device, lease count, scope blocks, `phase_s` and
+        the BatchSolver's `priority` block."""
         solver = self._resident
         wide = self._resident_wide
         prio = self._solver
         return {
             "id": self.id,
-            "mode": self.mode,
-            "native_store": self._native_store,
-            "fused_tick": self._fused_tick,
             "is_master": self.is_master,
+            "election": str(self.election),
             "current_master": self.current_master,
+            "mode": self.mode,
+            "backend": self._backend_platform(),
+            "mesh": None,
+            "ticks": self._ticks_done,
+            "tick_pipeline": {
+                "depth": self._tick_pipeline_depth,
+                "in_flight": (
+                    len(self._resident_pipe) + len(self._resident_wide_pipe)
+                ),
+            },
+            "fused_tick": self._fused_tick,
+            "scoped_solve": self._scoped_solve,
+            "solve_scope": {
+                "narrow": (
+                    solver.scope_status() if solver is not None else None
+                ),
+                "wide": wide.scope_status() if wide is not None else None,
+            },
+            "dispatch": dispatch_mod.snapshot(),
+            "fused_staging": (
+                solver.staging.status()
+                if solver is not None and solver.staging is not None
+                else None
+            ),
+            "idle_ticks": solver.idle_ticks if solver is not None else 0,
+            "tick_phase_total_ms": {  # cumulative since start
+                k: round(v * 1000.0, 3)
+                for k, v in self._phase_totals().items()
+            },
+            "last_tick_ms": round(self._last_tick_seconds() * 1000.0, 3),
+            "persist": None,
+            "admission": None,
+            # Streaming lease push (None: stream push off).
+            "streams": (
+                self._streams.status() if self._streams is not None else None
+            ),
+            "frontend": None,
+            "federation": None,
+            "last_restore": self.last_restore,
+            "flightrec": (
+                self.flightrec.status() if self.flightrec is not None else None
+            ),
+            "history": (
+                self.history.status() if self.history is not None else None
+            ),
+            "shadow_audit": (
+                self.shadow_audit.status()
+                if self.shadow_audit is not None
+                else None
+            ),
+            "detector": (
+                self.detector.status() if self.detector is not None else None
+            ),
+            "slo": self.last_slo,
+            "resources": {
+                rid: res.status() for rid, res in self.resources.items()
+            },
+            "config": (
+                config_mod.repository_to_yaml(self.config)
+                if self.config is not None
+                else ""
+            ),
+            "native_store": self._native_store,
             "device": device_info(self.device),
             "solver_dtype": self.solver_dtype,
-            "resources": len(self.resources),
             "leases": (
                 int(self._store_engine.total_leases)
                 if self._store_engine is not None
                 else sum(len(r.store) for r in self.resources.values())
-            ),
-            "ticks": self._ticks_done,
-            "idle_ticks": solver.idle_ticks if solver is not None else 0,
-            "last_tick_seconds": (
-                solver.last_tick_seconds if solver is not None else 0.0
             ),
             "scope": solver.scope_status() if solver is not None else None,
             "wide_scope": wide.scope_status() if wide is not None else None,
@@ -1261,10 +1881,10 @@ class CapacityServer(CapacityServicer):
                 "last_tick_seconds": prio.last_tick_seconds,
                 "phase_s": dict(prio.phase_s),
             },
-            # Streaming lease push (None: stream push off).
-            "streams": (
-                self._streams.status()
-                if self._streams is not None
-                else None
-            ),
         }
+
+    def resource_lease_status(self, resource_id: str):
+        res = self.resources.get(resource_id)
+        if res is None:
+            return None
+        return res.store.lease_status()

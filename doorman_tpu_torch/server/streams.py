@@ -73,7 +73,7 @@ state touched by exactly one thread and all queue enqueues applied back
 on the loop after the shard passes join.
 
 Not ported yet: the frontend pool's push-ring seam (publisher, pooled
-stream ids, worker teardown) and the trace spans.
+stream ids, worker teardown).
 """
 
 from __future__ import annotations
@@ -88,6 +88,7 @@ from doorman_tpu_torch.admission.coalesce import decide_grouped
 from doorman_tpu_torch.admission.policy import Shed
 from doorman_tpu_torch.algorithms import Request
 from doorman_tpu_torch.federation.router import stable_shard
+from doorman_tpu_torch.obs import trace as trace_mod
 from doorman_tpu_torch.proto import doorman_pb2 as pb
 from doorman_tpu_torch.proto import doorman_stream_pb2 as spb
 
@@ -334,30 +335,35 @@ class StreamShard:
         and build the pre-serialized push messages. Returns the built
         messages; the caller enqueues them on the event loop. May run
         on a worker thread — touches only shard-owned state."""
-        # Serialization sharing: identical observable leases of one
-        # row serialize once per shard per tick edge.
-        cache: Dict[tuple, bytes] = {}
-        out_rows: Dict[Subscription, List[bytes]] = {}
-        for sub, rid, lease, safe in items:
-            key = (lease.has, safe, int(lease.refresh_interval))
-            if key == sub.last.get(rid):
-                continue
-            sub.last[rid] = key
-            ck = (rid, lease.has, safe, int(lease.refresh_interval),
-                  int(lease.expiry))
-            chunk = cache.get(ck)
-            if chunk is None:
-                payload = _row(rid, lease, safe).SerializeToString()
-                self.tick_serialized += len(payload)
-                chunk = _frame_row(payload)
-                cache[ck] = chunk
-            else:
-                self.tick_shared += 1
-            out_rows.setdefault(sub, []).append(chunk)
-        return [
-            (sub, self._message_bytes(rows, tick=tick), len(rows))
-            for sub, rows in out_rows.items()
-        ]
+        with trace_mod.default_tracer().span(
+            "stream.shard", cat="server",
+            args={"server": self._server.id, "shard": self.index,
+                  "rows": len(items)},
+        ):
+            # Serialization sharing: identical observable leases of one
+            # row serialize once per shard per tick edge.
+            cache: Dict[tuple, bytes] = {}
+            out_rows: Dict[Subscription, List[bytes]] = {}
+            for sub, rid, lease, safe in items:
+                key = (lease.has, safe, int(lease.refresh_interval))
+                if key == sub.last.get(rid):
+                    continue
+                sub.last[rid] = key
+                ck = (rid, lease.has, safe, int(lease.refresh_interval),
+                      int(lease.expiry))
+                chunk = cache.get(ck)
+                if chunk is None:
+                    payload = _row(rid, lease, safe).SerializeToString()
+                    self.tick_serialized += len(payload)
+                    chunk = _frame_row(payload)
+                    cache[ck] = chunk
+                else:
+                    self.tick_shared += 1
+                out_rows.setdefault(sub, []).append(chunk)
+            return [
+                (sub, self._message_bytes(rows, tick=tick), len(rows))
+                for sub, rows in out_rows.items()
+            ]
 
     # -- termination ---------------------------------------------------
 

@@ -45,9 +45,10 @@ from doorman_tpu_torch.core.snapshot import (
     pack_snapshot,
 )
 from doorman_tpu_torch.native import NativeLeaseStore
+from doorman_tpu_torch.obs.phases import PhaseRecorder
 from doorman_tpu_torch.solver.dense import DenseBatch
 from doorman_tpu_torch.solver.dense_cuda import solve_dense_k1
-from doorman_tpu_torch.solver.engine import PhaseLaps, place
+from doorman_tpu_torch.solver.engine import place
 from doorman_tpu_torch.solver.kernels import solve_tick
 from doorman_tpu_torch.solver.lanes import ITERATIVE_KINDS
 from doorman_tpu_torch.solver.priority import PriorityBatch, solve_priority
@@ -154,12 +155,12 @@ class BatchSolver:
         self._group_caps = dict(group_caps)
 
     def snapshot(
-        self, resources: Iterable[Resource], ph: "PhaseLaps | None" = None
+        self, resources: Iterable[Resource], ph: "PhaseRecorder | None" = None
     ) -> Snapshot:
         """Pack one tick: the lane resources into the lane part (dense
         up to DENSE_MAX_K clients a resource, else an edge list), the
         PRIORITY_BANDS resources into `priority_part`."""
-        ph = ph if ph is not None else PhaseLaps({})
+        ph = ph if ph is not None else PhaseRecorder("batch", {})
         res_list, prio_res = [], []
         for r in resources:
             is_prio = r._decide_kind == AlgoKind.PRIORITY_BANDS
@@ -305,7 +306,7 @@ class BatchSolver:
         return snap
 
     def _snapshot_priority(
-        self, prio_res: List[Resource], ph: "PhaseLaps | None" = None
+        self, prio_res: List[Resource], ph: "PhaseRecorder | None" = None
     ) -> PrioritySnapshot:
         """Dense pack of the PRIORITY_BANDS resources: higher wire
         priority = lower band rank; capacity groups resolved against the
@@ -313,7 +314,7 @@ class BatchSolver:
         per-lease Python objects); Python stores lease by lease, in each
         store's insertion order, keeping the client names for the
         write-back. Both end in the same flat, resource-major arrays."""
-        ph = ph if ph is not None else PhaseLaps({})
+        ph = ph if ph is not None else PhaseRecorder("batch", {})
         R = len(prio_res)
         dtype = self._dtype
         capacity = np.zeros(R, dtype)
@@ -403,7 +404,7 @@ class BatchSolver:
         """Phase 1 (host, in the thread that owns the stores): sweep
         expired leases and pack the snapshot."""
         self._tick_start = self._clock()
-        ph = PhaseLaps(self.phase_s)
+        ph = PhaseRecorder("batch", self.phase_s)
         res_list = list(resources)
         for r in res_list:
             r.store.clean()
@@ -417,7 +418,7 @@ class BatchSolver:
         [R, K] land on the part. On CUDA the dense lane part is one K1
         launch and every banded allocation a K3 launch; the downloads
         end the phase."""
-        ph = PhaseLaps(self.phase_s)
+        ph = PhaseRecorder("batch", self.phase_s)
         part = snap.priority_part
         if part is not None:
             prio_gets = solve_priority(
@@ -452,7 +453,7 @@ class BatchSolver:
         was in flight is preserved, and clients released mid-solve stay
         released; learning-mode segments keep the store's live has.
         `return_grants=False` skips the per-client grant map."""
-        ph = PhaseLaps(self.phase_s)
+        ph = PhaseRecorder("batch", self.phase_s)
         by_id = {r.id: r for r in resources}
         out: Dict[str, Dict[str, float]] = {}
         if snap.engine is not None:

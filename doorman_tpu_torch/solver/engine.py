@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from doorman_tpu_torch.core.resource import Resource, algo_kind_for, static_param
+from doorman_tpu_torch.obs.phases import PhaseRecorder
 from doorman_tpu_torch.utils import dispatch as dispatch_mod
 from doorman_tpu_torch.utils import transfer
 
@@ -43,19 +44,6 @@ PHASES = (
     "sweep", "drain", "config", "pack", "staging", "upload", "solve",
     "fused", "download", "apply", "delta", "rebuild",
 )
-
-
-class PhaseLaps:
-    """Accumulates wall time between laps into a phase_s dict."""
-
-    def __init__(self, phase_s: Dict[str, float]):
-        self._phase_s = phase_s
-        self._t = time.perf_counter()
-
-    def lap(self, name: str) -> None:
-        now = time.perf_counter()
-        self._phase_s[name] = self._phase_s.get(name, 0.0) + (now - self._t)
-        self._t = now
 
 
 def pow2_bucket(n: int, minimum: int = 8) -> int:
@@ -612,7 +600,7 @@ class TickEngineBase:
         run in an executor thread (the native engine is mutex-guarded).
         `config_epoch`: bump whenever templates / learning windows /
         parent leases changed outside the store."""
-        ph = PhaseLaps(self.phase_s)
+        ph = PhaseRecorder(self.component, self.phase_s)
         now = self._clock()
         removed = self._engine.clean_all(now)
         # The sweep dirties rows it does not name: a removal escalates
@@ -659,7 +647,7 @@ class TickEngineBase:
             self.idle_ticks += 1
             self.last_tick_seconds = self._clock() - handle.dispatched_at
             return 0
-        ph = PhaseLaps(self.phase_s)
+        ph = PhaseRecorder(self.component, self.phase_s)
         slab = transfer.land(handle.out)
         n_slots = slab.shape[0] - handle.mask_rows - handle.moved_rows
         gets = slab[: handle.n_sel]
@@ -706,7 +694,7 @@ class TickEngineBase:
     def rebuild(self, resources: Sequence[Resource]) -> None:
         raise NotImplementedError
 
-    def _drain(self, ph: PhaseLaps):
+    def _drain(self, ph: PhaseRecorder):
         raise NotImplementedError
 
     def _drained_empty(self, drained) -> bool:

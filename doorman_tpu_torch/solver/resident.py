@@ -51,10 +51,10 @@ import torch
 
 from doorman_tpu_torch.core.resource import Resource
 from doorman_tpu_torch.core.snapshot import _bucket
+from doorman_tpu_torch.obs.phases import PhaseRecorder
 from doorman_tpu_torch.solver.dense import DenseBatch
 from doorman_tpu_torch.solver.dense_cuda import fused_tick_k2, solve_dense_k1
 from doorman_tpu_torch.solver.engine import (
-    PhaseLaps,
     TickEngineBase,
     TickHandle,
     bf16_bytes,
@@ -251,7 +251,7 @@ class ResidentDenseSolver(TickEngineBase):
 
     # -- drain / pack ---------------------------------------------------
 
-    def _drain(self, ph: PhaseLaps):
+    def _drain(self, ph: PhaseRecorder):
         """Drain the engine's dirty-row flags and resolve them to table
         rows; also consumes the fused pack cache."""
         dirty_rids, full_flags = self._engine.drain_dirty2()

@@ -63,13 +63,13 @@ import torch
 
 from doorman_tpu_torch.core.resource import Resource
 from doorman_tpu_torch.core.snapshot import _bucket
+from doorman_tpu_torch.obs.phases import PhaseRecorder
 from doorman_tpu_torch.solver.dense import (
     ChunkedDenseBatch,
     chunked_reduces,
     solve_chunked,
 )
 from doorman_tpu_torch.solver.engine import (
-    PhaseLaps,
     TickEngineBase,
     TickHandle,
     bf16_bytes,
@@ -233,7 +233,7 @@ class WideResidentSolver(TickEngineBase):
 
     # -- phases -------------------------------------------------------
 
-    def _drain(self, ph: PhaseLaps):
+    def _drain(self, ph: PhaseRecorder):
         """Drain dirty slots of our tracked rids (drain FIRST, then read
         versions, then pack — see StoreEngine.chunk_versions)."""
         W = self._W

@@ -1,0 +1,206 @@
+"""The port's command-line tools: the server binary's observability flags
+and debug pages (the reference's defaults; /metrics and /debug/status
+answering on a loopback port while a batch server on the native store
+ticks), the shell's cases of tests/test_cmd.py (Multiclient, eval_line)
+against a port server, and the offline history tool (`cmd.obs`:
+status / query / delta) over a history that a port server wrote across
+two runs."""
+
+import asyncio
+import json
+import urllib.request
+
+import pytest
+
+import tests.conftest  # noqa: F401
+
+from doorman_tpu.cmd import server as j_cmd
+from doorman_tpu_torch import native
+from doorman_tpu_torch.cmd import client as client_cmd
+from doorman_tpu_torch.cmd import obs as obs_cmd
+from doorman_tpu_torch.cmd import server as t_cmd
+from doorman_tpu_torch.cmd.shell import Multiclient, eval_line
+from doorman_tpu_torch.obs import trace as trace_mod
+
+CONFIG = """
+resources:
+- identifier_glob: "*"
+  capacity: 90
+  algorithm: {kind: FAIR_SHARE, lease_length: 60, refresh_interval: 1,
+              learning_mode_duration: 0}
+"""
+
+OBS_FLAGS = ("debug_port", "profile_dir", "profile_ticks", "trace",
+             "trace_buffer", "flightrec_buffer", "flightrec_dir",
+             "history_dir", "history_buffer", "audit_sample", "detect")
+
+
+def fetch(port, path):
+    with urllib.request.urlopen(
+        f"http://127.0.0.1:{port}{path}", timeout=10
+    ) as resp:
+        return resp.status, resp.read().decode()
+
+
+async def _start_serve(argv):
+    """Run serve() as a task; (task, server, debug) once bound and
+    master."""
+    args = t_cmd.make_parser().parse_args(argv)
+    started = asyncio.get_running_loop().create_future()
+    task = asyncio.create_task(t_cmd.serve(
+        args, on_started=lambda s, d: started.set_result((s, d))
+    ))
+    server, debug = await asyncio.wait_for(started, 10)
+    await asyncio.wait_for(server.wait_until_configured(), 10)
+    for _ in range(100):
+        if server.is_master:
+            break
+        await asyncio.sleep(0.05)
+    server.current_master = f"127.0.0.1:{server.port}"
+    return task, server, debug
+
+
+async def _stop(task):
+    task.cancel()
+    try:
+        await task
+    except (asyncio.CancelledError, Exception):
+        pass
+
+
+def test_obs_flags_have_the_reference_defaults():
+    ref, port = j_cmd.make_parser(), t_cmd.make_parser()
+    for dest in OBS_FLAGS:
+        assert port.get_default(dest) == ref.get_default(dest), dest
+
+
+@pytest.mark.skipif(not native.native_available(),
+                    reason="native engine unavailable")
+def test_batch_native_server_serves_metrics_and_status(tmp_path):
+    """What chip_smoke.py's obs phase checks on the card, here on the
+    CPU: the tick-phase histograms of the resident component and the
+    GetCapacity request count on /metrics, the backend on
+    /debug/status, the flight recorder and the tracer's spans."""
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(CONFIG)
+
+    async def body():
+        task, server, debug = await _start_serve([
+            "--config", f"file:{cfg}", "--port", "0", "--host",
+            "127.0.0.1", "--debug-port", "0", "--device", "cpu",
+            "--mode", "batch", "--native-store", "--tick-interval", "0.05",
+            "--trace", "--trace-buffer", "4096",
+        ])
+        try:
+            addr = f"127.0.0.1:{server.port}"
+            for i in range(3):
+                rc = await client_cmd.run(client_cmd.make_parser().parse_args(
+                    ["--server", addr, "--client-id", f"c{i}", "r0", "30"]
+                ))
+                assert rc == 0
+            for _ in range(200):
+                if server.flightrec.head_seq >= 3:
+                    break
+                await asyncio.sleep(0.05)
+            loop = asyncio.get_running_loop()
+            status, text = await loop.run_in_executor(
+                None, fetch, debug.port, "/metrics"
+            )
+            assert status == 200
+            assert ('doorman_tick_phase_seconds_count{component="resident",'
+                    'phase="fused"}') in text
+            assert 'doorman_server_requests_count{method="GetCapacity"} 3' \
+                in text
+            status, page = await loop.run_in_executor(
+                None, fetch, debug.port, "/debug/status"
+            )
+            assert status == 200 and "backend: cpu" in page
+            assert "flight recorder: head seq" in page
+            status, page = await loop.run_in_executor(
+                None, fetch, debug.port, "/debug/traces?format=chrome"
+            )
+            names = {e["name"] for e in json.loads(page)["traceEvents"]}
+            assert {"server.GetCapacity", "server.tick", "fused"} <= names
+        finally:
+            await _stop(task)
+            trace_mod.default_tracer().disable()
+            trace_mod.default_tracer().clear()
+
+    asyncio.run(body())
+
+
+def test_shell_commands_against_a_port_server(tmp_path):
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(CONFIG)
+
+    async def body():
+        task, server, _ = await _start_serve([
+            "--config", f"file:{cfg}", "--port", "0", "--host",
+            "127.0.0.1", "--debug-port", "-1", "--device", "cpu",
+            "--minimum-refresh-interval", "0",
+        ])
+        try:
+            mc = Multiclient(f"127.0.0.1:{server.port}")
+            out = await eval_line(mc, "get alice r0 50")
+            assert "alice: r0 = " in out
+            out = await eval_line(mc, "get bob r0 60")
+            assert "bob: r0 = " in out
+            out = await eval_line(mc, "show all")
+            assert "alice" in out and "bob" in out
+            assert await eval_line(mc, "master")
+            assert "unknown command" in (await eval_line(mc, "frobnicate"))
+            out = await eval_line(mc, "release alice r0")
+            assert "released" in out
+            assert not server.resources["r0"].store.has_client("alice")
+            await mc.close()
+        finally:
+            await _stop(task)
+
+    asyncio.run(body())
+
+
+def _obs(argv, out_path):
+    args = obs_cmd.make_parser().parse_args(argv + ["--out", str(out_path)])
+    rc = obs_cmd.run(args)
+    return rc, json.loads(out_path.read_text())
+
+
+def test_obs_tool_reads_a_history_a_port_server_wrote(tmp_path):
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(CONFIG)
+    hist = str(tmp_path / "hist")
+
+    async def one_run(ticks):
+        task, server, _ = await _start_serve([
+            "--config", f"file:{cfg}", "--port", "0", "--host",
+            "127.0.0.1", "--debug-port", "-1", "--device", "cpu",
+            "--mode", "batch", "--tick-interval", "3600",
+            "--history-dir", hist,
+        ])
+        try:
+            from doorman_tpu_torch.algorithms import Request
+
+            server._decide("r0", Request("c1", 0.0, 30.0, 1))
+            for _ in range(ticks):
+                await server.tick_once()
+            return server.history.run
+        finally:
+            await _stop(task)
+
+    assert asyncio.run(one_run(5)) == 1
+    assert asyncio.run(one_run(4)) == 2
+    rc, st = _obs(["status", "--history-dir", hist], tmp_path / "s.json")
+    assert rc == 0 and st["runs"] == [1, 2] and st["segments"] == 2
+    rc, view = _obs(
+        ["query", "--history-dir", hist, "--start", "2", "--end", "6",
+         "--field", "wall_ms"],
+        tmp_path / "q.json",
+    )
+    assert rc == 0
+    assert [r["hseq"] for r in view["records"]] == [2, 3, 4, 5, 6]
+    assert all("wall_ms" in r for r in view["records"])
+    rc, delta = _obs(["delta", "--history-dir", hist, "--field", "wall_ms"],
+                     tmp_path / "d.json")
+    assert rc == 0
+    assert delta["run"] == 2 and delta["previous_run"] == 1
+    assert delta["samples"] == 4 and delta["previous_samples"] == 5

@@ -913,8 +913,9 @@ def test_parent_flag_makes_the_cli_server_an_intermediate(tmp_path):
         started = {}
         root_task = asyncio.create_task(t_cmd.serve(
             parser.parse_args(["--config", f"file:{cfg}", "--port", "0",
-                               "--host", "127.0.0.1", "--device", "cpu"]),
-            on_started=lambda s: started.setdefault("root", s),
+                               "--host", "127.0.0.1", "--device", "cpu",
+                               "--debug-port", "-1"]),
+            on_started=lambda s, _d: started.setdefault("root", s),
         ))
         while "root" not in started:
             await asyncio.sleep(0.01)
@@ -922,8 +923,8 @@ def test_parent_flag_makes_the_cli_server_an_intermediate(tmp_path):
         mid_task = asyncio.create_task(t_cmd.serve(
             parser.parse_args(["--parent", root_addr, "--port", "0",
                                "--host", "127.0.0.1", "--device", "cpu",
-                               "--server-id", "mid"]),
-            on_started=lambda s: started.setdefault("mid", s),
+                               "--server-id", "mid", "--debug-port", "-1"]),
+            on_started=lambda s, _d: started.setdefault("mid", s),
         ))
         try:
             while "mid" not in started:

@@ -253,12 +253,14 @@ def test_cli_default_flags_serve_an_immediate_python_store_server(tmp_path):
     cfg.write_text(CONFIG)
     args = t_cmd.make_parser().parse_args(
         ["--config", f"file:{cfg}", "--port", "0", "--host", "127.0.0.1",
-         "--device", "cpu"]
+         "--device", "cpu", "--debug-port", "-1"]
     )
 
     async def scenario():
         started = asyncio.get_running_loop().create_future()
-        task = asyncio.create_task(t_cmd.serve(args, started.set_result))
+        task = asyncio.create_task(t_cmd.serve(
+            args, lambda server, _debug: started.set_result(server)
+        ))
         try:
             server = await asyncio.wait_for(started, 10)
             assert server.mode == "immediate"

@@ -96,7 +96,9 @@ async def _start(server, config):
 
 
 def _port(clock, native_store, **kw):
+    # No flight recorder: it would take the per-tick fanout counters.
     kw.setdefault("minimum_refresh_interval", 0.0)
+    kw.setdefault("flightrec_capacity", 0)
     return TServer("srv", TElection(), mode="batch", tick_interval=1.0,
                    clock=clock, native_store=native_store, device="cpu",
                    **kw)
@@ -618,14 +620,17 @@ def test_cli_stream_flags_match_the_reference_and_serve(tmp_path):
     cfg.write_text(CONFIG)
     args = port.parse_args([
         "--config", f"file:{cfg}", "--port", "0", "--host", "127.0.0.1",
-        "--device", "cpu", "--stream-push", "--max-streams-per-band", "3",
+        "--device", "cpu", "--debug-port", "-1",
+        "--stream-push", "--max-streams-per-band", "3",
         "--stream-shards", "2", "--minimum-refresh-interval", "0",
         "--tick-interval", "0.05",
     ])
 
     async def scenario():
         started = asyncio.get_running_loop().create_future()
-        task = asyncio.create_task(t_cmd.serve(args, started.set_result))
+        task = asyncio.create_task(t_cmd.serve(
+            args, lambda server, _debug: started.set_result(server)
+        ))
         try:
             server = await asyncio.wait_for(started, 10)
             assert server.mode == "immediate"
