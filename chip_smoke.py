@@ -18,7 +18,7 @@ per row up to 256 lanes, a block per row above); each layout of K1, K2
 and K3 is held against the plain version at widths on both sides of
 that line, and the two against each other. Kernel launch counters are
 zeroed just before each path is driven and read just after. Last, the
-f32 lane server runs again on four churn seeds with K1/K2 in each
+f32 lane server runs again on two churn seeds with K1/K2 in each
 layout, and the rows left in the scoped tick's frontier are reported.
 
 Then resources of any width: K3's cluster layout, which spreads a row
@@ -69,6 +69,17 @@ them off; the audit's flags by class and a corrupted grant it must catch;
 the priority cell under a capture; the device's busy share and each
 kernel's profiler time beside its CUDA-event time; and the server
 binary's /metrics and /debug/status on --debug-port.
+
+Last, persistence and warm master takeover (persist/, server/etcd.py,
+server/election.py, server/sources.py): the lane cell at f32 with
+snapshots and a journal beside its persist-off twin, a clean step-down
+and a new master restoring every store row for row and skipping
+learning, its first tick full through K2, then a crash and a takeover
+whose learning window shrinks to the state's age; the priority cell's
+takeover, its first tick 38 K3 launches; and two server binaries under
+an etcd election (tests/fake_etcd.py) with config and state in etcd:
+the master killed, the standby restoring warm and the client's grant
+back, then a config put reaching the master as a full tick.
 
 Prints one line per phase, the card's name and power limit, one JSON line
 of per-kernel measurements, and last the JSON result line. Exits non-zero
@@ -562,7 +573,7 @@ def phase_kernels_k3(torch):
 
 # -- phase 4: the server slice ----------------------------------------------
 
-def _lane_templates(lease_length=3600, refresh=5):
+def _lane_templates(lease_length=3600, refresh=5, learning=0):
     lines = []
     for prefix, kind, variant, _share in LANES:
         for t, cap in enumerate(CAP_TIERS):
@@ -574,18 +585,18 @@ def _lane_templates(lease_length=3600, refresh=5):
                 f"  - identifier_glob: '{prefix}.t{t}.*'\n"
                 f"    capacity: {cap}\n"
                 f"    algorithm: {{kind: {kind}, lease_length: {lease_length},"
-                f" refresh_interval: {refresh}, learning_mode_duration: 0"
-                f"{params}}}"
+                f" refresh_interval: {refresh}, learning_mode_duration:"
+                f" {learning}{params}}}"
             )
     return lines
 
 
-def _config_yaml(lease_length=3600, refresh=5):
-    lines = ["resources:"] + _lane_templates(lease_length, refresh)
+def _config_yaml(lease_length=3600, refresh=5, learning=0):
+    lines = ["resources:"] + _lane_templates(lease_length, refresh, learning)
     lines.append(
         "  - identifier_glob: '*'\n    capacity: 1000\n"
         f"    algorithm: {{kind: 0, lease_length: {lease_length},"
-        f" refresh_interval: {refresh}, learning_mode_duration: 0}}"
+        f" refresh_interval: {refresh}, learning_mode_duration: {learning}}}"
     )
     return "\n".join(lines) + "\n"
 
@@ -624,7 +635,8 @@ def _populate(server, rng):
 
 
 def _churn(engine, rng, rids, cids):
-    """5% of resources refresh with new demand (bench.py's churn)."""
+    """5% of resources refresh with new demand (bench.py's churn);
+    returns the indices of the resources picked."""
     import numpy as np
 
     pick = rng.choice(N_RES, CHURN, replace=False)
@@ -634,6 +646,7 @@ def _churn(engine, rng, rids, cids):
         np.full(n, time.time() + 3600.0), np.full(n, 5.0),
         rng.integers(0, 100, n).astype(np.float64),
     )
+    return pick
 
 
 def _pcts(xs):
@@ -1226,7 +1239,9 @@ def phase_tracked(torch, server):
 
 # -- phase 6: the scope frontier under each K1 layout -------------------------
 
-FRONTIER_SEEDS = (1, 2, 3, 4)
+# Two seeds (cut from four for the run's time), one with each layout
+# first.
+FRONTIER_SEEDS = (1, 2)
 
 
 def phase_frontier(torch):
@@ -2385,7 +2400,8 @@ def phase_round_trip(torch, card):
 PY_PRIO = 1_000
 PY_LANE = 1_000
 PY_GROUP_SIZE = 500
-PY_TICKS = {"f32": 6, "f64": 3}
+# f32 cut from 6 ticks for the run's time.
+PY_TICKS = {"f32": 4, "f64": 3}
 PY_SAMPLE = 200  # lane resources held to the f64 oracles
 
 
@@ -3915,7 +3931,8 @@ TREE_REL = 1e-9
 TR_SERVERS = 100
 TR_LANE = 900
 TR_PRIO = 100
-TR_RUNS = (("f32", 3, 81), ("f64", 2, 82))  # (dtype, rounds, seed)
+# (dtype, rounds, seed); f32 cut from 3 rounds for the run's time.
+TR_RUNS = (("f32", 2, 81), ("f64", 2, 82))
 
 
 def _tree_yaml():
@@ -5018,6 +5035,705 @@ def phase_obs(torch, card, servers, prio):
     return out
 
 
+# -- phase takeover: persistence, warm master takeover, etcd election -------
+
+TK_SNAPSHOT_S = 4.0  # snapshot interval; the fake clock moves 1 s a tick
+TK_CHURN = 5  # A's churn ticks: snapshot beats at ticks 0 and 4
+TK_B_CHURN = 1  # B's churn ticks after its first tick and the pipeline's
+TK_LEARN_S = 30  # the takeover config's learning window
+TK_AGE = 5.0  # the crash takeover's staleness (< TK_LEARN_S)
+TK_C_TICKS = 4  # C's ticks inside its shortened learning window
+TK_PRIO_TICKS = 2  # the priority cell's ticks on each side of its takeover
+TK_BIN_LEARN_S = 5  # the server binary's learning window
+TK_BIN_CAP = (100.0, 30.0)  # the binary's capacity before / after the put
+TK_BIN_WANTS = 40.0
+
+
+class _FakeClock:
+    """One clock for the servers of a takeover: it moves only when the
+    phase moves it."""
+
+    def __init__(self, t):
+        self.t = float(t)
+
+    def __call__(self):
+        return self.t
+
+
+class _Laps:
+    """Wall ms of named calls while installed: each wraps an attribute
+    (a module function, a class method or an instance method) and adds
+    its time under a label; `sizes` keeps the byte length of the first
+    argument where asked (the snapshot a backend writes)."""
+
+    def __init__(self):
+        self.ms = {}
+        self.sizes = []
+        self._undo = []
+
+    def wrap(self, owner, attr, label, size=False):
+        fn = getattr(owner, attr)
+
+        def timed(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.ms[label] = self.ms.get(label, 0.0) + (
+                    time.perf_counter() - t) * 1e3
+                if size:
+                    self.sizes.append(len(args[0]))
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, fn))
+
+    def take(self):
+        out, self.ms = self.ms, {}
+        return out
+
+    def undo(self):
+        for owner, attr, fn in reversed(self._undo):
+            setattr(owner, attr, fn)
+        self._undo = []
+
+
+def _tk_server(name, clock, persist=None, dtype="f32"):
+    """A batch server of the takeover phase: native store, fused scoped
+    tick, depth-3 pipeline, stream push on with no subscriber (delta
+    tracking on, so a full tick launches K2)."""
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer
+
+    return CapacityServer(
+        name, TrivialElection(), mode="batch", native_store=True,
+        solver_dtype=dtype, fused_tick=True, scoped_solve=True,
+        tick_pipeline_depth=3, tick_interval=1.0, flightrec_capacity=0,
+        stream_push=True, clock=clock, persist=persist, device=DEVICE,
+    )
+
+
+def _tk_persist(path, clock, interval=TK_SNAPSHOT_S):
+    from doorman_tpu_torch.persist import PersistManager, parse_backend
+
+    return PersistManager(parse_backend(f"file:{path}"),
+                          snapshot_interval=interval, clock=clock)
+
+
+def _journal_rows(server, resources, pick):
+    """Journal the rows a churn refreshed, as the request path's _decide
+    journals a refresh: the lease as the store holds it."""
+    from doorman_tpu_torch.core.lease import Lease
+
+    record = server._persist.record_assign
+    for i in pick:
+        res = resources[i]
+        for c, e, ri, h, w, sub, pr in res.store.dump_rows():
+            record(res.id, c, Lease(e, ri, h, w, sub, pr))
+
+
+def _dumps(server):
+    return {rid: sorted(res.store.dump_rows())
+            for rid, res in server.resources.items()}
+
+
+def _restored_equal(want, got, summary):
+    """The stores a warm restore rebuilt against the old master's at its
+    step-down: every row equal, except on the resources the restore
+    clamped (restored grants summing past the live capacity are scaled
+    down to it, the reference's documented semantics: NO_ALGORITHM and
+    STATIC rows by design, others by an ulp of rounding), whose rows
+    must be the old ones with `has` scaled by capacity / sum. Returns
+    (differing resource ids, {lane kind: clamped resources})."""
+    info = summary["resources"]
+    bad, clamped = [], {}
+    if set(got) != set(want):
+        bad.append(f"resource sets differ by {len(set(got) ^ set(want))}")
+    for rid, rows in want.items():
+        g = got.get(rid, [])
+        if not info.get(rid, {}).get("clamped"):
+            if g != rows:
+                bad.append(rid)
+            continue
+        kind = rid.split(".")[0]
+        clamped[kind] = clamped.get(kind, 0) + 1
+        cap = info[rid]["capacity"]
+        scale = cap / sum(r[3] for r in rows)
+        if len(g) != len(rows) or any(
+            a[:3] != b[:3] or a[4:] != b[4:]
+            or abs(b[3] - a[3] * scale) > 1e-12 * max(cap, a[3])
+            for a, b in zip(rows, g)
+        ):
+            bad.append(rid)
+    return bad, clamped
+
+
+def _restore_laps(laps, backend):
+    """Wrap the restore's parts: the backend reads, the snapshot decode,
+    the journal parse, load_state (read + decode + parse + replay), the
+    row inserts (the bulk C call inside them) and the re-baseline
+    snapshot."""
+    from doorman_tpu_torch import native, persist
+    from doorman_tpu_torch.persist import restore as restore_mod
+
+    laps.wrap(backend, "read_snapshot", "read")
+    laps.wrap(backend, "read_journal", "read")
+    laps.wrap(restore_mod, "decode", "decode")
+    laps.wrap(restore_mod.journal_mod, "read_records", "journal_parse")
+    laps.wrap(restore_mod, "load_state", "load_state")
+    laps.wrap(restore_mod, "_restore_rows", "rows")
+    laps.wrap(native.StoreEngine, "bulk_assign", "bulk_assign")
+    laps.wrap(persist.PersistManager, "snapshot_now", "rebaseline")
+
+
+def _restore_split(ms, wall_ms):
+    """The restore wall by part: load/decode (the backend reads and the
+    snapshot decode), replay (the journal parse and merge: the rest of
+    load_state), rows (the per-row handles and arrays) and bulk_assign,
+    the re-baseline snapshot, and the rest (template lookups, learning
+    ends, the band map)."""
+    load = ms.get("read", 0.0) + ms.get("decode", 0.0)
+    replay = ms.get("load_state", 0.0) - load
+    rows = ms.get("rows", 0.0) - ms.get("bulk_assign", 0.0)
+    out = {"load_decode": load, "replay": replay, "rows": rows,
+           "bulk_assign": ms.get("bulk_assign", 0.0),
+           "rebaseline": ms.get("rebaseline", 0.0), "wall": wall_ms}
+    out["rest"] = wall_ms - sum(v for k, v in out.items() if k != "wall")
+    return out
+
+
+async def _tk_lane(torch, card, tmp):
+    """The lane cell at f32 with persistence: A beside its persist-off
+    twin, A's clean step-down and B's warm takeover, B's ticks, then B's
+    crash and C's shortened learning window."""
+    import numpy as np
+
+    from doorman_tpu_torch import persist
+    from doorman_tpu_torch.persist import journal as journal_mod
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.solver import dense_cuda
+
+    cfg = parse_yaml_config(_config_yaml(learning=TK_LEARN_S))
+    clock = _FakeClock(time.time())
+    out = {}
+    laps = _Laps()
+    state = Path(tmp) / "lane"
+    pa = _tk_persist(state, clock)
+    a = _tk_server("tk-a", clock, pa)
+    twin = _tk_server("tk-twin", clock)
+    sides = {}
+    for name, server in (("a", a), ("twin", twin)):
+        await server.load_config(cfg)
+        # Out of learning mode before the leases exist: this cell's
+        # masters have held their leases for an hour.
+        server.became_master_at = clock() - 3600.0
+        rng = np.random.default_rng(31)
+        resources, rids, cids = _populate(server, rng)
+        sides[name] = dict(server=server, rng=rng, resources=resources,
+                           rids=rids, cids=cids, walls=[], journal_ms=[])
+    check(a.last_restore["mode"] == "cold_empty",
+          f"takeover: A's first mastership restored {a.last_restore}")
+    say(f"phase takeover: lane cell f32, A (persist file:, snapshot every "
+        f"{TK_SNAPSHOT_S:g} s) and its persist-off twin, "
+        f"{a._store_engine.total_leases} leases each; card {card}")
+    laps.wrap(persist, "take_snapshot", "dump_rows")
+    laps.wrap(persist, "encode", "encode")
+    laps.wrap(pa.backend, "write_snapshot", "write", size=True)
+    laps.wrap(journal_mod.Journal, "flush", "journal_flush")
+    snaps = []
+    dense_cuda.reset_launches()  # A's path starts here
+    launches = {}
+    for i in range(TK_CHURN):
+        for name in ("a", "twin"):
+            sd = sides[name]
+            server = sd["server"]
+            pick = _churn(server._store_engine, sd["rng"], sd["rids"],
+                          sd["cids"])
+            if server is a:
+                t = time.perf_counter()
+                _journal_rows(a, sd["resources"], pick)
+                sd["journal_ms"].append((time.perf_counter() - t) * 1e3)
+                laps.take()
+                n_sizes = len(laps.sizes)
+            t = time.perf_counter()
+            await server.tick_once()
+            sd["walls"].append(time.perf_counter() - t)
+            if server is a:
+                parts = laps.take()
+                sd.setdefault("flush_ms", []).append(
+                    parts.get("journal_flush", 0.0))
+                if len(laps.sizes) > n_sizes:
+                    snaps.append(dict(
+                        tick=i, wall_ms=sd["walls"][-1] * 1e3,
+                        bytes=laps.sizes[-1],
+                        **{k: parts.get(k, 0.0)
+                           for k in ("dump_rows", "encode", "write")}))
+        if i == TK_CHURN - 1:
+            torch.cuda.synchronize()
+            launches["a"] = dict(dense_cuda.LAUNCHES)
+        clock.t += 1.0
+    check(len(snaps) >= 2,
+          f"takeover: snapshot beats inside the churn ticks {snaps}")
+    for name in ("a", "twin"):
+        sd = sides[name]
+        sd["p50"], sd["p95"] = _pcts(sd["walls"])
+    say(f"phase takeover: {TK_CHURN} churn ticks (journaled on A: "
+        f"{np.mean(sides['a']['journal_ms']):.1f} ms a tick to record "
+        f"{CHURN * N_CLIENTS} refreshed rows, flush "
+        f"{np.mean(sides['a']['flush_ms']):.2f} ms a tick): A tick p50 "
+        f"{sides['a']['p50']:.2f} ms p95 {sides['a']['p95']:.2f} ms, twin "
+        f"p50 {sides['twin']['p50']:.2f} ms p95 {sides['twin']['p95']:.2f} "
+        f"ms; A walls ms {[round(w * 1e3, 1) for w in sides['a']['walls']]}"
+        f", twin {[round(w * 1e3, 1) for w in sides['twin']['walls']]}; "
+        f"launches on A and the twin {launches['a']}; card {card}")
+    for sn in snaps:
+        say(f"phase takeover: snapshot tick {sn['tick']}: wall "
+            f"{sn['wall_ms']:.1f} ms; snapshot_now dump_rows "
+            f"{sn['dump_rows']:.1f} ms, encode {sn['encode']:.1f} ms, write "
+            f"{sn['write']:.1f} ms, {sn['bytes']} bytes")
+    await twin.stop()
+    # A's clean step-down: the in-flight ticks land, a final snapshot
+    # beat, one more journaled churn (no tick), its flush, the marker.
+    await a.flush_ticks()
+    clock.t += TK_SNAPSHOT_S
+    a.persist_step()
+    sd = sides["a"]
+    pick = _churn(a._store_engine, sd["rng"], sd["rids"], sd["cids"])
+    _journal_rows(a, sd["resources"], pick)
+    a.persist_step()
+    check(pa.journal.pending == 0 and pa.journal.flushed_records > 0,
+          "takeover: A's post-snapshot journal did not flush")
+    want = _dumps(a)
+    n_leases = sum(len(v) for v in want.values())
+    await a._on_is_master(False)
+    await a.stop()
+    laps.undo()
+
+    # B: same config, clock and backend; the restore runs inside its
+    # first mastership (load_config enters the trivial election).
+    clock.t += 1.0
+    pb_ = _tk_persist(state, clock, interval=3600.0)
+    b = _tk_server("tk-b", clock, pb_)
+    _restore_laps(laps, pb_.backend)
+    t = time.perf_counter()
+    await b.load_config(cfg)
+    b_wall = (time.perf_counter() - t) * 1e3
+    b_split = _restore_split(laps.take(), b_wall)
+    laps.undo()
+    lr = b.last_restore
+    check(lr is not None and lr["mode"] == "warm" and lr["clean_down"],
+          f"takeover: B's restore {lr and {k: lr[k] for k in ('mode', 'clean_down', 'detail')}}")
+    check(lr["leases_restored"] == n_leases,
+          f"takeover: B restored {lr['leases_restored']} of {n_leases}")
+    learning = {v["learning"] for v in lr["resources"].values()}
+    check(learning == {"skip"}, f"takeover: B's learning {learning}")
+    check(not any(r.in_learning_mode for r in b.resources.values()),
+          "takeover: a resource of B is in learning mode")
+    bad, b_clamped = _restored_equal(want, _dumps(b), lr)
+    check(not bad, f"takeover: {len(bad)} of B's stores differ from A's "
+          f"at the step-down ({bad[:3]})")
+    say(f"phase takeover: A stepped down clean; B restored warm "
+        f"{lr['leases_restored']} leases ({lr['records_applied']} journal "
+        f"records replayed), every store equal to A's row for row (the "
+        f"clamped resources scaled to capacity: {b_clamped}), learning "
+        f"skipped; restore ms {b_split}")
+    ids = [r.id for r in sides["a"]["resources"]]
+    b_res = [b.resources[r] for r in ids]
+    b_rids = np.asarray([[r.store._rid] * N_CLIENTS for r in b_res],
+                        np.int32)
+    engine = b._store_engine
+    b_cids = np.asarray(
+        [[engine.client_handle(f"c{i}.{c}") for c in range(N_CLIENTS)]
+         for i in range(N_RES)], np.int64)
+    rng = np.random.default_rng(32)
+    dense_cuda.reset_launches()  # B's path starts here
+    t = time.perf_counter()
+    await b.tick_once()
+    first_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    solver = b._resident
+    first = dict(mode=solver.last_solve_mode,
+                 reason=solver.last_full_reason,
+                 k2=dense_cuda.LAUNCHES["k2"],
+                 rebuild_ms=solver.phase_s.get("rebuild", 0.0) * 1e3)
+    check(first["mode"] == "full" and first["reason"] == "rebuild",
+          f"takeover: B's first tick {first}")
+    check(first["k2"] == 1, f"takeover: B's first tick launched K2 "
+          f"{first['k2']} times")
+    check(first["rebuild_ms"] > 0, "takeover: B's laps show no rebuild")
+    clock.t += 1.0
+    b_walls = []
+    for i in range(2 + TK_B_CHURN + QUIET_TICKS):
+        if 2 <= i < 2 + TK_B_CHURN:
+            pick = _churn(engine, rng, b_rids, b_cids)
+            _journal_rows(b, b_res, pick)
+        t = time.perf_counter()
+        await b.tick_once()
+        b_walls.append(time.perf_counter() - t)
+        clock.t += 1.0
+    await b.flush_ticks()
+    torch.cuda.synchronize()
+    launches["b"] = dict(dense_cuda.LAUNCHES)
+    err, oracle_err, settling = _check_server_grants(torch, b, b_res)
+    say(f"phase takeover: B's first tick full ({first['reason']}), "
+        f"{first_ms:.1f} ms, K2 {first['k2']}, rebuild lap "
+        f"{first['rebuild_ms']:.1f} ms; then {len(b_walls)} ticks "
+        f"({TK_B_CHURN} churned, journaled): walls ms "
+        f"{[round(w * 1e3, 1) for w in b_walls]}; launches {launches['b']}; "
+        f"K1 vs plain {err:.3g}, vs f64 oracle {oracle_err:.3g}, store == "
+        f"device on converged rows ({settling} of 400 sampled in scope)")
+
+    # B crashes (no step-down marker) after one more journaled churn;
+    # C takes over TK_AGE seconds after B's last persisted fact.
+    pick = _churn(engine, rng, b_rids, b_cids)
+    _journal_rows(b, b_res, pick)
+    b.persist_step()
+    journal_seq = pb_.journal.seq
+    await b.stop()
+    del b, b_res, solver
+    clock.t += TK_AGE
+    pc = _tk_persist(state, clock, interval=3600.0)
+    c = _tk_server("tk-c", clock, pc)
+    _restore_laps(laps, pc.backend)
+    t = time.perf_counter()
+    await c.load_config(cfg)
+    c_wall = (time.perf_counter() - t) * 1e3
+    c_split = _restore_split(laps.take(), c_wall)
+    laps.undo()
+    lr = c.last_restore
+    check(lr["mode"] == "warm" and not lr["clean_down"],
+          f"takeover: C's restore {lr['mode']} clean_down {lr['clean_down']}")
+    check(lr["journal_seq"] == journal_seq,
+          f"takeover: C replayed to seq {lr['journal_seq']}, B wrote "
+          f"{journal_seq}")
+    check(abs(lr["age"] - TK_AGE) < 1e-6, f"takeover: C's age {lr['age']}")
+    ends = {r.learning_mode_end for r in c.resources.values()}
+    check(ends == {c.became_master_at + lr["age"]},
+          f"takeover: C's learning ends {sorted(ends)[:3]} != "
+          f"{c.became_master_at + lr['age']}")
+    kinds = {v["learning"] for v in lr["resources"].values()}
+    check(kinds == {"shorten"}, f"takeover: C's learning {kinds}")
+    restored = _dumps(c)
+    dense_cuda.reset_launches()  # C's path starts here
+    for _ in range(TK_C_TICKS):
+        clock.t += 1.0
+        check(all(r.in_learning_mode for r in c.resources.values()),
+              "takeover: C left learning before its window ended")
+        await c.tick_once()
+    await c.flush_ticks()
+    torch.cuda.synchronize()
+    launches["c"] = dict(dense_cuda.LAUNCHES)
+    check(launches["c"]["k2"] >= 1, f"takeover: C launched {launches['c']}")
+    after = _dumps(c)
+    # The learning replay grants each row its has, through the f32
+    # solve: a row's grant is its restored has or that value's f32
+    # rounding (rows a clamp scaled carry f64 values).
+    moved = sum(
+        1 for rid, rows in restored.items()
+        for r0, r1 in zip(rows, after[rid])
+        if r1[3] not in (r0[3], float(np.float32(r0[3]))))
+    check(moved == 0, f"takeover: {moved} of C's grants moved off the "
+          f"restored has inside the learning window")
+    say(f"phase takeover: B crashed; C restored warm {lr['leases_restored']}"
+        f" leases (journal seq {lr['journal_seq']}, "
+        f"{lr['records_applied']} records replayed), age {lr['age']:.3f} s,"
+        f" every learning window shortened to it; {TK_C_TICKS} ticks inside"
+        f" it, launches {launches['c']}, every grant equal to the restored "
+        f"has; restore ms {c_split}")
+    await c.stop()
+    out.update(
+        a=dict(p50=sides["a"]["p50"], p95=sides["a"]["p95"],
+               walls_ms=[w * 1e3 for w in sides["a"]["walls"]],
+               journal_record_ms=sides["a"]["journal_ms"],
+               journal_flush_ms=sides["a"]["flush_ms"]),
+        twin=dict(p50=sides["twin"]["p50"], p95=sides["twin"]["p95"],
+                  walls_ms=[w * 1e3 for w in sides["twin"]["walls"]]),
+        snapshots=snaps, restore_b=b_split, restore_c=c_split,
+        clamped_b=b_clamped,
+        leases=n_leases, b_first=dict(first, wall_ms=first_ms),
+        b_walls_ms=[w * 1e3 for w in b_walls], b_k1_err=err,
+        b_oracle_err=oracle_err, c_age=lr["age"], launches=launches,
+    )
+    return out
+
+
+async def _tk_prio(torch, card, tmp):
+    """The priority cell at f32: P ticks with persistence, steps down
+    clean after a final snapshot beat, and Q takes over warm."""
+    import numpy as np
+
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.solver import dense_cuda
+
+    clock = _FakeClock(time.time())
+    rng = np.random.default_rng(35)
+    prio_ids, cap, group, gcap = _prio_layout(rng)
+    ids = prio_ids + _resource_ids(rng, N_PRIO_LANE)
+    cfg = parse_yaml_config(_prio_yaml(gcap))
+    state = Path(tmp) / "prio"
+    p = _tk_server("tk-p", clock, _tk_persist(state, clock))
+    await p.load_config(cfg)
+    resources, rids, cids = _populate_prio(p, rng, ids)
+    for _ in range(TK_PRIO_TICKS):
+        _churn_prio(p._store_engine, rng, rids, cids)
+        await p.tick_once()
+        clock.t += 1.0
+    await p.flush_ticks()
+    clock.t += TK_SNAPSHOT_S
+    p.persist_step()
+    want = _dumps(p)
+    await p._on_is_master(False)
+    await p.stop()
+    clock.t += 1.0
+    pq = _tk_persist(state, clock, interval=3600.0)
+    q = _tk_server("tk-q", clock, pq)
+    laps = _Laps()
+    _restore_laps(laps, pq.backend)
+    t = time.perf_counter()
+    await q.load_config(cfg)
+    split = _restore_split(laps.take(), (time.perf_counter() - t) * 1e3)
+    laps.undo()
+    check(q.last_restore["mode"] == "warm",
+          f"takeover: Q's restore {q.last_restore['mode']}")
+    bad, q_clamped = _restored_equal(want, _dumps(q), q.last_restore)
+    check(not bad, f"takeover: {len(bad)} of Q's stores differ from P's "
+          f"({bad[:3]})")
+    q_res = [q.resources[r] for r in ids]
+    engine = q._store_engine
+    q_rids = np.asarray([[r.store._rid] * N_CLIENTS for r in q_res],
+                        np.int32)
+    q_cids = np.asarray(
+        [[engine.client_handle(f"c{i}.{c}") for c in range(N_CLIENTS)]
+         for i in range(len(ids))], np.int64)
+    walls, first_k3 = [], None
+    dense_cuda.reset_launches()  # Q's path starts here
+    for i in range(TK_PRIO_TICKS):
+        _churn_prio(engine, rng, q_rids, q_cids)
+        t = time.perf_counter()
+        await q.tick_once()
+        walls.append(time.perf_counter() - t)
+        if i == 0:
+            first_k3 = dense_cuda.LAUNCHES["k3"]
+        clock.t += 1.0
+    await q.flush_ticks()
+    torch.cuda.synchronize()
+    launches = dict(dense_cuda.LAUNCHES)
+    check(first_k3 == 38, f"takeover: Q's first tick launched K3 "
+          f"{first_k3} times, not 38")
+    lo, hi, oracle_err, nb = _check_prio(torch, dict(
+        server=q, resources=q_res, launches=launches, cap=cap,
+        group=group, gcap=gcap, ticks=TK_PRIO_TICKS))
+    say(f"phase takeover: priority cell f32, P stepped down clean, Q "
+        f"restored warm {q.last_restore['leases_restored']} leases, every "
+        f"store equal row for row (clamped: {q_clamped}); restore ms "
+        f"{split}; Q's first tick "
+        f"{first_k3} K3 launches, walls ms "
+        f"{[round(w * 1e3, 1) for w in walls]}, launches {launches}, group "
+        f"usage / cap in [{lo:.9f}, {hi:.9f}], uncoupled rows vs f64 "
+        f"oracle {oracle_err:.3g}; card {card}")
+    await q.stop()
+    return dict(restore=split, launches=launches, first_k3=first_k3,
+                clamped=q_clamped,
+                walls_ms=[w * 1e3 for w in walls],
+                leases=q.last_restore["leases_restored"])
+
+
+def _tk_bin_yaml(cap):
+    return ("resources:\n  - identifier_glob: '*'\n"
+            f"    capacity: {cap}\n    algorithm: {{kind: PROPORTIONAL_SHARE,"
+            f" lease_length: 20, refresh_interval: 1, learning_mode_duration:"
+            f" {TK_BIN_LEARN_S}}}\n")
+
+
+async def _tk_binary(card):
+    """Two server binaries under an etcd election (tests/fake_etcd.py),
+    config and persistence in etcd: a client's grant, SIGKILL of the
+    master, the standby's warm takeover, a config put through etcd."""
+    import os
+    import socket
+    import tempfile
+    import urllib.request
+
+    import importlib.util
+
+    from doorman_tpu_torch.client import Client
+    from doorman_tpu_torch.server.etcd import EtcdGateway
+
+    # By path: a `tests` package installed on the machine may shadow the
+    # checkout's tests/ directory.
+    spec = importlib.util.spec_from_file_location(
+        "fake_etcd", ROOT / "tests" / "fake_etcd.py")
+    fake_etcd = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fake_etcd)
+    FakeEtcd = fake_etcd.FakeEtcd
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    def fetch(port, path):
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}{path}", timeout=30) as resp:
+            return json.loads(resp.read().decode())
+
+    def status(dport):
+        """The server's status() from /debug/vars; None until the debug
+        port answers."""
+        try:
+            return fetch(dport, "/debug/vars")["servers"][0]
+        except OSError:
+            return None
+
+    def flight(dport):
+        views = fetch(dport, "/debug/flightrec?format=json")
+        return next(iter(views.values()))["records"]
+
+    async def until(cond, what, timeout=60.0):
+        deadline = time.time() + timeout
+        while True:
+            got = cond()
+            if got:
+                return got
+            check(time.time() < deadline, f"takeover binary: {what}")
+            await asyncio.sleep(0.05)
+
+    fake = FakeEtcd()
+    fake.start()
+    procs, logs, client = {}, {}, None
+    try:
+        gw = EtcdGateway([fake.address])
+        gw.put("/doorman/config", _tk_bin_yaml(TK_BIN_CAP[0]))
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        tmp = tempfile.mkdtemp(prefix="tk-bin-")
+        ports = {}
+        for name in ("x", "y"):
+            port, dport = free_port(), free_port()
+            ports[name] = (port, dport)
+            logs[name] = open(Path(tmp) / f"{name}.log", "w+")
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "doorman_tpu_torch.cmd.server",
+                 "--host", "127.0.0.1", "--port", str(port),
+                 "--debug-port", str(dport),
+                 "--server-id", f"127.0.0.1:{port}",
+                 "--mode", "batch", "--native-store", "--device", DEVICE,
+                 "--tick-interval", "0.2", "--solver-dtype", "f32",
+                 "--minimum-refresh-interval", "1",
+                 "--config", "etcd:/doorman/config",
+                 "--etcd-endpoints", fake.address,
+                 "--master-election-lock", "/doorman/lock",
+                 "--master-delay", "2",
+                 "--persist", "etcd:/doorman/state",
+                 "--snapshot-interval", "1", "--log-level", "warning"],
+                cwd=ROOT, env=env, stdout=logs[name],
+                stderr=subprocess.STDOUT,
+            )
+        addr = {n: f"127.0.0.1:{p}" for n, (p, _d) in ports.items()}
+        master = await until(lambda: fake.value("/doorman/lock"),
+                             "no server won the lock", 120.0)
+        m = next(n for n in addr if addr[n] == master)
+        s = next(n for n in addr if n != m)
+        # The standby must be up too (it answers with a redirect).
+        await until(lambda: procs[s].poll() is None and status(
+            ports[s][1]) is not None, "the standby never came up")
+        # The client's seed is the standby: it redirects to the master,
+        # and after the master dies the client redials its seed.
+        client = await Client.connect(addr[s], "tk-client",
+                                      minimum_refresh_interval=1.0)
+        res = await client.resource("tk.r0", TK_BIN_WANTS)
+        await until(lambda: res.lease is not None
+                    and res.lease.capacity == TK_BIN_WANTS
+                    and client.master() == addr[m],
+                    "the client was never granted by the master", 120.0)
+        # A few snapshot beats past the learning window, then the kill.
+        await asyncio.sleep(TK_BIN_LEARN_S + 2.0)
+        held = res.lease
+        procs[m].kill()
+        t_kill = time.perf_counter()
+        procs[m].wait()
+        await until(lambda: fake.value("/doorman/lock") == addr[s],
+                    "the standby did not win", 60.0)
+        t_won = time.perf_counter()
+        await until(lambda: client.master() == addr[s]
+                    and res.lease is not held
+                    and res.lease.capacity == TK_BIN_WANTS,
+                    "the client's grant did not return", 60.0)
+        regained_s = time.perf_counter() - t_kill
+        st = status(ports[s][1])
+        check(st["is_master"], "takeover binary: the standby is not master")
+        lr = st.get("last_restore") or {}
+        check(lr.get("mode") == "warm" and lr.get("leases_restored", 0) >= 1,
+              f"takeover binary: the standby's restore {lr}")
+        check(st.get("persist") is not None
+              and st["persist"]["journal_seq"] >= 1,
+              f"takeover binary: persist block {st.get('persist')}")
+        # A config put through etcd: the next tick is full on the card
+        # and the grant moves to the new capacity.
+        await asyncio.sleep(TK_BIN_LEARN_S)
+        before = flight(ports[s][1])
+        last_tick = max((r.get("tick", -1) for r in before), default=-1)
+        gw.put("/doorman/config", _tk_bin_yaml(TK_BIN_CAP[1]))
+        t_put = time.perf_counter()
+        await until(lambda: res.lease is not None
+                    and res.lease.capacity == TK_BIN_CAP[1],
+                    "the grant never moved to the new capacity", 60.0)
+        moved_s = time.perf_counter() - t_put
+        recs = [r for r in flight(ports[s][1])
+                if r.get("tick", -1) > last_tick]
+        full = [r for r in recs if r.get("solve_mode") == "full:config-epoch"]
+        check(full, "takeover binary: no full:config-epoch tick after the "
+              f"put: {[r.get('solve_mode') for r in recs]}")
+        check(full[0].get("dispatches", 0) > 0,
+              f"takeover binary: the config-epoch tick dispatched nothing: "
+              f"{full[0]}")
+        st = status(ports[s][1])
+        check(st.get("backend") == DEVICE,
+              f"takeover binary: the master solves on {st.get('backend')}")
+        check(procs[s].poll() is None, "takeover binary: the master exited")
+        say(f"phase takeover: server binaries under the etcd election: "
+            f"killed the master, the standby won "
+            f"{t_won - t_kill:.2f} s later and restored warm "
+            f"({lr.get('leases_restored')} lease, age {lr.get('age', 0):.3f}"
+            f" s) through the etcd backend; the client's grant returned "
+            f"{regained_s:.2f} s after the kill; a config put moved it to "
+            f"{TK_BIN_CAP[1]:g} in {moved_s:.2f} s through a "
+            f"full:config-epoch tick on {st.get('backend')} "
+            f"({full[0].get('dispatches')} dispatches); card {card}")
+        return dict(won_s=t_won - t_kill, regained_s=regained_s,
+                    moved_s=moved_s, restore=lr,
+                    config_tick=full[0].get("tick"))
+    except PhaseFailed:
+        for name, log in logs.items():
+            log.seek(0)
+            say(f"--- server {name} log ---\n{log.read()[-3000:]}")
+        raise
+    finally:
+        if client is not None:
+            try:
+                await asyncio.wait_for(client.close(), 15)
+            except Exception:
+                pass
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        for log in logs.values():
+            log.close()
+        fake.stop()
+
+
+def phase_takeover(torch, card):
+    """Persistence and warm master takeover at the lane cell's full size,
+    the priority cell's takeover, and the server binary failing over
+    under an etcd election."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lane = asyncio.run(_tk_lane(torch, card, tmp))
+        prio = asyncio.run(_tk_prio(torch, card, tmp))
+    binary = asyncio.run(_tk_binary(card))
+    return dict(lane=lane, prio=prio, binary=binary)
+
+
 def main() -> int:
     try:
         import torch
@@ -5041,6 +5757,7 @@ def main() -> int:
         worst = phase_kernels(torch)
         worst3, solve_err = phase_kernels_k3(torch)
         servers, prio = phase_server(torch, card)
+        say(f"elapsed {time.perf_counter() - t0:.1f}s after server")
         tracked = phase_tracked(torch, servers["f32"]["server"])
         line = kernel_line(
             torch, servers["f32"]["server"], tracked,
@@ -5050,11 +5767,14 @@ def main() -> int:
             _k3_entry(torch, prio["f32"], worst3, solve_err, registers)
         )
         line["kernels"][0]["frontier_by_layout"] = phase_frontier(torch)
+        say(f"elapsed {time.perf_counter() - t0:.1f}s after frontier")
         worst_global = phase_k3_global(torch)
         wide = phase_wide(torch, card)
+        say(f"elapsed {time.perf_counter() - t0:.1f}s after wide")
         batch_lanes = phase_batch_lanes(torch, servers["f32"]["server"])
         overflow = phase_overflow(torch, servers["f32"]["server"])
         wide_prio = phase_wide_prio(torch, card)
+        say(f"elapsed {time.perf_counter() - t0:.1f}s after wide_prio")
         timing = _k3_global_timing(torch, {
             **_wide_prio_tables(torch, wide_prio), **_k3_1m_tables(torch)})
         line["kernels"][-1]["cluster_layout"] = {
@@ -5084,9 +5804,13 @@ def main() -> int:
             k: v["spike"] for k, v in wide.items()}
         line["kernels"][0]["batch_dense_lanes"] = batch_lanes
         rt = phase_round_trip(torch, card)
+        say(f"elapsed {time.perf_counter() - t0:.1f}s after round_trip")
         py = phase_python_store(torch, card)
+        say(f"elapsed {time.perf_counter() - t0:.1f}s after python_store")
         imm = phase_immediate(torch, card)
+        say(f"elapsed {time.perf_counter() - t0:.1f}s after immediate")
         streams = phase_streams(torch, card)
+        say(f"elapsed {time.perf_counter() - t0:.1f}s after streams")
         # The round-trip server's K1 launches and the Python-store
         # server's K3 launches (f32) join the main path's counts; every
         # path's count stands beside them.
@@ -5130,6 +5854,7 @@ def main() -> int:
         # The capacity tree: each kernel's launches on the tree's three
         # servers and on the root at scale.
         tree = phase_tree(torch, card)
+        say(f"elapsed {time.perf_counter() - t0:.1f}s after tree")
         tree_by = {"tree": tree["tree"]["launches"], **{
             f"tree-root {d}": v["launches"]
             for d, v in tree["tree_root"].items()}}
@@ -5155,6 +5880,22 @@ def main() -> int:
                 "priority_capture": obs["prio_trace"]["kernels"].get(label),
             }
         line["obs"] = {k: v for k, v in obs.items() if k != "kernels"}
+        say(f"elapsed {time.perf_counter() - t0:.1f}s before takeover")
+        # Persistence and warm master takeover: each kernel's launches on
+        # the takeover paths (the server binaries' launches are in their
+        # own processes: their flight records carry the dispatches).
+        tk = phase_takeover(torch, card)
+        tk_by = {
+            "takeover A+twin f32": tk["lane"]["launches"]["a"],
+            "takeover B f32": tk["lane"]["launches"]["b"],
+            "takeover C f32": tk["lane"]["launches"]["c"],
+            "takeover priority Q f32": tk["prio"]["launches"],
+        }
+        for key, entry in (("k1", k1), ("k2", k2), ("k3", k3)):
+            adds = {path: n[key] for path, n in tk_by.items()}
+            entry["launches_by_path"].update(adds)
+            entry["launches"] += sum(adds.values())
+        line["takeover"] = tk
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5196,6 +5937,15 @@ def main() -> int:
         f" / {obs['lane_off']['p95']:.2f}), digest "
         f"{obs['digest_ms']:.1f} ms a tick, device busy "
         f"{obs['lane_trace']['busy_share'] * 100:.3f}% of the lane capture"
+        f"; takeover lane f32 persist on p50 {tk['lane']['a']['p50']:.2f} "
+        f"ms p95 {tk['lane']['a']['p95']:.2f} ms (off "
+        f"{tk['lane']['twin']['p50']:.2f} / {tk['lane']['twin']['p95']:.2f})"
+        f", snapshot ticks ms "
+        f"{[round(x['wall_ms'], 1) for x in tk['lane']['snapshots']]}, "
+        f"restore ms B {tk['lane']['restore_b']['wall']:.1f} C "
+        f"{tk['lane']['restore_c']['wall']:.1f} priority "
+        f"{tk['prio']['restore']['wall']:.1f}, binary kill to regained "
+        f"grant {tk['binary']['regained_s']:.2f}s"
         f"; total {time.perf_counter() - t0:.1f}s")
     say(card)
     say(json.dumps(line))

@@ -1,6 +1,9 @@
 """The doorman server binary, PyTorch port.
 
-    python -m doorman_tpu_torch.cmd.server --config file:cfg.yml \\
+    python -m doorman_tpu_torch.cmd.server --config file:cfg.yml|etcd:KEY \\
+        [--etcd-endpoints H:P,...] [--master-election-lock KEY \\
+         [--master-delay S]] [--persist file:DIR|etcd:PREFIX \\
+         [--snapshot-interval S]] \\
         [--mode immediate|batch] [--native-store] [--no-fused-tick] \\
         [--device cuda] [--solver-dtype f32] \\
         [--stream-push [--max-streams-per-band N] [--stream-shards N]] \\
@@ -10,8 +13,14 @@
         [--history-dir DIR [--history-buffer N]] [--audit-sample K] [--detect]
     python -m doorman_tpu_torch.cmd.server --parent HOST:PORT [...]
 
-Loads the YAML config once (file: source), runs the trivial election
-and serves the Capacity gRPC service. `--parent` makes the server an
+Loads the YAML config from a file (re-read on SIGHUP) or an etcd key
+(watched), keeps the last good config when a new version fails to load,
+runs the trivial election or, with --master-election-lock, an etcd TTL
+lock election (--master-delay is the lock's TTL), and serves the
+Capacity gRPC service. `--persist` keeps the lease state durable
+(snapshots every --snapshot-interval seconds plus a journal, in a
+directory or under an etcd prefix), so a new master restores it and
+skips or shortens learning mode. `--parent` makes the server an
 intermediate of the capacity tree: it leases its capacity from that
 server and configures itself from the grants, so it needs no --config
 (a root does). The defaults are the reference's:
@@ -26,9 +35,9 @@ The debug pages (/debug/status, /metrics, /debug/traces, /debug/flightrec,
 ...) listen on `--debug-port` (15050; 0 picks one, -1 disables);
 `--profile-dir` writes a torch.profiler Chrome trace of the first
 `--profile-ticks` batch ticks; the other observability flags are the
-reference's. Flags not listed here — etcd election and config,
-persistence, admission, the frontend pool, federation, TLS (the server's
-own and --parent-tls / --parent-tls-ca) — are not ported yet.
+reference's. Flags not listed here — admission, the frontend pool,
+federation (--shard and the fleet flags), TLS (the server's own and
+--parent-tls / --parent-tls-ca) — are not ported yet.
 """
 
 from __future__ import annotations
@@ -46,7 +55,12 @@ from doorman_tpu_torch.obs.metrics import (
 )
 from doorman_tpu_torch.obs.trace import default_tracer
 from doorman_tpu_torch.server import config as config_mod
-from doorman_tpu_torch.server.election import TrivialElection
+from doorman_tpu_torch.server import sources
+from doorman_tpu_torch.server.election import (
+    EtcdKV,
+    KVElection,
+    TrivialElection,
+)
 from doorman_tpu_torch.server.server import CapacityServer
 
 log = logging.getLogger("doorman.server")
@@ -68,9 +82,15 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--parent", default="",
                    help="parent server address; empty means root")
     p.add_argument("--config", default="",
-                   help='config source: "file:<path>" (a root needs '
-                        "one; an intermediate configures itself from its "
-                        "parent's grants)")
+                   help='config source: "file:<path>" or "etcd:<key>" '
+                        "(a root needs one; an intermediate configures "
+                        "itself from its parent's grants)")
+    p.add_argument("--etcd-endpoints", default="",
+                   help="comma-separated etcd endpoints")
+    p.add_argument("--master-election-lock", default="",
+                   help="etcd key for master election (empty: no election)")
+    p.add_argument("--master-delay", type=float, default=10.0,
+                   help="master lease TTL in seconds")
     p.add_argument("--mode", choices=("immediate", "batch"),
                    default="immediate",
                    help="allocation mode: per-request scalar or per-tick "
@@ -175,33 +195,72 @@ def make_parser() -> argparse.ArgumentParser:
                         "robust z-scores; detections land as "
                         "detect.anomaly trace instants, chrome-overlay "
                         "tracks and an SLO verdict")
+    p.add_argument("--persist", default="",
+                   help="durable lease-state snapshots + journal for "
+                        "warm master takeover: 'file:<dir>' (shared "
+                        "storage for cross-machine takeover) or "
+                        "'etcd:<key-prefix>' (chunked keys via "
+                        "--etcd-endpoints); empty disables (cold "
+                        "wipe-and-relearn takeovers)")
+    p.add_argument("--snapshot-interval", type=float, default=30.0,
+                   help="seconds between full state snapshots (journal "
+                        "deltas cover the gaps)")
     p.add_argument("--log-level", default="info",
                    help="debug/info/warning/error")
     return p
 
 
-def read_config(source: str):
-    if not source.startswith("file:"):
-        raise SystemExit(f'--config wants "file:<path>", got {source!r}')
-    with open(source[len("file:"):]) as f:
-        return config_mod.parse_yaml_config(f.read())
-
-
 async def serve(args: argparse.Namespace, on_started=None) -> None:
     """Run the server until cancelled. `on_started(server, debug_server)`
-    fires once the gRPC (and debug, if enabled) listeners are bound —
-    tests and embedders use it to learn the ephemeral ports."""
+    fires once the gRPC (and debug, if enabled) listeners are bound and
+    the first config has loaded — tests and embedders use it to learn
+    the ephemeral ports."""
     if not (args.config or args.parent):
         raise SystemExit("a root server needs --config")
-    repo = read_config(args.config) if args.config else None
+    etcd_endpoints = [
+        e.strip() for e in args.etcd_endpoints.split(",") if e.strip()
+    ]
+    source = None
+    if args.config:
+        # Root servers load config from a source and hot-reload it
+        # (doorman_server.go:204-221); a bad prefix fails startup here.
+        # Intermediates self-configure from parent grants instead
+        # (server.go:276-311).
+        source = sources.parse_source(
+            args.config,
+            etcd_endpoints=etcd_endpoints,
+            loop=asyncio.get_running_loop(),
+        )
+    if args.master_election_lock:
+        election = KVElection(
+            EtcdKV(etcd_endpoints),
+            args.master_election_lock,
+            ttl=args.master_delay,
+        )
+    else:
+        election = TrivialElection()
+
+    persist = None
+    if args.persist:
+        from doorman_tpu_torch.persist import PersistManager, parse_backend
+
+        persist = PersistManager(
+            parse_backend(args.persist, etcd_endpoints=etcd_endpoints),
+            snapshot_interval=args.snapshot_interval,
+            flush_interval=min(args.tick_interval, 1.0),
+        )
+        log.info("persistence enabled: %s (snapshot every %.1fs)",
+                 args.persist, args.snapshot_interval)
+
     server = CapacityServer(
         args.server_id or f"{args.host}:{args.port}",
-        TrivialElection(),
+        election,
         parent_addr=args.parent,
         mode=args.mode,
         tick_interval=args.tick_interval,
         native_store=args.native_store,
         solver_dtype=args.solver_dtype,
+        persist=persist,
         fused_tick=args.fused_tick,
         scoped_solve=args.scoped_solve,
         tick_pipeline_depth=args.tick_pipeline_depth,
@@ -249,17 +308,38 @@ async def serve(args: argparse.Namespace, on_started=None) -> None:
         )
         debug.start()
         log.info("debug pages on :%d", debug.port)
-    if repo is not None:
-        await server.load_config(repo)
-        log.info("config loaded (%d templates)", len(repo.resources))
+    config_task = None
+    if source is not None:
+
+        async def reload_loop():
+            while True:
+                try:
+                    data = await source()
+                    repo = config_mod.parse_yaml_config(data.decode())
+                    await server.load_config(repo)
+                    log.info("config loaded (%d templates)",
+                             len(repo.resources))
+                except asyncio.CancelledError:
+                    raise
+                except Exception:
+                    # A bad or unreadable config version must not kill the
+                    # reload task; keep serving the last good config.
+                    log.exception("config load failed; keeping previous")
+                    await asyncio.sleep(1.0)
+
+        config_task = asyncio.create_task(reload_loop())
     else:
         log.info("intermediate of %s: configured from its grants",
                  args.parent)
-    if on_started is not None:
-        on_started(server, debug)
     try:
+        await server.wait_until_configured()
+        log.info("configured; serving")
+        if on_started is not None:
+            on_started(server, debug)
         await asyncio.Event().wait()
     finally:
+        if config_task is not None:
+            config_task.cancel()
         if debug is not None:
             debug.stop()
         await server.stop()

@@ -45,7 +45,11 @@ resource's capacity falls to 0 once its parent lease expires).
 What this port carries: both modes, both stores, the fused and the
 round-trip tick (scoped by default), lane and PRIORITY_BANDS resources
 of any width, capacity groups (batch mode only, as in the reference),
-the trivial election, the root and intermediate roles, and the
+any Election (the trivial one, or server/election.py's KVElection over
+etcd), durable lease state with warm master takeover (`persist=`, a
+persist.PersistManager: every served lease and release is journaled,
+the tick or a timer loop flushes and snapshots, and a new master
+restores before it serves), the root and intermediate roles, and the
 Discovery / GetCapacity / GetServerCapacity / ReleaseCapacity /
 WatchCapacity RPCs on the reference's wire service
 (doorman_tpu.Capacity), and the reference's observability (obs/): the
@@ -173,6 +177,7 @@ class CapacityServer(CapacityServicer):
         clock: Callable[[], float] = time.time,
         native_store: bool = False,
         solver_dtype: str = "f64",
+        persist=None,  # Optional[doorman_tpu_torch.persist.PersistManager]
         fused_tick: bool = True,
         scoped_solve: bool = True,
         tick_pipeline_depth: int = 1,
@@ -225,7 +230,19 @@ class CapacityServer(CapacityServicer):
         self._last_band_sweep = 0.0
         self.is_master = False
         self.became_master_at: float = 0.0
+        # Counts every mastership transition (either direction); the
+        # flight recorder stamps it on each tick record so a dump reader
+        # can see exactly which ticks straddle a flip.
         self.mastership_epoch = 0
+        # Durable lease-state snapshots + journal (persist/); None keeps
+        # the reference's wipe-and-relearn behavior. The request path
+        # journals every decide/release, the tick pipeline (or the
+        # immediate-mode timer loop) flushes and snapshots, and
+        # _on_is_master(True) restores for a warm takeover.
+        self._persist = persist
+        # Summary dict of the last takeover restore (status pages read
+        # it); None when this server never restored or is not master.
+        self.last_restore: Optional[dict] = None
         self.current_master = ""
         self.config: Optional[pb.ResourceRepository] = None
         self.is_configured = asyncio.Event()
@@ -263,9 +280,6 @@ class CapacityServer(CapacityServicer):
         # metrics collector snapshot state on it (metrics.call_on_loop).
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self.port: Optional[int] = None
-        # The reference's takeover-restore summary; the port restores
-        # nothing (no persist), so status() reports None.
-        self.last_restore: Optional[dict] = None
 
         # Streaming lease push (server/streams.py): clients hold one
         # WatchCapacity stream instead of polling, and the tick-edge
@@ -386,8 +400,13 @@ class CapacityServer(CapacityServicer):
                 {},
             )
             self._tasks.append(asyncio.create_task(self._updater_loop()))
-        if tick_loop and self.mode == "batch":
-            self._tasks.append(asyncio.create_task(self._tick_loop()))
+        if self.mode == "batch":
+            if tick_loop:
+                self._tasks.append(asyncio.create_task(self._tick_loop()))
+        elif self._persist is not None:
+            # Batch servers flush/snapshot from the tick pipeline; an
+            # immediate-mode server needs its own durability beat.
+            self._tasks.append(asyncio.create_task(self._persist_loop()))
         if self._streams is not None and self.mode != "batch":
             # Batch servers push at tick edges (tick_once); an
             # immediate-mode server has no tick, so the fanout gets its
@@ -472,9 +491,25 @@ class CapacityServer(CapacityServicer):
 
     async def _on_is_master(self, is_master: bool) -> None:
         """Mastership changes wipe all lease state; a fresh master starts
-        in learning mode."""
+        in learning mode (server.go:438-455) — unless persistence is
+        configured, in which case the wiped state is rebuilt from the
+        last snapshot + journal and learning mode is skipped or
+        shortened per-resource (persist/restore.py)."""
+        was_master = self.is_master
         self.is_master = is_master
         self.mastership_epoch += 1
+        # Election transitions land on the trace timeline and in the
+        # default registry: a mastership flip explains every gap or
+        # learning-mode plateau around it.
+        trace_mod.default_tracer().instant(
+            "election.transition", cat="election",
+            args={"server": self.id, "is_master": is_master},
+        )
+        metrics_mod.default_registry().counter(
+            "doorman_server_mastership_transitions",
+            "Mastership transitions observed, by the state entered.",
+            labels=("server", "to"),
+        ).inc(self.id, "master" if is_master else "standby")
         if is_master:
             log.info("%s: this server is now the master", self.id)
             self.became_master_at = self._clock()
@@ -488,6 +523,11 @@ class CapacityServer(CapacityServicer):
                 # polling and re-establish against the new master
                 # (resuming from their has-baseline).
                 self._streams.terminate_all(self._mastership())
+            if was_master and self._persist is not None:
+                # Flush the terminal step-down marker BEFORE the state
+                # wipe: it certifies the journal as complete, which is
+                # what lets the next master skip learning outright.
+                self._persist.note_step_down()
         self.resources = {}
         self._server_bands = {}
         self._reset_store_engine()
@@ -507,6 +547,15 @@ class CapacityServer(CapacityServicer):
         self._stream_match_key = None
         self._stream_learning_key = None
         self._stream_learning = set()
+        self.last_restore = None
+        if is_master and self._persist is not None and self.config is not None:
+            # Warm takeover: rebuild the just-wiped state from the
+            # backend. Synchronous on the event loop: nothing serves
+            # concurrently with the rebuild, which is the atomicity the
+            # restore needs, and the next tick's resident rebuild reads
+            # the restored engine. Any corruption degrades to the cold
+            # path inside restore().
+            self.last_restore = self._persist.restore(self).as_dict()
 
     async def _on_current_master(self, master: str) -> None:
         if master != self.current_master:
@@ -674,9 +723,14 @@ class CapacityServer(CapacityServicer):
                           "resources": len(self.resources)},
                 ):
                     await self._tick_once_locked()
+                    # The tick pipeline is the batch server's durability
+                    # beat: flush this tick's journal deltas and take the
+                    # cadenced snapshot inside the tick span.
+                    self.persist_step()
                     # Tick-edge stream fanout: push lease deltas to the
                     # WatchCapacity subscribers of the rows this tick
-                    # moved.
+                    # moved (the fanout's decides are journal deltas of
+                    # the NEXT flush beat).
                     self.push_streams()
             except Exception as exc:
                 # The black box's trigger: an unhandled tick exception
@@ -899,9 +953,10 @@ class CapacityServer(CapacityServicer):
         """One structured record per applied tick: wall time, per-phase
         lap deltas, solve mode and scope, dispatch deltas, the stream
         fanout's load, the audit and detector counters, and a store
-        digest. O(#resources): the stores keep running sums. The
-        reference's admission, federation, frontend and persist fields
-        are absent, as in the reference when those parts are off."""
+        digest, and the persist journal's seq when persistence is on.
+        O(#resources): the stores keep running sums. The reference's
+        admission, federation and frontend fields are absent, as in the
+        reference when those parts are off."""
         fr = self.flightrec
         if fr is None and self.history is None and self.detector is None:
             return
@@ -974,6 +1029,8 @@ class CapacityServer(CapacityServicer):
             rec["stream_shards"] = st["stream_shards"]
             rec["matched_pairs"] = st["matched_pairs"]
             rec["serialized_bytes"] = st["serialized_bytes"]
+        if self._persist is not None:
+            rec["persist_seq"] = self._persist.journal.seq
         shards = phases_mod.last_shard_bytes()
         if shards:
             rec["shard_bytes"] = {
@@ -1045,6 +1102,12 @@ class CapacityServer(CapacityServicer):
         if ticks:
             samples["tick_ms"] = ticks
         scalars: Dict[str, float] = {}
+        if self.last_restore is not None and self.last_restore.get(
+            "mode"
+        ) == "warm":
+            scalars["restore_staleness_s"] = float(
+                self.last_restore.get("age", 0.0)
+            )
         specs = slo_mod.server_slos()
         if self.shadow_audit is not None:
             # Any confirmed divergence fails the SLO block until the
@@ -1069,6 +1132,25 @@ class CapacityServer(CapacityServicer):
             "verdicts": verdicts,
         }
         return verdicts
+
+    def persist_step(self) -> None:
+        """One durability beat (journal flush + cadenced snapshot +
+        compaction) when persistence is configured and this server is
+        master. Driven by the batch tick or the immediate-mode timer
+        loop. A dead backend must never take down serving: failures log
+        and the next beat retries."""
+        if self._persist is None or not self.is_master:
+            return
+        try:
+            self._persist.step(self)
+        except Exception:
+            log.exception("%s: persistence step failed", self.id)
+
+    async def _persist_loop(self) -> None:
+        interval = self._persist.flush_interval
+        while True:
+            await asyncio.sleep(interval)
+            self.persist_step()
 
     async def _tick_loop(self) -> None:
         while True:
@@ -1396,7 +1478,10 @@ class CapacityServer(CapacityServicer):
                 key = (req.resource_id, request.server_id)
                 prios = {band.priority for band in bands}
                 for stale in self._server_bands.get(key, set()) - prios:
-                    res.release(_band_key(request.server_id, stale))
+                    bkey = _band_key(request.server_id, stale)
+                    res.release(bkey)
+                    if self._persist is not None:
+                        self._persist.record_release(req.resource_id, bkey)
                 self._server_bands[key] = prios
                 granted, lease = 0.0, None
                 for band in bands:
@@ -1575,11 +1660,18 @@ class CapacityServer(CapacityServicer):
                 if res is None:
                     continue
                 res.release(request.client_id)
+                if self._persist is not None:
+                    self._persist.record_release(
+                        resource_id, request.client_id
+                    )
                 # A downstream *server* holds per-band sub-leases;
                 # release them too and forget its band composition.
                 key = (resource_id, request.client_id)
                 for prio in self._server_bands.pop(key, set()):
-                    res.release(_band_key(request.client_id, prio))
+                    bkey = _band_key(request.client_id, prio)
+                    res.release(bkey)
+                    if self._persist is not None:
+                        self._persist.record_release(resource_id, bkey)
                 # Untracked write: a staged pack of this row predates
                 # the release (see _fused_invalidate).
                 self._fused_invalidate(resource_id)
@@ -1624,6 +1716,10 @@ class CapacityServer(CapacityServicer):
                 )
         if lease is None:
             lease = res.decide(request)
+        if self._persist is not None:
+            # Every served lease is a journal delta; replay over the
+            # last snapshot reconstructs this exact store row.
+            self._persist.record_assign(resource_id, request.client, lease)
         return lease, res
 
     # ------------------------------------------------------------------
@@ -1832,7 +1928,11 @@ class CapacityServer(CapacityServicer):
                 for k, v in self._phase_totals().items()
             },
             "last_tick_ms": round(self._last_tick_seconds() * 1000.0, 3),
-            "persist": None,
+            "persist": (
+                self._persist.status()
+                if self._persist is not None
+                else None
+            ),
             "admission": None,
             # Streaming lease push (None: stream push off).
             "streams": (

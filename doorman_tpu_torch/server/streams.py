@@ -54,10 +54,10 @@ like a polling client. Deadlines live in a per-shard bucket wheel
 due bucket — never all subscriptions; with nothing due and nothing
 changed the fanout walks ZERO subscriptions (pinned by test).
 
-Ordering / exactly-once: every pushed message carries a seq, a
-per-shard counter (the port has no persist journal, whose sequence number
-stamps pushes in the reference). A stream is a single writer living on
-exactly one shard, so seqs are strictly increasing per stream; clients
+Ordering / exactly-once: every pushed message carries a seq — the
+persist journal's sequence number when persistence is configured, else
+a per-shard counter. A stream is a single writer living on exactly one
+shard, so seqs are strictly increasing per stream; clients
 drop seq <= the last applied and offer the last seen seq back as
 `resume_seq` on reconnect. Resume does not REPLAY history (none is
 retained): the reconnect request's `has` fields are the client's
@@ -433,7 +433,16 @@ class StreamShard:
     # -- plumbing ------------------------------------------------------
 
     def _next_seq(self) -> int:
-        self._seq += 1
+        persist = self._server._persist
+        if persist is not None:
+            # The decides that built this push are journal deltas; the
+            # journal seq therefore stamps the push with a durable,
+            # replayable position. max() keeps seqs strictly increasing
+            # even when a message carried no journaled decide (terminal
+            # redirects).
+            self._seq = max(self._seq + 1, persist.journal.seq)
+        else:
+            self._seq += 1
         return self._seq
 
     def _message_bytes(self, rows: Sequence[bytes], *,
