@@ -81,6 +81,21 @@ an etcd election (tests/fake_etcd.py) with config and state in etcd:
 the master killed, the standby restoring warm and the client's grant
 back, then a config put reaching the master as a full tick.
 
+Last, federation (federation/): the reference's sharded-vs-single-root
+parity schedule at f64 (two shard roots and the straddle reconciliation
+beat against one root, every grant equal, FAIR_SHARE within 1 ulp, the
+shares never past capacity); two root shards of bench.py's federated
+workload (1M leases each, 2M on the card) with one straddling resource
+per reconcilable lane, ticking in lockstep rounds with a reconciliation
+beat after each (every tick after a beat is a config-epoch full tick
+through K2), their straddling grants merged over both shards against
+the f64 oracle over the union of their clients; the aggregation adapter
+at 10,000 x 100 at f32 and f64 against numpy per-band sums and the
+native store's band_aggregates; and a federated intermediate over the
+two roots on loopback gRPC (one GetServerCapacity per root per
+exchange, the roots' band sub-leases equal to its aggregates, K3 on the
+roots' band rows, one root blocked).
+
 Prints one line per phase, the card's name and power limit, one JSON line
 of per-kernel measurements, and last the JSON result line. Exits non-zero
 (and prints no result) without a CUDA device, outside a checkout of the
@@ -5721,6 +5736,788 @@ async def _tk_binary(card):
         fake.stop()
 
 
+# -- the federation phase ----------------------------------------------------
+# Sharded roots, the straddle reconciler and the federated intermediate
+# (doorman_tpu_torch/federation/): the reference's parity schedule at
+# f64, bench.py's federated-roots workload at f32 with one straddling
+# resource per reconcilable lane, the aggregation adapter at the lane
+# cell's 10,000 x 100, and a federated intermediate over the two roots.
+
+# tests/test_federation.py PARITY_TEMPLATES / PARITY_SCHEDULE (:181-208):
+# (resource, wire kind, capacity) and (resource, client, shard placement
+# or None for the router's, wants per phase).
+FP_TEMPLATES = (
+    ("strad-none", 0, 100.0),
+    ("strad-static", 1, 7.0),
+    ("strad-prop", 2, 400.0),
+    ("strad-fair", 3, 300.0),
+    ("solo-a", 2, 50.0),
+    ("solo-b", 2, 64.0),
+)
+FP_SCHEDULE = (
+    ("strad-none", "n0", 0, (10.0, 35.0, 20.0)),
+    ("strad-none", "n1", 1, (50.0, 5.0, 40.0)),
+    ("strad-static", "t0", 0, (3.0, 11.0, 5.0)),
+    ("strad-static", "t1", 1, (9.0, 2.0, 13.0)),
+    ("strad-prop", "p0", 0, (100.0, 40.0, 100.0)),
+    ("strad-prop", "p1", 0, (150.0, 90.0, 150.0)),
+    ("strad-prop", "p2", 1, (250.0, 500.0, 250.0)),
+    ("strad-prop", "p3", 1, (300.0, 70.0, 300.0)),
+    ("strad-fair", "f0", 0, (50.0, 500.0, 50.0)),
+    ("strad-fair", "f1", 0, (100.0, 20.0, 100.0)),
+    ("strad-fair", "f2", 1, (150.0, 60.0, 150.0)),
+    ("strad-fair", "f3", 1, (200.0, 10.0, 200.0)),
+    ("solo-a", "sa", None, (30.0, 80.0, 45.0)),
+    ("solo-b", "sb", None, (64.0, 10.0, 128.0)),
+)
+FP_ROUNDS = 6  # rounds a phase, 3 phases
+
+# fed-roots: bench.py's server_tick_federated_roots shard (build_shard,
+# :2828): 10,000 resources x 100 clients a shard, kinds NO_ALGORITHM /
+# STATIC / PROPORTIONAL_SHARE / FAIR_SHARE at 5/5/65/25%, capacities
+# 100-100,000, wants 0-99, refresh 16 s (delivery every 16 ticks), seed
+# 1100 + shard, 5% churn a round; FED_WARMUP 3 + FED_TICKS 12 rounds.
+FED_R = N_RES
+FED_C = N_CLIENTS
+FED_WARMUP = 3
+FED_ROUNDS = 12
+FED_REFRESH = 16
+FED_QUIET = 2 * FED_REFRESH  # two delivery rotations: store == device
+# Ticks with no beat after the quiet rounds: the last beat's config
+# epoch makes the first a full tick, which seeds the whole table into the
+# scope frontier; two scoped ticks let the converged rows leave it
+# before store == device is held.
+FED_SETTLE = 3
+# One straddling resource per reconcilable lane, 100 clients on each
+# shard, overloaded (wants 1-99 against 4,000).
+FED_STRADDLE = (
+    ("fs.prop", 2, None), ("fs.fair", 3, None), ("fs.maxmin", 3, "maxmin"),
+    ("fs.pf", 2, "logutil"), ("fs.bal", 3, "balanced"),
+)
+FED_STRADDLE_CAP = 4_000.0
+FED_SHARE_REL = 1e-9  # Σ shares <= capacity x (1 + this)
+# aggregate: the adapter over the lane cell's shape, 10 dirty ticks.
+AGG_TICKS = 10
+# fed-intermediate: 1,000 resources x 100 clients at PRIORITIES, 100 of
+# them PRIORITY_BANDS on the roots; exchanges timed, then one with a
+# root blocked.
+FI_RES = 1_000
+FI_PRIO = 100
+FI_EXCHANGES = 6
+FI_CAP = 2_000.0
+
+
+def _fed_server(name, clock, shard=None, dtype="f32"):
+    """A root shard (or single root) of the federation phase: batch mode,
+    native store, the server's default tick pipeline, stream push on with
+    no subscriber (delta tracking on, so a full tick launches K2)."""
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer
+
+    return CapacityServer(
+        name, TrivialElection(), mode="batch", native_store=True,
+        solver_dtype=dtype, tick_interval=1.0, minimum_refresh_interval=0.0,
+        clock=clock, shard=shard, flightrec_capacity=0, stream_push=True,
+        device=DEVICE,
+    )
+
+
+def _fp_repo():
+    from doorman_tpu_torch.proto import doorman_pb2 as pb
+
+    repo = pb.ResourceRepository()
+    for rid, kind, capacity in FP_TEMPLATES + (("*", 2, 1.0),):
+        tpl = repo.resources.add()
+        tpl.identifier_glob, tpl.capacity = rid, capacity
+        tpl.algorithm.kind = kind
+        tpl.algorithm.lease_length = 600
+        tpl.algorithm.refresh_interval = 1
+        tpl.algorithm.learning_mode_duration = 0
+    return repo
+
+
+async def _fed_parity(torch, card):
+    """tests/test_federation.py's parity schedule at f64 on the card: two
+    shard roots and the reconciliation beat against one single root,
+    every grant equal where the reference test holds it equal (FAIR_SHARE
+    within 1 ulp of the grant scale), Σ shard shares within the
+    configured capacity at every beat."""
+    import math
+
+    from doorman_tpu_torch.algorithms import Request
+    from doorman_tpu_torch.federation import FederatedRoots, ShardRouter
+    from doorman_tpu_torch.solver import dense_cuda
+
+    clock = _FakeClock(1000.0)
+    straddle = [r for r, *_ in FP_TEMPLATES if r.startswith("strad")]
+    router = ShardRouter(2, straddle=straddle)
+    root = _fed_server("fp-root", clock, dtype="f64")
+    shards = {s: _fed_server(f"fp-shard{s}", clock, s, "f64") for s in (0, 1)}
+    servers = [root, *shards.values()]
+    for s in servers:
+        await s.load_config(_fp_repo())
+    fed = FederatedRoots(router, shards, share_ttl=30.0, clock=clock)
+    has = {"root": {}, "fed": {}}
+    caps = {rid: cap for rid, kind, cap in FP_TEMPLATES if kind in (2, 3)}
+    worst_share = 0.0
+    dense_cuda.reset_launches()  # the fed-parity path starts here
+    try:
+        fed.reconcile_once()
+        for phase in range(3):
+            for _ in range(FP_ROUNDS):
+                for rid, client, placement, wants in FP_SCHEDULE:
+                    w = wants[phase]
+                    lease, _ = root._decide(rid, Request(
+                        client, has["root"].get((rid, client), 0.0), w))
+                    has["root"][(rid, client)] = lease.has
+                    shard = (placement if placement is not None
+                             else router.shard_of(rid))
+                    lease, _ = shards[shard]._decide(rid, Request(
+                        client, has["fed"].get((rid, client), 0.0), w))
+                    has["fed"][(rid, client)] = lease.has
+                for s in servers:
+                    await s.tick_once()
+                fed.reconcile_once()
+                clock.t += 1.0
+                for rid in straddle:
+                    if rid not in caps:
+                        continue
+                    total = sum(shards[s]._straddle_shares.get(rid, 0.0)
+                                for s in (0, 1))
+                    check(total <= caps[rid],
+                          f"fed-parity: Σ shares of {rid} {total!r} > "
+                          f"{caps[rid]}")
+                    worst_share = max(worst_share, total / caps[rid])
+                    granted = sum(shards[s].resources[rid].store.sum_has
+                                  for s in (0, 1) if rid in shards[s].resources)
+                    check(granted <= caps[rid] + 1e-6,
+                          f"fed-parity: Σ grants of {rid} {granted}")
+        torch.cuda.synchronize()
+        launches = dict(dense_cuda.LAUNCHES)  # read just after
+        worst_fair = 0.0
+        for rid, client, placement, _w in FP_SCHEDULE:
+            shard = placement if placement is not None else router.shard_of(rid)
+            want = root.resources[rid].store.get(client).has
+            got = shards[shard].resources[rid].store.get(client).has
+            if rid == "strad-fair":
+                gap = abs(got - want)
+                worst_fair = max(worst_fair, gap / math.ulp(max(want, 1.0)))
+                check(gap <= math.ulp(max(want, 1.0)),
+                      f"fed-parity: {rid}/{client} {got!r} vs single root "
+                      f"{want!r}")
+            else:
+                check(got == want, f"fed-parity: {rid}/{client} {got!r} vs "
+                      f"single root {want!r}")
+        check(has["root"][("strad-prop", "p0")] == 50.0,
+              "fed-parity: the end state did not run overloaded")
+        check(launches["k1"] > 0 and launches["k2"] > 0,
+              f"fed-parity: launches {launches}")
+        say(f"phase fed-parity[f64]: {len(FP_SCHEDULE)} clients over 3 "
+            f"phases x {FP_ROUNDS} rounds, 2 shard roots + 1 root on the "
+            f"card: every grant equal to the single root's (FAIR_SHARE "
+            f"within {worst_fair:g} ulp), Σ shares at most "
+            f"{worst_share:.6f} of capacity; launches {launches}; "
+            f"card {card}")
+        return dict(launches=launches, fair_ulps=worst_fair,
+                    share_of_capacity=worst_share)
+    finally:
+        for s in servers:
+            await s.stop()
+
+
+def _fed_root_yaml():
+    """The roots' config: the straddling resources, the intermediate's
+    resources (lane and PRIORITY_BANDS), and "*" (bench.py's resources
+    get their own template each after creation)."""
+    lines = ["resources:"]
+
+    def line(glob, cap, kind, variant=None):
+        params = (f", parameters: [{{name: variant, value: {variant}}}]"
+                  if variant else "")
+        lines.append(
+            f"  - identifier_glob: '{glob}'\n    capacity: {cap}\n"
+            f"    algorithm: {{kind: {kind}, lease_length: 600, "
+            f"refresh_interval: {FED_REFRESH}, learning_mode_duration: 0"
+            f"{params}}}")
+
+    for rid, kind, variant in FED_STRADDLE:
+        line(rid, FED_STRADDLE_CAP, kind, variant)
+    line("fi.p.*", FI_CAP, "PRIORITY_BANDS")
+    line("fi.l.*", FI_CAP, "PROPORTIONAL_SHARE")
+    line("*", 1000.0, 0)
+    return "\n".join(lines) + "\n"
+
+
+def _fed_populate(server, shard, clock):
+    """bench.py build_shard's workload on a shard root's native engine
+    (its rng order: kinds, capacities, wants, then the churn stream),
+    then the straddling resources' 100 clients."""
+    import numpy as np
+
+    from doorman_tpu_torch.proto import doorman_pb2 as pb
+
+    R, C = FED_R, FED_C
+    rng = np.random.default_rng(1100 + shard)
+    kinds = rng.choice(np.array([0, 1, 2, 3], np.int64), size=R,
+                       p=[0.05, 0.05, 0.65, 0.25])
+    capacity = rng.integers(100, 100_000, R).astype(np.float64)
+    resources = []
+    for r in range(R):
+        res = server.get_or_create_resource(f"s{shard}-res{r}")
+        res.load_config(pb.ResourceTemplate(
+            identifier_glob=res.id, capacity=float(capacity[r]),
+            algorithm=pb.Algorithm(
+                kind=int(kinds[r]), lease_length=600,
+                refresh_interval=FED_REFRESH, learning_mode_duration=0),
+        ), None)
+        resources.append(res)
+    server._config_epoch += 1  # the templates moved outside load_config
+    engine = server._store_engine
+    rids = np.repeat([r.store._rid for r in resources], C).astype(np.int32)
+    cids = np.fromiter((engine.client_handle(f"s{shard}-c{i}")
+                        for i in range(R * C)), np.int64, count=R * C)
+    wants = rng.integers(0, 100, R * C).astype(np.float64)
+    engine.bulk_assign(rids, cids, np.full(R * C, clock() + 600.0),
+                       np.full(R * C, float(FED_REFRESH)), np.zeros(R * C),
+                       wants, np.ones(R * C, np.int32))
+    churn = max(R // 20, 1)
+    n = FED_WARMUP + FED_ROUNDS
+    churn_rows = [rng.choice(R, churn, replace=False) for _ in range(n)]
+    churn_wants = [rng.integers(0, 100, churn * C).astype(np.float64)
+                   for _ in range(n)]
+    srng = np.random.default_rng(1200 + shard)
+    strad = {}
+    for rid, _kind, _variant in FED_STRADDLE:
+        res = server.get_or_create_resource(rid)
+        s_cids = np.array([engine.client_handle(f"{rid}.s{shard}.c{i}")
+                           for i in range(C)], np.int64)
+        s_rids = np.full(C, res.store._rid, np.int32)
+        engine.bulk_assign(s_rids, s_cids, np.full(C, clock() + 600.0),
+                           np.full(C, float(FED_REFRESH)), np.zeros(C),
+                           srng.integers(1, 100, C).astype(np.float64),
+                           np.ones(C, np.int32))
+        strad[rid] = (s_rids, s_cids)
+    return dict(server=server, resources=resources, rids=rids.reshape(R, C),
+                cids=cids.reshape(R, C), churn_rows=churn_rows,
+                churn_wants=churn_wants, capacity=capacity, kinds=kinds,
+                strad=strad, srng=srng, walls=[], modes=[],
+                k1=0, k2=0, k3=0)
+
+
+def _fed_union_err(shards, rid, kind, variant):
+    """One straddling resource's grants merged over both shards against
+    the f64 oracle over the union of its clients at the configured
+    capacity: max |grant - oracle| / max(capacity, max wants)."""
+    import numpy as np
+
+    from doorman_tpu_torch.algorithms.kinds import AlgoKind
+    from doorman_tpu_torch.algorithms.tick import oracle_row
+
+    lane = {(2, None): AlgoKind.PROPORTIONAL_SHARE,
+            (3, None): AlgoKind.FAIR_SHARE,
+            (3, "maxmin"): AlgoKind.MAX_MIN_FAIR,
+            (2, "logutil"): AlgoKind.PROPORTIONAL_FAIRNESS,
+            (3, "balanced"): AlgoKind.BALANCED_FAIRNESS}[(kind, variant)]
+    rows = [row for sd in shards.values()
+            for row in sd["server"].resources[rid].store.dump_rows()]
+    has = np.array([r[3] for r in rows])
+    wants = np.array([r[4] for r in rows])
+    sub = np.array([float(r[5]) for r in rows])
+    want = oracle_row(int(lane), FED_STRADDLE_CAP, 0.0, wants, has, sub)
+    scale = max(FED_STRADDLE_CAP, float(wants.max()))
+    return float(np.abs(has - want).max()) / scale, float(has.sum())
+
+
+async def _fed_roots(torch, card, clock, live):
+    """Two 1M-lease shard roots on the one card and the reconciliation
+    beat: per-shard tick walls, the beat's ms, full vs scoped ticks and
+    K1/K2 launches per shard, Σ shares within capacity at every beat,
+    the straddling grants against the f64 oracle over the union, and
+    store == device on converged rows. Returns the live roots (started
+    on loopback) for the intermediate."""
+    import numpy as np
+
+    from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
+    from doorman_tpu_torch.federation import FederatedRoots, ShardRouter
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.solver import dense_cuda
+
+    router = ShardRouter(2, straddle=[rid for rid, *_ in FED_STRADDLE])
+    cfg = parse_yaml_config(_fed_root_yaml())
+    shards, received = {}, {}
+    t = time.perf_counter()
+    for s in (0, 1):
+        server = _fed_server(f"fed-root{s}", clock, s)
+        live.append(server)
+        received[s] = []
+        serve = server.GetServerCapacity
+
+        async def recorded(request, context, serve=serve, log=received[s]):
+            log.append((request.server_id,
+                        [r.resource_id for r in request.resource]))
+            return await serve(request, context)
+
+        # Bound before start: the servicer's handlers are looked up then.
+        server.GetServerCapacity = recorded
+        await server.start(0, host="127.0.0.1", tick_loop=False)
+        server.current_master = f"127.0.0.1:{server.port}"
+        await server.load_config(cfg)
+        shards[s] = _fed_populate(server, s, clock)
+    say(f"phase fed-roots[f32]: 2 shard roots, "
+        f"{sum(sd['server']._store_engine.total_leases for sd in shards.values())}"
+        f" leases on the card, populated in {time.perf_counter() - t:.1f}s; "
+        f"card {card}")
+    for sd in shards.values():
+        # Per-resource templates landed outside the config: the device
+        # capacity column must carry them.
+        res = sd["resources"][7]
+        check(res.capacity == sd["capacity"][7],
+              f"fed-roots: {res.id} capacity {res.capacity}")
+    fed = FederatedRoots(router, {s: sd["server"] for s, sd in shards.items()},
+                         clock=clock)
+    beat_ms, round_ms, worst_share = [], [], 0.0
+    fed.reconcile_once()  # the bootstrap split, before any tick
+    dense_cuda.reset_launches()  # the fed-roots path starts here
+    n_churn = FED_WARMUP + FED_ROUNDS
+    for rnd in range(n_churn + FED_QUIET):
+        for s, sd in shards.items():
+            engine = sd["server"]._store_engine
+            if rnd < n_churn:
+                sel = sd["churn_rows"][rnd]
+                engine.bulk_refresh(
+                    sd["rids"][sel].ravel(), sd["cids"][sel].ravel(),
+                    np.full(sel.size * FED_C, clock() + 600.0),
+                    np.full(sel.size * FED_C, float(FED_REFRESH)),
+                    sd["churn_wants"][rnd])
+                for rid, (s_rids, s_cids) in sd["strad"].items():
+                    if sd["srng"].random() < 0.5:
+                        engine.bulk_refresh(
+                            s_rids, s_cids, np.full(FED_C, clock() + 600.0),
+                            np.full(FED_C, float(FED_REFRESH)),
+                            sd["srng"].integers(1, 100, FED_C).astype(
+                                np.float64))
+        t_round = time.perf_counter()
+        for s, sd in shards.items():
+            server = sd["server"]
+            before = dict(dense_cuda.LAUNCHES)
+            t = time.perf_counter()
+            await server.tick_once()
+            wall = time.perf_counter() - t
+            torch.cuda.synchronize()
+            if FED_WARMUP <= rnd < n_churn:
+                sd["walls"].append(wall)
+                mode = server._resident.last_solve_mode
+                reason = server._resident.last_full_reason
+                sd["modes"].append(f"full:{reason}" if mode == "full"
+                                   and reason else mode)
+            for k in ("k1", "k2", "k3"):
+                sd[k] += dense_cuda.LAUNCHES[k] - before[k]
+        t = time.perf_counter()
+        installed = fed.reconcile_once()
+        beat_ms.append((time.perf_counter() - t) * 1e3)
+        if FED_WARMUP <= rnd < n_churn:
+            round_ms.append((time.perf_counter() - t_round) * 1e3)
+        for rid, _k, _v in FED_STRADDLE:
+            total = sum(shards[s]["server"]._straddle_shares.get(rid, 0.0)
+                        for s in (0, 1))
+            check(total <= FED_STRADDLE_CAP * (1 + FED_SHARE_REL),
+                  f"fed-roots: Σ shares of {rid} {total!r} at beat {rnd}")
+            check(set(installed.get(rid, {})) == {0, 1},
+                  f"fed-roots: beat {rnd} installed {installed.get(rid)}")
+            worst_share = max(worst_share, total / FED_STRADDLE_CAP)
+        clock.t += 1.0
+    for _ in range(FED_SETTLE):
+        for sd in shards.values():
+            before = dict(dense_cuda.LAUNCHES)
+            await sd["server"].tick_once()
+            torch.cuda.synchronize()
+            for k in ("k1", "k2", "k3"):
+                sd[k] += dense_cuda.LAUNCHES[k] - before[k]
+    torch.cuda.synchronize()
+    launches = dict(dense_cuda.LAUNCHES)  # read just after
+    out = {"shards": {}, "beat_ms": beat_ms, "round_ms": round_ms,
+           "share_of_capacity": worst_share, "launches": launches}
+    for s, sd in shards.items():
+        server = sd["server"]
+        err, worst, settling = _check_server_grants(
+            torch, server, list(server.resources.values()))
+        p50, p95 = _pcts(sd["walls"])
+        full = sum(1 for m in sd["modes"] if m.startswith("full"))
+        out["shards"][s] = dict(
+            p50=p50, p95=p95, full=full, scoped=len(sd["modes"]) - full,
+            modes=sorted(set(sd["modes"])), k1=sd["k1"], k2=sd["k2"],
+            k3=sd["k3"], k1_vs_plain=err, oracle_err=worst,
+            settling=settling, leases=int(server._store_engine.total_leases))
+        say(f"phase fed-roots[f32] shard {s}: tick p50 {p50:.2f} ms p95 "
+            f"{p95:.2f} ms over {FED_ROUNDS} rounds ("
+            f"{'held' if p95 <= 100.0 else 'MISSED'}: lane limit 100 ms "
+            f"p95), {full} full / {len(sd['modes']) - full} scoped "
+            f"({sorted(set(sd['modes']))}), launches K1 {sd['k1']} K2 "
+            f"{sd['k2']} over all {len(beat_ms)} rounds and {FED_SETTLE} "
+            f"settle ticks; K1 vs plain "
+            f"{err:.3g}, vs f64 oracle {worst:.3g}, {settling} sampled rows "
+            f"settling; card {card}")
+    worst_union = {}
+    for rid, kind, variant in FED_STRADDLE:
+        err, granted = _fed_union_err(shards, rid, kind, variant)
+        worst_union[rid] = err
+        check(err <= F32_PARITY_REL_BOUND,
+              f"fed-roots: {rid} merged grants vs the f64 union oracle "
+              f"{err:.3g} > {F32_PARITY_REL_BOUND:g}")
+        check(granted <= FED_STRADDLE_CAP * (1 + 1e-6),
+              f"fed-roots: {rid} grants {granted} past capacity")
+    out["union_oracle_err"] = worst_union
+    check(launches["k1"] + launches["k2"] > 0,
+          f"fed-roots: launches {launches}")
+    check(all(out["shards"][s]["k2"] > 0 for s in (0, 1)),
+          "fed-roots: no K2 on a config-epoch full tick")
+    say(f"phase fed-roots[f32]: round wall p50 / p95 "
+        f"{_pcts([x / 1e3 for x in round_ms])[0]:.2f} / "
+        f"{_pcts([x / 1e3 for x in round_ms])[1]:.2f} ms, reconcile beat "
+        f"p50 / p95 {_pcts([x / 1e3 for x in beat_ms])[0]:.3f} / "
+        f"{_pcts([x / 1e3 for x in beat_ms])[1]:.3f} ms "
+        f"({len(FED_STRADDLE)} straddling resources), Σ shares at most "
+        f"{worst_share:.9f} of capacity, merged straddling grants vs the "
+        f"f64 union oracle {max(worst_union.values()):.3g}; card {card}")
+    return out, shards, router, received
+
+
+def _agg_numpy(wants, subs, bands, band_vals):
+    """{row: [(band, Σ wants, Σ subclients rounded)]} of the rows' nonzero
+    band sums: the per-band sum the adapter's device sums are held to."""
+    import numpy as np
+
+    out = {}
+    ws = np.stack([np.where(bands == b, wants, 0.0).sum(1) for b in band_vals])
+    cs = np.stack([np.where(bands == b, subs, 0.0).sum(1) for b in band_vals])
+    for b, r in zip(*np.nonzero(ws)):
+        out.setdefault(int(r), []).append(
+            (int(band_vals[b]), float(ws[b, r]), int(round(cs[b, r]))))
+    return out
+
+
+def _fed_aggregate(torch, card):
+    """The AggregationTickAdapter on the card over 10,000 resources x 100
+    children at four priorities: one rebuild dispatch, then 10 dirty
+    ticks at 5% churn, at f32 and f64; totals against numpy per-band
+    sums, and the f64 adapter against the native store's band_aggregates
+    on the same leases."""
+    import numpy as np
+
+    from doorman_tpu_torch import native
+    from doorman_tpu_torch.federation import AggregationTickAdapter
+    from doorman_tpu_torch.federation.aggregate import band_sums
+
+    R, C = FED_R, FED_C
+    rng = np.random.default_rng(1300)
+    wants0 = rng.integers(0, 100, (R, C)).astype(np.float64)
+    subs = rng.integers(1, 4, (R, C)).astype(np.float64)
+    bands = rng.choice(np.asarray(PRIORITIES), (R, C)).astype(np.int32)
+    churn = max(R // 20, 1)
+    picks = [rng.choice(R, churn, replace=False) for _ in range(AGG_TICKS)]
+    news = [rng.integers(0, 100, (churn, C)).astype(np.float64)
+            for _ in range(AGG_TICKS)]
+    ids = [f"ag.r{r}" for r in range(R)]
+    band_vals = np.asarray(sorted(PRIORITIES), np.int32)
+    out = {}
+    for dtype_name, dtype in (("f32", np.float32), ("f64", np.float64)):
+        agg = AggregationTickAdapter(dtype=dtype, device=DEVICE)
+        check(agg.device.type == torch.device(DEVICE).type,
+              f"aggregate: adapter on {agg.device}")
+        wants = wants0.copy()
+        walls, laps, worst = [], [], 0.0
+        for t in range(1 + AGG_TICKS):
+            rows = range(R) if t == 0 else picks[t - 1]
+            if t:
+                wants[picks[t - 1]] = news[t - 1]
+            before = dict(agg.phase_s)
+            t0 = time.perf_counter()
+            for r in rows:
+                agg.update(ids[r], wants[r], subs[r], bands[r])
+            got = agg.step()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            laps.append({k: (v - before[k]) * 1e3
+                         for k, v in agg.phase_s.items() if v > before[k]})
+            want = _agg_numpy(wants, subs, bands, band_vals)
+            check(len(got) == len(want),
+                  f"aggregate[{dtype_name}] tick {t}: {len(got)} resources "
+                  f"vs {len(want)}")
+            for r, bl in want.items():
+                g = got.get(ids[r])
+                check(g is not None and [(b, c) for b, _w, c in g]
+                      == [(b, c) for b, _w, c in bl],
+                      f"aggregate[{dtype_name}]: {ids[r]} bands {g} vs {bl}")
+                for (_b, gw, _c), (_b2, ww, _c2) in zip(g, bl):
+                    gap = abs(gw - ww)
+                    # Integer wants below 2^24 sum exactly at f32 as at
+                    # f64; the stated bound is the order bound
+                    # 2 (K - 1) u of the sum.
+                    bound = 2 * (C - 1) * np.finfo(dtype).eps / 2 * ww
+                    check(gap <= bound if dtype_name == "f32" else gap == 0,
+                          f"aggregate[{dtype_name}]: {ids[r]} {gw} vs {ww}")
+                    worst = max(worst, gap / max(ww, 1.0))
+        if torch.device(DEVICE).type == "cuda":
+            dev_ms = _time_ms(torch, lambda: band_sums(
+                agg._wants_d, agg._weights_d, agg._bands_d, agg._band_vals_d))
+        else:
+            dev_ms = None
+        nbytes = (agg._wants_d.numel() * agg._wants_d.element_size() * 2
+                  + agg._bands_d.numel() * 4
+                  + 2 * len(band_vals) * agg._wants_d.shape[0]
+                  * agg._wants_d.element_size())
+        dirty = laps[1:]
+        mean = {k: sum(l.get(k, 0.0) for l in dirty) / len(dirty)
+                for k in sorted({k for l in dirty for k in l})}
+        cells = sum(len(v) for v in got.values())
+        out[dtype_name] = dict(
+            rebuild_ms=walls[0], rebuild_laps=laps[0], dirty_ms=walls[1:],
+            dirty_laps_mean=mean, aggregate_device_ms=dev_ms,
+            bound_ms=nbytes / H100_BYTES_PER_S * 1e3, cells=cells,
+            max_rel_err=worst, table=list(agg._wants_d.shape))
+        say(f"phase aggregate[{dtype_name}]: {R} x {C} on {agg.device} "
+            f"(table {list(agg._wants_d.shape)}, {cells} nonzero band "
+            f"cells): rebuild tick {walls[0]:.1f} ms {laps[0]}, dirty ticks "
+            f"p50 {float(np.median(walls[1:])):.2f} ms, mean laps ms "
+            f"{ {k: round(v, 3) for k, v in mean.items()} }; the masked "
+            f"sum's device time "
+            f"{'%.4f ms' % dev_ms if dev_ms is not None else 'not measured'}"
+            f" (bytes bound {out[dtype_name]['bound_ms']:.4f} ms); max rel "
+            f"err vs numpy {worst:.3g}; card {card}")
+    # The f64 adapter's last totals against the native store's own C
+    # aggregation of the same leases.
+    engine = native.StoreEngine()
+    stores = [engine.store(i) for i in ids]
+    rids = np.repeat([s._rid for s in stores], C).astype(np.int32)
+    cids = np.fromiter((engine.client_handle(f"ag.c{i}") for i in range(R * C)),
+                       np.int64, count=R * C)
+    engine.bulk_assign(rids, cids, np.full(R * C, time.time() + 600.0),
+                       np.full(R * C, 1.0), np.zeros(R * C), wants.ravel(),
+                       subs.ravel().astype(np.int32),
+                       priority=bands.ravel().astype(np.int64))
+    mism = 0
+    for r, store in enumerate(stores):
+        want = [(p, w, n) for p, w, n in sorted(store.band_aggregates())
+                if w > 0]
+        if got.get(ids[r], []) != want:
+            mism += 1
+    check(mism == 0, f"aggregate: {mism} resources differ from "
+          "band_aggregates")
+    say(f"phase aggregate: the f64 adapter's totals equal band_aggregates "
+        f"on the native store for all {R} resources; card {card}")
+    return out
+
+
+async def _fed_intermediate(torch, card, clock, shards, router, received):
+    """A FederatedIntermediate on the card over 1,000 resources x 100
+    clients at four priorities (100 of them PRIORITY_BANDS on the roots),
+    its upstream the two shard roots over loopback gRPC through
+    ShardDiscovery: one GetServerCapacity per root per exchange carrying
+    only its resources, the roots' band sub-leases equal to the
+    intermediate's aggregates, the roots' next ticks launching K3, the
+    intermediate's capacities equal to the roots' grants; then one root
+    blocked, the other's resources unaffected."""
+    import random
+    import socket
+
+    import numpy as np
+
+    from doorman_tpu_torch.federation import (
+        FederatedIntermediate,
+        ShardDiscovery,
+        ShardRouter,
+    )
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import _band_key
+    from doorman_tpu_torch.solver import dense_cuda
+
+    roots = {s: sd["server"] for s, sd in shards.items()}
+    addrs = {s: f"127.0.0.1:{r.port}" for s, r in roots.items()}
+    dead = socket.socket()
+    dead.bind(("127.0.0.1", 0))
+    dead_addr = f"127.0.0.1:{dead.getsockname()[1]}"
+    dead.close()
+
+    current = dict(addrs)  # where each shard's master answers
+
+    async def resolver(shard, _seeds):
+        return current[shard]
+
+    discovery = ShardDiscovery(addrs, resolver=resolver, clock=clock,
+                               rng=random.Random(0))
+    inter = FederatedIntermediate(
+        "fed-inter", TrivialElection(), router=ShardRouter(2),
+        discovery=discovery, mode="batch", native_store=True,
+        solver_dtype="f32", tick_interval=1.0, minimum_refresh_interval=1.0,
+        clock=clock, flightrec_capacity=0, device=DEVICE,
+    )
+    check(inter.aggregator.device == inter.device,
+          f"fed-intermediate: aggregator on {inter.aggregator.device}")
+    await inter.start(0, host="127.0.0.1", tick_loop=False)
+    for task in inter._tasks:  # the exchanges are driven here
+        task.cancel()
+    inter._tasks.clear()
+    inter.became_master_at = clock() - 3600.0  # out of learning mode
+    rng = np.random.default_rng(1400)
+    ids = [f"fi.p.r{i}" if i < FI_PRIO else f"fi.l.r{i}"
+           for i in range(FI_RES)]
+    res = [inter.get_or_create_resource(i) for i in ids]
+    engine = inter._store_engine
+    C = FED_C
+    rids = np.repeat([r.store._rid for r in res], C).astype(np.int32)
+    cids = np.fromiter((engine.client_handle(f"fi.c{i}")
+                        for i in range(FI_RES * C)), np.int64,
+                       count=FI_RES * C)
+    n = FI_RES * C
+    engine.bulk_assign(rids, cids, np.full(n, clock() + 600.0),
+                       np.full(n, 1.0), np.zeros(n),
+                       rng.integers(0, 100, n).astype(np.float64),
+                       np.ones(n, np.int32),
+                       priority=rng.choice(np.asarray(PRIORITIES), n))
+    captured = {}
+    aggregate = inter._aggregate_demand
+
+    def capture():
+        captured["agg"] = aggregate()
+        return captured["agg"]
+
+    inter._aggregate_demand = capture
+    exch_ms, k = [], {"k1": 0, "k2": 0, "k3": 0}
+    root_k3 = {0: 0, 1: 0}
+    try:
+        for ex in range(FI_EXCHANGES):
+            for log in received.values():
+                log.clear()
+            t = time.perf_counter()
+            _interval, retry = await inter._perform_parent_requests(0)
+            exch_ms.append((time.perf_counter() - t) * 1e3)
+            check(retry == 0, f"fed-intermediate: exchange {ex} failed")
+            agg = captured["agg"]
+            for s, log in received.items():
+                check(len(log) == 1, f"fed-intermediate: root {s} got "
+                      f"{len(log)} requests in exchange {ex}")
+                sid, rids_seen = log[0]
+                check(sid == inter.id and rids_seen and all(
+                    router.shard_of(r) == s for r in rids_seen),
+                      f"fed-intermediate: root {s} got foreign resources")
+            check(sorted(r for _s, l in received.items() for r in l[0][1])
+                  == sorted(agg), "fed-intermediate: requests vs aggregates")
+            for rid, bl in agg.items():
+                root = roots[router.shard_of(rid)]
+                store = root.resources[rid].store
+                granted = 0.0
+                for p, w, nc in bl:
+                    lease = store.get(_band_key(inter.id, p))
+                    check(lease.wants == w and lease.subclients == max(nc, 1),
+                          f"fed-intermediate: {rid} band {p} on the root "
+                          f"{lease.wants}/{lease.subclients} vs {w}/{nc}")
+                    granted += lease.has
+                cap = inter.resources[rid].capacity
+                check(cap == granted, f"fed-intermediate: {rid} capacity "
+                      f"{cap} vs the root's grants {granted}")
+            # The roots' next ticks solve the band rows: K3 on the
+            # PRIORITY_BANDS resources, K1/K2 on the lane ones.
+            for s, root in roots.items():
+                before = dict(dense_cuda.LAUNCHES)
+                await root.tick_once()
+                torch.cuda.synchronize()
+                root_k3[s] += dense_cuda.LAUNCHES["k3"] - before["k3"]
+                for key in k:
+                    k[key] += dense_cuda.LAUNCHES[key] - before[key]
+            before = dict(dense_cuda.LAUNCHES)
+            await inter.tick_once()
+            torch.cuda.synchronize()
+            for key in k:
+                k[key] += dense_cuda.LAUNCHES[key] - before[key]
+            pick = rng.choice(FI_RES, FI_RES // 20, replace=False)
+            m = pick.size * C
+            engine.bulk_refresh(
+                rids.reshape(FI_RES, C)[pick].ravel(),
+                cids.reshape(FI_RES, C)[pick].ravel(),
+                np.full(m, clock() + 600.0), np.full(m, 1.0),
+                rng.integers(0, 100, m).astype(np.float64))
+            clock.t += 1.0
+        owners = {r: router.shard_of(r) for r in ids}
+        check(all(root_k3[s] > 0 for s in (0, 1)
+                  if any(o == s for r, o in owners.items()
+                         if r.startswith("fi.p"))),
+              f"fed-intermediate: roots' K3 launches {root_k3}")
+        # Block root 1: its discovery entry points at a closed port.
+        current[1] = dead_addr
+        discovery.invalidate(1)
+        inter._shard_conns.pop(1, None)
+        before_caps = {r: inter.resources[r].capacity for r in ids}
+        for log in received.values():
+            log.clear()
+        _interval, retry = await inter._perform_parent_requests(0)
+        check(retry == 1, f"fed-intermediate: blocked exchange retry {retry}")
+        check(len(received[0]) == 1 and not received[1],
+              f"fed-intermediate: blocked exchange reached "
+              f"{[len(l) for l in received.values()]} roots")
+        agg = captured["agg"]
+        unaffected = 0
+        for rid in ids:
+            if owners[rid] != 0 or rid not in agg:
+                continue
+            store = roots[0].resources[rid].store
+            granted = sum(store.get(_band_key(inter.id, p)).has
+                          for p, _w, _n in agg[rid])
+            check(inter.resources[rid].capacity == granted,
+                  f"fed-intermediate: {rid} on the live root "
+                  f"{inter.resources[rid].capacity} vs {granted}")
+            unaffected += 1
+        lost = sum(1 for r in ids if owners[r] == 1
+                   and inter.resources[r].capacity != before_caps[r])
+        p50, p95 = _pcts([x / 1e3 for x in exch_ms])
+        say(f"phase fed-intermediate: {FI_RES} resources x {C} clients "
+            f"({FI_PRIO} PRIORITY_BANDS), {FI_EXCHANGES} exchanges with the "
+            f"two 1M-lease roots: exchange p50 {p50:.2f} ms p95 {p95:.2f} "
+            f"ms; roots' K3 launches {root_k3}; launches {k}; root 1 "
+            f"blocked: {unaffected} resources of root 0 re-granted, "
+            f"{lost} of root 1 moved (the reference's merged template "
+            f"load: they fall to the default template); card {card}")
+        return dict(exchange_ms=exch_ms, p50=p50, p95=p95, root_k3=root_k3,
+                    launches=k, blocked_unaffected=unaffected,
+                    blocked_moved=lost,
+                    aggregate_laps={kk: v * 1e3 for kk, v in
+                                    inter.aggregator.phase_s.items() if v})
+    finally:
+        await inter.stop()
+
+
+async def _fed_cell(torch, card):
+    clock = _FakeClock(time.time())
+    live = []  # the roots, stopped however the cell ends
+    try:
+        roots_out, shards, router, received = await _fed_roots(
+            torch, card, clock, live)
+        inter = await _fed_intermediate(torch, card, clock, shards, router,
+                                        received)
+    finally:
+        for server in live:
+            await server.stop()
+    return roots_out, inter
+
+
+def phase_federation(torch, card):
+    """Federation: fed-parity (f64), fed-roots (f32, 2 x 1M leases),
+    aggregate (f32, f64) and fed-intermediate. Returns each sub-path's
+    K1/K2/K3 launches under `launches` for the kernels line."""
+    parity = asyncio.run(_fed_parity(torch, card))
+    roots, inter = asyncio.run(_fed_cell(torch, card))
+    agg = _fed_aggregate(torch, card)
+    launches = {
+        "fed-parity f64": parity["launches"],
+        "fed-roots f32": roots["launches"],
+        "fed-intermediate": inter["launches"],
+    }
+    total = {k: sum(v[k] for v in launches.values())
+             for k in ("k1", "k2", "k3")}
+    check(all(total[k] > 0 for k in total),
+          f"federation: a kernel never launched on its paths {launches}")
+    return dict(parity=parity, roots=roots, intermediate=inter,
+                aggregate=agg, launches=launches, total=total)
+
+
 def phase_takeover(torch, card):
     """Persistence and warm master takeover at the lane cell's full size,
     the priority cell's takeover, and the server binary failing over
@@ -5896,6 +6693,15 @@ def main() -> int:
             entry["launches_by_path"].update(adds)
             entry["launches"] += sum(adds.values())
         line["takeover"] = tk
+        say(f"elapsed {time.perf_counter() - t0:.1f}s before federation")
+        # Federation: each kernel's launches on the federation paths
+        # (fed-parity, fed-roots, fed-intermediate; by path in
+        # line["federation"]["launches"]).
+        fed = phase_federation(torch, card)
+        for key, entry in (("k1", k1), ("k2", k2), ("k3", k3)):
+            entry["launches_by_path"]["federation"] = fed["total"][key]
+            entry["launches"] += fed["total"][key]
+        line["federation"] = fed
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5946,6 +6752,12 @@ def main() -> int:
         f"{tk['lane']['restore_c']['wall']:.1f} priority "
         f"{tk['prio']['restore']['wall']:.1f}, binary kill to regained "
         f"grant {tk['binary']['regained_s']:.2f}s"
+        f"; federation: fed-roots shard tick p50 / p95 " + ", ".join(
+            f"{s} {v['p50']:.2f} / {v['p95']:.2f} ms"
+            for s, v in fed["roots"]["shards"].items())
+        + f", reconcile beat p50 "
+        f"{_pcts([x / 1e3 for x in fed['roots']['beat_ms']])[0]:.3f} ms, "
+        f"exchange p50 {fed['intermediate']['p50']:.2f} ms"
         f"; total {time.perf_counter() - t0:.1f}s")
     say(card)
     say(json.dumps(line))

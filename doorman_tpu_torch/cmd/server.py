@@ -7,7 +7,7 @@
         [--mode immediate|batch] [--native-store] [--no-fused-tick] \\
         [--device cuda] [--solver-dtype f32] \\
         [--stream-push [--max-streams-per-band N] [--stream-shards N]] \\
-        [--minimum-refresh-interval S] [--debug-port N] \\
+        [--minimum-refresh-interval S] [--debug-port N] [--shard i/N] \\
         [--profile-dir DIR [--profile-ticks N]] [--trace [--trace-buffer N]] \\
         [--flightrec-buffer N] [--flightrec-dir DIR] \\
         [--history-dir DIR [--history-buffer N]] [--audit-sample K] [--detect]
@@ -31,13 +31,17 @@ a GPU must pass --device cpu, which every mode checks); `--native-store`
 backs the stores with the C++ engine and its device-resident tick, whose
 `--no-fused-tick` round-trip variant is kept for baselines and triage.
 `--stream-push` serves WatchCapacity: lease deltas pushed at tick edges.
+`--shard i/N` makes the server root shard i of a federation of N: the
+election lock gets the suffix /shard<i>, `--persist` is namespaced under
+shard<i>, and the shard index rides status() and every flight record.
 The debug pages (/debug/status, /metrics, /debug/traces, /debug/flightrec,
 ...) listen on `--debug-port` (15050; 0 picks one, -1 disables);
 `--profile-dir` writes a torch.profiler Chrome trace of the first
 `--profile-ticks` batch ticks; the other observability flags are the
 reference's. Flags not listed here — admission, the frontend pool,
-federation (--shard and the fleet flags), TLS (the server's own and
---parent-tls / --parent-tls-ca) — are not ported yet.
+the fleet (--fleet-beat, --fleet-straddle, --fleet-report-interval),
+TLS (the server's own and --parent-tls / --parent-tls-ca) — are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from doorman_tpu_torch.server.election import (
     EtcdKV,
     KVElection,
     TrivialElection,
+    shard_lock_key,
 )
 from doorman_tpu_torch.server.server import CapacityServer
 
@@ -141,6 +146,16 @@ def make_parser() -> argparse.ArgumentParser:
                         "wheel; on the native store the tick-edge "
                         "decide+serialize passes fan to worker threads. "
                         "1 = the unsharded path")
+    p.add_argument("--shard", default="",
+                   help="federated root shard identity as 'i/N' (shard "
+                        "i of N): suffixes the election lock with "
+                        "/shard<i> (per-shard mastership), namespaces "
+                        "--persist under shard<i> (per-shard "
+                        "journal/snapshot, warm takeover stays "
+                        "per-shard), and stamps the shard index on "
+                        "status pages and flight-recorder records. "
+                        "Every candidate of one shard passes the SAME "
+                        "value; clients route with the same N")
     p.add_argument("--minimum-refresh-interval", type=float, default=5.0,
                    help="floor for client refresh intervals (the "
                         "streams' silent-refresh cadence)")
@@ -210,6 +225,25 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
+def parse_shard(spec: str):
+    """The shard index of an '--shard i/N' value (None when empty). N is
+    the deployment's shard count, checked here; routing uses the same N
+    client-side through federation.ShardRouter. A malformed value exits
+    with status 2, as the reference."""
+    if not spec:
+        return None
+    try:
+        shard_str, _, count_str = spec.partition("/")
+        shard, shard_count = int(shard_str), int(count_str)
+        if not 0 <= shard < shard_count:
+            raise ValueError
+    except ValueError:
+        log.error("--shard wants 'i/N' with 0 <= i < N, got %r", spec)
+        raise SystemExit(2)
+    log.info("federated root shard %d of %d", shard, shard_count)
+    return shard
+
+
 async def serve(args: argparse.Namespace, on_started=None) -> None:
     """Run the server until cancelled. `on_started(server, debug_server)`
     fires once the gRPC (and debug, if enabled) listeners are bound and
@@ -220,6 +254,7 @@ async def serve(args: argparse.Namespace, on_started=None) -> None:
     etcd_endpoints = [
         e.strip() for e in args.etcd_endpoints.split(",") if e.strip()
     ]
+    shard = parse_shard(args.shard)
     source = None
     if args.config:
         # Root servers load config from a source and hot-reload it
@@ -232,9 +267,16 @@ async def serve(args: argparse.Namespace, on_started=None) -> None:
             loop=asyncio.get_running_loop(),
         )
     if args.master_election_lock:
+        lock = args.master_election_lock
+        if shard is not None:
+            # Per-shard mastership: shard k's candidates campaign for
+            # <lock>/shard<k> — N concurrent masters off one etcd
+            # namespace, and one shard's failover never disturbs the
+            # others (election.shard_lock_key).
+            lock = shard_lock_key(lock, shard)
         election = KVElection(
             EtcdKV(etcd_endpoints),
-            args.master_election_lock,
+            lock,
             ttl=args.master_delay,
         )
     else:
@@ -245,7 +287,13 @@ async def serve(args: argparse.Namespace, on_started=None) -> None:
         from doorman_tpu_torch.persist import PersistManager, parse_backend
 
         persist = PersistManager(
-            parse_backend(args.persist, etcd_endpoints=etcd_endpoints),
+            parse_backend(
+                args.persist,
+                etcd_endpoints=etcd_endpoints,
+                # Per-shard durability namespace: warm takeover restores
+                # exactly this shard's slice, never a sibling's.
+                namespace=f"shard{shard}" if shard is not None else "",
+            ),
             snapshot_interval=args.snapshot_interval,
             flush_interval=min(args.tick_interval, 1.0),
         )
@@ -276,6 +324,7 @@ async def serve(args: argparse.Namespace, on_started=None) -> None:
         history_capacity=args.history_buffer,
         audit_sample=args.audit_sample,
         detect=args.detect,
+        shard=shard,
         device=args.device,
     )
     if args.history_dir:

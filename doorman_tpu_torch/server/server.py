@@ -49,7 +49,10 @@ any Election (the trivial one, or server/election.py's KVElection over
 etcd), durable lease state with warm master takeover (`persist=`, a
 persist.PersistManager: every served lease and release is journaled,
 the tick or a timer loop flushes and snapshots, and a new master
-restores before it serves), the root and intermediate roles, and the
+restores before it serves), the root and intermediate roles, a
+federated root shard's seams (`shard=`, `set_straddle_share`, the flight
+record's federation beat and `status()["federation"]`; the federation/
+package drives them), and the
 Discovery / GetCapacity / GetServerCapacity / ReleaseCapacity /
 WatchCapacity RPCs on the reference's wire service
 (doorman_tpu.Capacity), and the reference's observability (obs/): the
@@ -72,7 +75,7 @@ import asyncio
 import contextvars
 import logging
 import time
-from typing import Callable, Dict, List, Optional
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional
 
 import grpc
 import numpy as np
@@ -101,7 +104,6 @@ from doorman_tpu_torch.proto.grpc_api import (
 from doorman_tpu_torch.server import config as config_mod
 from doorman_tpu_torch.server.election import Election
 from doorman_tpu_torch.server.match import SubscriptionMatcher
-from doorman_tpu_torch.server.streams import StreamRegistry
 from doorman_tpu_torch.solver import batch as batch_mod
 from doorman_tpu_torch.solver.batch import BatchSolver
 from doorman_tpu_torch.solver.engine import PipelinedTicker
@@ -118,6 +120,9 @@ from doorman_tpu_torch.utils.backoff import (
     VERY_LONG_TIME,
     backoff,
 )
+
+if TYPE_CHECKING:
+    from doorman_tpu_torch.server.streams import StreamRegistry
 
 log = logging.getLogger(__name__)
 
@@ -194,6 +199,7 @@ class CapacityServer(CapacityServicer):
         audit_sample: int = 0,
         audit_inline: bool = False,
         detect: bool = False,
+        shard: Optional[int] = None,
         device="cuda",
     ):
         if mode not in ("immediate", "batch"):
@@ -206,6 +212,30 @@ class CapacityServer(CapacityServicer):
                 "native store engine unavailable (g++ build failed?)"
             )
         self.id = server_id
+        # Federation identity: which root shard this server is (None =
+        # unsharded deployment). The shard index rides status() and
+        # every flight-recorder tick record, so a federated fleet's
+        # dumps and debug pages say which slice of the resource space
+        # they describe. The shard's election lock and persist namespace
+        # are the CALLER's job (election.shard_lock_key /
+        # persist.parse_backend(namespace=...)); this field is identity,
+        # not enforcement.
+        self.shard = shard
+        # Federation counters (the reconciler and the federated
+        # intermediate's upstream exchange bump these): straddle-share
+        # installs, the capacity those shares currently sum to, and
+        # upstream RPCs issued. `fleet_redirects` stays 0 until the
+        # fleet's epoch-aware redirect is ported; it keeps the
+        # reference's keys.
+        self.fed_stats: Dict[str, float] = {
+            "straddle_updates": 0,
+            "straddle_capacity": 0.0,
+            "upstream_rpcs": 0,
+            "fleet_redirects": 0,
+        }
+        # resource id -> this shard's currently installed share (feeds
+        # fed_stats["straddle_capacity"] as the sum over resources).
+        self._straddle_shares: Dict[str, float] = {}
         self.election = election
         self.mode = mode
         self.tick_interval = tick_interval
@@ -288,6 +318,11 @@ class CapacityServer(CapacityServicer):
         # polling).
         self._streams: Optional[StreamRegistry] = None
         if stream_push:
+            # Imported here, as in the reference: streams.py imports the
+            # federation package (its stable shard hash), whose
+            # aggregate.py subclasses this module's CapacityServer.
+            from doorman_tpu_torch.server.streams import StreamRegistry
+
             self._streams = StreamRegistry(
                 self, max_streams_per_band=max_streams_per_band,
                 shards=stream_shards,
@@ -359,6 +394,9 @@ class CapacityServer(CapacityServicer):
             AnomalyDetector() if detect else None
         )
         self._flight_phase_prev: Dict[str, float] = {}
+        # fed_stats at the last flight record (a shard's record carries
+        # the deltas since).
+        self._flight_fed_prev: Dict[str, float] = {}
         # Dispatch accounting baseline (utils.dispatch is process-global
         # and monotone; each tick record carries the delta).
         self._flight_dispatch_prev: Dict[str, int] = {}
@@ -530,6 +568,10 @@ class CapacityServer(CapacityServicer):
                 self._persist.note_step_down()
         self.resources = {}
         self._server_bands = {}
+        # Straddle shares die with the lease state: a fresh master (or
+        # standby) holds no share until the reconciler grants one.
+        self._straddle_shares = {}
+        self.fed_stats["straddle_capacity"] = 0.0
         self._reset_store_engine()
         # The engine was replaced: the resident solver's device tables
         # and any in-flight ticks refer to the old one.
@@ -954,9 +996,11 @@ class CapacityServer(CapacityServicer):
         lap deltas, solve mode and scope, dispatch deltas, the stream
         fanout's load, the audit and detector counters, and a store
         digest, and the persist journal's seq when persistence is on.
-        O(#resources): the stores keep running sums. The reference's
-        admission, federation and frontend fields are absent, as in the
-        reference when those parts are off."""
+        O(#resources): the stores keep running sums. A root shard's
+        record carries the federation beat (shard, straddle updates and
+        upstream RPCs since the last record, the installed shares' sum).
+        The reference's admission and frontend fields are absent, as in
+        the reference when those parts are off."""
         fr = self.flightrec
         if fr is None and self.history is None and self.detector is None:
             return
@@ -977,6 +1021,23 @@ class CapacityServer(CapacityServicer):
             "resources": len(self.resources),
             "digest": store_digest(self.resources),
         }
+        if self.shard is not None:
+            # Federation beat on the black box: which shard this is,
+            # how much straddle traffic moved since the last tick
+            # (share installs + upstream RPCs), and the capacity the
+            # installed shares currently sum to.
+            rec["shard"] = self.shard
+            for key in ("straddle_updates", "upstream_rpcs"):
+                delta = self.fed_stats[key] - self._flight_fed_prev.get(
+                    key, 0
+                )
+                if delta:
+                    rec[key] = int(delta)
+            self._flight_fed_prev = dict(self.fed_stats)
+            if self.fed_stats["straddle_capacity"]:
+                rec["straddle_capacity"] = round(
+                    self.fed_stats["straddle_capacity"], 6
+                )
         if phases:
             rec["phases"] = phases
         if self._resident is not None:
@@ -1132,6 +1193,30 @@ class CapacityServer(CapacityServicer):
             "verdicts": verdicts,
         }
         return verdicts
+
+    def set_straddle_share(
+        self, resource_id: str, capacity: float, expiry: float
+    ) -> None:
+        """Federation hook: install this shard's reconciled share of a
+        straddling resource's capacity as a parent-style lease — the
+        local template's capacity becomes the share and `expiry` rides
+        as the parent-lease expiry, so a shard the reconciler stops
+        renewing decays to zero capacity on its own (the partition
+        blast-radius story). Template-only: no store row moves here, so
+        the fused-staging pack cache stays valid; the config epoch bump
+        routes the new capacity through the resident solver's config
+        mirror like any reload (the next resident tick is full)."""
+        res = self.get_or_create_resource(resource_id)
+        tpl = pb.ResourceTemplate()
+        tpl.CopyFrom(res.template)
+        tpl.capacity = float(capacity)
+        res.load_config(tpl, float(expiry))
+        self._config_epoch += 1
+        self.fed_stats["straddle_updates"] += 1
+        self._straddle_shares[resource_id] = float(capacity)
+        self.fed_stats["straddle_capacity"] = float(
+            sum(self._straddle_shares.values())
+        )
 
     def persist_step(self) -> None:
         """One durability beat (journal flush + cadenced snapshot +
@@ -1939,7 +2024,17 @@ class CapacityServer(CapacityServicer):
                 self._streams.status() if self._streams is not None else None
             ),
             "frontend": None,
-            "federation": None,
+            # Federation identity + traffic (None: unsharded server
+            # with no federated activity).
+            "federation": (
+                {
+                    "shard": self.shard,
+                    "straddle_shares": dict(self._straddle_shares),
+                    **self.fed_stats,
+                }
+                if self.shard is not None or any(self.fed_stats.values())
+                else None
+            ),
             "last_restore": self.last_restore,
             "flightrec": (
                 self.flightrec.status() if self.flightrec is not None else None

@@ -40,9 +40,14 @@ log = logging.getLogger(__name__)
 # kickoff. A round-trip tick (fused=False) laps "upload" (one placement
 # per staged block) and "solve" (the scatters, the full-table solve, the
 # delta compare and the download kickoff) instead, never "fused".
+# "aggregate" is the federated intermediate's band-masked subtree sum
+# (federation/aggregate.py): its own name because it is not a lease
+# solve at all. "match" is the stream fanout's changed-row -> subscriber
+# intersection (server/match.py). Names and order are the reference's,
+# so phase_s carries the same keys in both packages.
 PHASES = (
     "sweep", "drain", "config", "pack", "staging", "upload", "solve",
-    "fused", "download", "apply", "delta", "rebuild",
+    "fused", "aggregate", "match", "download", "apply", "delta", "rebuild",
 )
 
 

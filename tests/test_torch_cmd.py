@@ -98,8 +98,11 @@ def test_batch_native_server_serves_metrics_and_status(tmp_path):
                     ["--server", addr, "--client-id", f"c{i}", "r0", "30"]
                 ))
                 assert rc == 0
+            # Idle ticks before the first request also write flight
+            # records: wait for ticks that applied grants (the status
+            # page names the backend only after one).
             for _ in range(200):
-                if server.flightrec.head_seq >= 3:
+                if server.flightrec.head_seq >= 3 and server._ticks_done:
                     break
                 await asyncio.sleep(0.05)
             loop = asyncio.get_running_loop()
@@ -204,3 +207,83 @@ def test_obs_tool_reads_a_history_a_port_server_wrote(tmp_path):
     assert rc == 0
     assert delta["run"] == 2 and delta["previous_run"] == 1
     assert delta["samples"] == 4 and delta["previous_samples"] == 5
+
+
+# ----------------------------------------------------------------------
+# --shard i/N (federated root shards)
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "spec,want", [("0/1", 0), ("2/4", 2), ("7/8", 7), ("", None)]
+)
+def test_shard_flag_parses_i_of_n(spec, want):
+    assert t_cmd.parse_shard(spec) == want
+    args = t_cmd.make_parser().parse_args(["--shard", spec])
+    assert args.shard == spec == j_cmd.make_parser().parse_args(
+        ["--shard", spec]
+    ).shard
+
+
+@pytest.mark.parametrize("spec", ["4/4", "-1/2", "1/0", "x", "1", "a/b"])
+def test_shard_flag_rejects_what_the_reference_rejects(spec, tmp_path):
+    """A malformed --shard exits with status 2 before anything starts,
+    in both packages' serve()."""
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(CONFIG)
+    argv = ["--shard", spec, "--config", f"file:{cfg}", "--port", "0",
+            "--debug-port", "-1"]
+    for cmd, extra in ((t_cmd, ["--device", "cpu"]), (j_cmd, [])):
+        with pytest.raises(SystemExit) as exc:
+            asyncio.run(cmd.serve(cmd.make_parser().parse_args(
+                argv + extra
+            )))
+        assert exc.value.code == 2, cmd
+
+
+def test_shard_flag_suffixes_the_lock_and_namespaces_persist(tmp_path):
+    """--shard 1/2 with --master-election-lock and --persist file:: the
+    server campaigns for <lock>/shard1 on etcd, journals and snapshots
+    under <dir>/shard1 only, and carries shard 1 in status()."""
+    from doorman_tpu_torch.algorithms import Request
+    from doorman_tpu_torch.server.etcd import EtcdGateway
+    from tests.fake_etcd import FakeEtcd
+
+    fake = FakeEtcd()
+    fake.start()
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(CONFIG)
+    state = tmp_path / "state"
+
+    async def body():
+        task, server, _ = await _start_serve([
+            "--shard", "1/2", "--config", f"file:{cfg}",
+            "--etcd-endpoints", fake.address, "--master-election-lock",
+            "/fed/lock", "--master-delay", "2", "--persist",
+            f"file:{state}", "--snapshot-interval", "1", "--port", "0",
+            "--host", "127.0.0.1", "--debug-port", "-1", "--device",
+            "cpu", "--server-id", "shard1-a",
+        ])
+        try:
+            assert server.is_master
+            assert fake.value("/fed/lock/shard1") == "shard1-a"
+            assert fake.value("/fed/lock") is None
+            assert server.shard == 1
+            assert server.status()["federation"] == {
+                "shard": 1, "straddle_shares": {}, "straddle_updates": 0,
+                "straddle_capacity": 0.0, "upstream_rpcs": 0,
+                "fleet_redirects": 0,
+            }
+            server.became_master_at -= 60.0
+            server._decide("r0", Request("c0", 0.0, 30.0, 1))
+            server.persist_step()
+            assert sorted(p.name for p in state.iterdir()) == ["shard1"]
+            assert any((state / "shard1").iterdir())
+        finally:
+            await _stop(task)
+            EtcdGateway([fake.address]).put("/fed/lock", "")
+
+    try:
+        asyncio.run(body())
+    finally:
+        fake.stop()

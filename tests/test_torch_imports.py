@@ -39,16 +39,20 @@ def _imported_modules(path: Path):
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
-    # The port's 75 modules and chip_smoke.py: a slice that drops one
+    # The port's 80 modules and chip_smoke.py: a slice that drops one
     # is noticed here.
-    assert len(files) >= 76
+    assert len(files) >= 81
     names = {str(f.relative_to(ROOT)) for f in files}
     for mod in ("obs/audit", "obs/debug", "obs/detect", "obs/flightrec",
                 "obs/history", "obs/metrics", "obs/phases", "obs/requests",
                 "obs/slo", "obs/trace", "cmd/obs", "cmd/shell",
                 "server/etcd", "server/election", "server/sources",
                 "persist/__init__", "persist/backend", "persist/journal",
-                "persist/restore", "persist/snapshot"):
+                "persist/restore", "persist/snapshot",
+                "federation/__init__", "federation/aggregate",
+                "federation/client", "federation/discovery",
+                "federation/reconcile", "federation/roots",
+                "federation/router"):
         assert f"doorman_tpu_torch/{mod}.py" in names, mod
     bad = []
     for path in files:
@@ -59,7 +63,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert not bad, bad
 
 
-@pytest.mark.parametrize("entry", ["solver", "server", "cmd", "device"])
+@pytest.mark.parametrize(
+    "entry", ["solver", "server", "cmd", "device", "aggregate",
+              "intermediate"]
+)
 def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
     entry, tmp_path
 ):
@@ -69,6 +76,12 @@ def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
 
     from doorman_tpu_torch import native
     from doorman_tpu_torch.cmd import server as cmd_server
+    from doorman_tpu_torch.federation import (
+        AggregationTickAdapter,
+        FederatedIntermediate,
+        ShardDiscovery,
+        ShardRouter,
+    )
     from doorman_tpu_torch.server.election import TrivialElection
     from doorman_tpu_torch.server.server import CapacityServer
     from doorman_tpu_torch.solver.resident import ResidentDenseSolver
@@ -89,6 +102,11 @@ def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
         ),
         "server": lambda **kw: CapacityServer("s", TrivialElection(), **kw),
         "device": lambda **kw: resolve_device(**kw),
+        "aggregate": lambda **kw: AggregationTickAdapter(**kw),
+        "intermediate": lambda **kw: FederatedIntermediate(
+            "i", TrivialElection(), router=ShardRouter(2),
+            discovery=ShardDiscovery({}), **kw,
+        ),
         "cmd": lambda **kw: asyncio.run(asyncio.wait_for(cmd_server.serve(
             cmd_server.make_parser().parse_args(
                 ["--config", f"file:{cfg}", "--port", "0",

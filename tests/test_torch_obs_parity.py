@@ -25,6 +25,7 @@ import tests.conftest  # noqa: F401
 from doorman_tpu import native as jnative
 from doorman_tpu.obs import history as j_history
 from doorman_tpu.obs import metrics as j_metrics
+from doorman_tpu.obs import phases as j_phases
 from doorman_tpu.obs import slo as j_slo
 from doorman_tpu.obs import trace as j_trace
 from doorman_tpu.proto import doorman_pb2 as jpb
@@ -34,6 +35,7 @@ from doorman_tpu.server.server import CapacityServer as JServer
 from doorman_tpu_torch import native as tnative
 from doorman_tpu_torch.obs import history as t_history
 from doorman_tpu_torch.obs import metrics as t_metrics
+from doorman_tpu_torch.obs import phases as t_phases
 from doorman_tpu_torch.obs import slo as t_slo
 from doorman_tpu_torch.obs import trace as t_trace
 from doorman_tpu_torch.proto import doorman_pb2 as tpb
@@ -165,6 +167,18 @@ def _request(pb, client, wants, has):
         if (client, rid) in has:
             r.has.capacity = has[(client, rid)]
     return req
+
+
+@pytest.fixture(autouse=True)
+def _no_leftover_shard_bytes():
+    """Both packages' process-wide per-shard byte snapshots start empty:
+    a JAX mesh placement earlier in the same process (the mesh tests, the
+    reference's mesh-resident solvers) leaves `shard_bytes` behind, and
+    the reference's flight record copies it into every tick record while
+    the port's stays empty."""
+    j_phases._last_shard_bytes.clear()
+    t_phases._last_shard_bytes.clear()
+    yield
 
 
 async def _pair(dtype="f64", **kw):
