@@ -96,6 +96,24 @@ two roots on loopback gRPC (one GetServerCapacity per root per
 exchange, the roots' band sub-leases equal to its aggregates, K3 on the
 roots' band rows, one root blocked).
 
+Last, admission and the frontend (admission/, workload/forecast.py,
+frontend/): admission-fused, the lane cell at f32 with every churn tick's
+50,000 refreshes sent through the admission coalescer's windows on two
+twins from one seed, one whose windows stage the rows they wrote for the
+resident tick (K1/K2 served from the staging cache) and one whose do not
+(answers, stores and device grants equal after every tick, launches
+equal, staged rows served on every churn tick); admission-storm,
+bench.py's RPC storm against the immediate-mode server with admission
+off and on, its workers in other processes (the top band, a release or
+a shed without the retry-after trailer fails it); forecast, the seasonal
+forecaster's step on the card against its numpy oracle, bit for bit;
+frontend-parity, run inside the streams phase: its unscoped pair's
+filtered server (the lane cell with 100,000 subscriptions) pooled over
+four push rings, every frame byte-equal to the check-all twin's pushes,
+no ring lap; and frontend-pool, four real listener workers under an
+establishment storm and a held population, the sentinel's push latency,
+then cmd/frontend_smoke's kill-and-resume arc.
+
 Prints one line per phase, the card's name and power limit, one JSON line
 of per-kernel measurements, and last the JSON result line. Exits non-zero
 (and prints no result) without a CUDA device, outside a checkout of the
@@ -1254,9 +1272,9 @@ def phase_tracked(torch, server):
 
 # -- phase 6: the scope frontier under each K1 layout -------------------------
 
-# Two seeds (cut from four for the run's time), one with each layout
-# first.
-FRONTIER_SEEDS = (1, 2)
+# One seed (cut from four, then from two, for the run's time), the block
+# layout first.
+FRONTIER_SEEDS = (1,)
 
 
 def phase_frontier(torch):
@@ -2943,13 +2961,15 @@ ST_SUBS_PER_RES = 10
 ST_SHARDS = 4
 # Warm, churn and quiet ticks: cut from bench.py's 3 + 6 + 3 for the
 # run's time (the check-all twin re-decides 100,000 subscriptions a tick,
-# 7-10 s on an H100 machine's host). The 5 s refresh beat still lands in
-# a churn tick. The scoped pair (the default solve a --stream-push server
+# 7-10 s on an H100 machine's host). The 5 s refresh beat lands on the
+# quiet tick. The scoped pair (the default solve a --stream-push server
 # runs) stops before the beat: after its first (full, check-all) tick
 # every tick is scoped, the delta source the unscoped pair does not
 # reach — the first delivery of every row, then one churned set.
-ST_TICKS = (2, 3, 1)
-ST_SCOPED_TICKS = (1, 2, 0)
+# One churn tick less in each pair (from 2 + 3 + 1 and 1 + 2 + 0), for
+# the admission and frontend phases' time.
+ST_TICKS = (2, 2, 1)
+ST_SCOPED_TICKS = (1, 1, 0)
 
 # bench.py's server_stream_fanout_scaling shape.
 FT_TIERS = (1_000, 10_000, 100_000)
@@ -2979,6 +2999,16 @@ class _StreamReader:
             self._pending = asyncio.ensure_future(self.call.read())
         done, _ = await asyncio.wait({self._pending}, timeout=timeout)
         check(bool(done), "stream read timed out")
+        task, self._pending = self._pending, None
+        return task.result()
+
+    async def poll(self, timeout):
+        """The next message, or None when none came within `timeout`."""
+        if self._pending is None:
+            self._pending = asyncio.ensure_future(self.call.read())
+        done, _ = await asyncio.wait({self._pending}, timeout=timeout)
+        if not done:
+            return None
         task, self._pending = self._pending, None
         return task.result()
 
@@ -3235,21 +3265,25 @@ def _drain(queue_of):
     return out
 
 
-async def _stream_lane(torch, scoped, ticks):
+async def _stream_lane(torch, scoped, ticks, pooled=False):
     """The lane cell (f32) with 100,000 subscriptions on a stream server
     with the delta filter, beside a twin from the same seed and churn that
     re-decides every subscription every tick. scoped=False puts K2 under
     every fanout; scoped=True is the server's default solve, whose scoped
-    ticks take their changed rows from K1 and a compare."""
+    ticks take their changed rows from K1 and a compare. pooled=True is
+    frontend-parity: the filtered server's streams are pooled over an
+    InlineFrontendPool (FE_WORKERS workers, FE_RING_BYTES rings), so each
+    of its pushes reaches the subscription through its worker's ring and
+    pump before it is held against the twin's."""
     side = {}
     try:
-        return await _stream_lane_run(torch, side, scoped, ticks)
+        return await _stream_lane_run(torch, side, scoped, ticks, pooled)
     finally:
         for s in side.values():
             await s["server"].stop()
 
 
-async def _stream_lane_run(torch, side, scoped, ticks):
+async def _stream_lane_run(torch, side, scoped, ticks, pooled):
     import numpy as np
 
     from doorman_tpu_torch.proto import doorman_stream_pb2 as spb
@@ -3274,7 +3308,9 @@ async def _stream_lane_run(torch, side, scoped, ticks):
             clock=lambda: t[0], stream_push=True, stream_shards=ST_SHARDS,
             flightrec_capacity=0,
             device=DEVICE)
-        side[name] = dict(server=server)
+        pool = (server.attach_frontend(FE_WORKERS, ring_bytes=FE_RING_BYTES)
+                if pooled and name == "filtered" else None)
+        side[name] = dict(server=server, pool=pool, laps=0)
         await server.start(0, host="127.0.0.1", tick_loop=False)
         await server.load_config(parse_yaml_config(_config_yaml()))
         tp = time.perf_counter()
@@ -3291,6 +3327,10 @@ async def _stream_lane_run(torch, side, scoped, ticks):
                 sub = registry.subscribe(req)
                 server._stream_match_add(sub)
                 subs.append(sub)
+            if pool is not None and i % 1000 == 999:
+                side[name]["laps"] += _fe_pump(pool)
+        if pool is not None:
+            side[name]["laps"] += _fe_pump(pool)
         establish_s = time.perf_counter() - tp
         snaps = _drain(subs)
         registry.take_tick_stats()  # the snapshots are not tick 1's
@@ -3327,6 +3367,12 @@ async def _stream_lane_run(torch, side, scoped, ticks):
                 await server.tick_once()
                 torch.cuda.synchronize()
                 s["walls"].append(time.perf_counter() - tw)
+                if s["pool"] is not None:
+                    # The tick's frames through the rings to the queues.
+                    tp = time.perf_counter()
+                    s["laps"] += _fe_pump(s["pool"])
+                    s.setdefault("pump_ms", []).append(
+                        (time.perf_counter() - tp) * 1e3)
                 s["launches"].append(dict(dense_cuda.LAUNCHES))
                 registry = server._streams
                 s["fanout"].append(registry.last_fanout_seconds)
@@ -3375,6 +3421,16 @@ async def _stream_lane_run(torch, side, scoped, ticks):
     diff = _byte_diff(_packed_has(fil["server"]), _packed_has(twin["server"]))
     check(diff == 0, f"{label}: {diff} leases differ between the filtered "
           "server's store and the twin's")
+    frontend = None
+    if fil["pool"] is not None:
+        check(fil["laps"] == 0, f"frontend-parity: {fil['laps']} ring laps")
+        check(all(s.worker is not None for s in fil["subs"]),
+              "frontend-parity: a pooled subscription has no worker")
+        frontend = dict(workers=FE_WORKERS, ring_bytes=FE_RING_BYTES,
+                        laps=fil["laps"], pump_ms=fil["pump_ms"],
+                        publisher=fil["pool"].publisher.status(),
+                        pushes=sum(r["filtered"]["messages"]
+                                   for r in per_tick))
     n_ticks = warm + churn + quiet
     k2 = [x["k2"] for x in fil["launches"]]
     k1 = [x["k1"] for x in fil["launches"]]
@@ -3401,7 +3457,7 @@ async def _stream_lane_run(torch, side, scoped, ticks):
         populate_s=fil["populate_s"], establish_s=fil["establish_s"],
         twin_establish_s=twin["establish_s"], per_tick=per_tick,
         launches={"k1": sum(k1), "k2": sum(k2)},
-        matcher=fil["server"]._stream_matcher.status())
+        matcher=fil["server"]._stream_matcher.status(), frontend=frontend)
     for name, s in side.items():
         cw = s["walls"][warm:warm + churn]
         out[name] = dict(
@@ -3540,7 +3596,8 @@ def phase_streams(torch, card):
     for key, scoped, ticks in (("streams", False, ST_TICKS),
                                ("streams_scoped", True, ST_SCOPED_TICKS)):
         t0 = time.perf_counter()
-        st = asyncio.run(_stream_lane(torch, scoped, ticks))
+        st = asyncio.run(_stream_lane(torch, scoped, ticks,
+                                      pooled=not scoped))
         name = st["label"]
         say(f"phase {name}: {st['leases']} leases, {st['subscriptions']} "
             f"subscriptions on {st['shards']} shards (populate "
@@ -3571,6 +3628,20 @@ def phase_streams(torch, card):
                    if lap else "none (check-all)")
                 + f"; tick wall ms {f['wall_ms']:.2f} (twin "
                 f"{c['wall_ms']:.2f})")
+        fe = st["frontend"]
+        if fe is not None:
+            pub = fe["publisher"]
+            say(f"phase frontend-parity: the {name} phase's filtered server "
+                f"pooled over {fe['workers']} workers' "
+                f"{fe['ring_bytes'] >> 20} MiB rings: every one of its "
+                f"{st['subscriptions']} streams' frames, pumped from its "
+                f"worker's ring, equal the check-all twin's pushes byte for "
+                f"byte on all {len(st['per_tick'])} ticks (and the "
+                f"establishment snapshots); 0 ring laps; "
+                f"{pub['published_frames']} frames, {pub['published_bytes']}"
+                f" bytes published; pump ms a tick "
+                f"{[round(x, 1) for x in fe['pump_ms']]}; K2 under every "
+                f"fanout {st['launches']}; card {card}")
         out[key] = st
     tiers = []
     for n in FT_TIERS:
@@ -6531,6 +6602,964 @@ def phase_takeover(torch, card):
     return dict(lane=lane, prio=prio, binary=binary)
 
 
+# -- phases 24-28: admission, the forecaster, the frontend pool ----------------
+
+# admission-fused: the lane cell at f32 on the native store, every churn
+# tick's 5% of resources (500 x 100 = 50,000 refreshes) sent through the
+# coalescer's windows, beside a twin whose windows do not stage.
+# Warm-up, churn, quiet. Four warm-up ticks, not the two asked for: at
+# pipeline depth 3 the first tick applies on the fourth, and until then
+# every refresh is a first-response decide (a full upload, which the
+# fused tick packs afresh), so the cache serves from the first churn tick.
+AF_TICKS = (4, 6, 4)
+AF_WINDOW = 0.005  # the coalescer's window (cmd/server.py's default)
+AF_CHUNK = 5_000  # refreshes submitted together: a window each
+AF_WINDOW_BUDGET_S = 3.0  # the windows' time a tick worth writing down
+
+# admission-storm: bench.py's bench_server_rpc_storm.
+STORM_CONFIG = """
+resources:
+- identifier_glob: "*"
+  capacity: 1000000
+  algorithm: {kind: FAIR_SHARE, lease_length: 60, refresh_interval: 1,
+              learning_mode_duration: 0}
+"""
+STORM_WORKERS = 48
+STORM_PROCS = 4
+STORM_SECONDS = 2.0
+STORM_CALIB_SECONDS = 0.8
+STORM_SATURATION = 3.0  # off p99 >= this x the one-worker p50
+STORM_BANDS = (0, 1, 2)
+STORM_RELEASE_EVERY = 25  # a worker's release between its refreshes
+
+# forecast: the flash-crowd scenario's predictive config
+# (doorman_tpu/workload/scenarios.py:260-289).
+FC_SERIES, FC_PERIOD, FC_ALPHA, FC_BETA, FC_TICKS = 2, 16, 0.25, 0.5, 60
+
+# frontend-parity: bench.py's frontend pool shape (:2263-2264) on the
+# streams phase's lane cell (its unscoped pair's filtered server).
+FE_WORKERS = 4
+FE_RING_BYTES = 4 << 20
+
+# frontend-pool: bench.py's bench_server_frontend, its held population
+# cut from 1,000,000 to 100,000 streams, its push ticks from 30 to 10 and
+# its hold from 90 s to 24 s for the run's time.
+FP_CORES_NEEDED = FE_WORKERS + 2
+FP_EST_SECONDS = 5.0
+FP_EST_FLOOR = 50_000.0  # establishments/s (bench.py FRONTEND_EST_FLOOR)
+FP_HELD_TARGET = 100_000
+FP_HOLD_SECONDS = 24.0
+FP_PUSH_TICKS = 10
+FP_TICK_INTERVAL = 1.0
+FP_READY_SECONDS = 60.0
+FP_SUBS_PER_RESOURCE = 50  # bench.py FANOUT_SUBS_PER_RESOURCE
+FP_CHURN_WANTS = (1_000.0, 1.0)  # the sentinel row's churner, alternating
+FP_PUSH_EDGES = 5  # tick edges a churned sentinel may wait for its push
+# bench.py's template, and the sentinel's row on a 1 s refresh: the
+# resident tick delivers a row's moved grant on the delivery rotation of
+# the config's fastest refresh, so the sentinel's push can ride the tick
+# that moved it (on the reference's Python store every tick delivers).
+FP_CONFIG = """
+resources:
+- identifier_glob: sentinel
+  capacity: 600
+  safe_capacity: 1
+  algorithm: {kind: PROPORTIONAL_SHARE, lease_length: 60,
+              refresh_interval: 1, learning_mode_duration: 0}
+- identifier_glob: "*"
+  capacity: 600
+  safe_capacity: 1
+  algorithm: {kind: PROPORTIONAL_SHARE, lease_length: 7200,
+              refresh_interval: 3600, learning_mode_duration: 0}
+"""
+
+
+def _af_requests(pb, rng, server, resources, cids):
+    """One churn tick's refreshes: CHURN resources picked as _churn picks
+    them, each of their N_CLIENTS clients with new wants and, as `has`,
+    the grant its lease holds (one bulk pack of the picked stores), as a
+    refreshing client sends them."""
+    pick = rng.choice(N_RES, CHURN, replace=False)
+    wants = rng.integers(0, 100, CHURN * N_CLIENTS).astype(float)
+    ridx, cid, _w, has, _s, _p = server._store_engine.pack(
+        [resources[i].store for i in pick])
+    held = dict(zip(zip(ridx.tolist(), cid.tolist()), has.tolist()))
+    reqs = []
+    k = 0
+    for n, i in enumerate(pick):
+        rid = resources[i].id
+        for c in range(N_CLIENTS):
+            req = pb.GetCapacityRequest(client_id=f"c{i}.{c}")
+            rr = req.resource.add()
+            # Priority 0: the populated leases' (a changed priority
+            # would make the row a full upload).
+            rr.resource_id, rr.wants, rr.priority = rid, wants[k], 0
+            rr.has.capacity = held[(n, int(cids[i, c]))]
+            reqs.append(req)
+            k += 1
+    return reqs
+
+
+async def _af_windows(server, reqs):
+    """The refreshes through the admission coalescer (serve_get_capacity:
+    the admitted path), AF_CHUNK at a time; (capacity, safe_capacity)
+    of every answer, in order."""
+    adm = server._admission
+    out = []
+    for at in range(0, len(reqs), AF_CHUNK):
+        chunk = reqs[at:at + AF_CHUNK]
+        got = await asyncio.gather(
+            *(adm.serve_get_capacity(r) for r in chunk))
+        out += [(g.response[0].gets.capacity, g.response[0].safe_capacity)
+                for g in got]
+    return out
+
+
+async def _admission_fused(torch, card):
+    import random
+
+    import numpy as np
+
+    from doorman_tpu_torch.admission import Admission
+    from doorman_tpu_torch.proto import doorman_pb2 as pb
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer
+    from doorman_tpu_torch.solver import dense_cuda
+
+    warm, churn, quiet = AF_TICKS
+    side = {}
+    try:
+        for name, fuse in (("fused", True), ("unfused", False)):
+            server = CapacityServer(
+                f"af-{name}", TrivialElection(), mode="batch",
+                native_store=True, solver_dtype="f32", tick_interval=1.0,
+                tick_pipeline_depth=3, flightrec_capacity=0,
+                admission=Admission(coalesce_window=AF_WINDOW,
+                                    rng=random.Random(71)),
+                fuse_admission=fuse, device=DEVICE)
+            side[name] = dict(server=server, walls=[], windows=[],
+                              launches=[], pack=[], staging=[],
+                              staged=[], hits=[])
+            await server.start(0, host="127.0.0.1", tick_loop=False)
+            await server.load_config(parse_yaml_config(_config_yaml()))
+            resources, _r, cids = _populate(server,
+                                            np.random.default_rng(70))
+            side[name].update(resources=resources, cids=cids)
+        fu, un = side["fused"], side["unfused"]
+        check(fu["server"]._resident is None, "solver built before a tick")
+        rng = np.random.default_rng(72)
+        for tick in range(warm + churn + quiet):
+            reqs = (_af_requests(pb, rng, fu["server"], fu["resources"],
+                                 fu["cids"])
+                    if warm <= tick < warm + churn else [])
+            answers = {}
+            for name, s in side.items():
+                server = s["server"]
+                solver = server._resident
+                staged0 = (solver.staging.status()["staged_rows_total"]
+                           if solver is not None and solver.staging is not None
+                           else 0)
+                t = time.perf_counter()
+                answers[name] = await _af_windows(server, reqs)
+                s["windows"].append(time.perf_counter() - t)
+                solver = server._resident
+                ph0 = dict(solver.phase_s) if solver is not None else {}
+                dense_cuda.reset_launches()  # this twin's tick starts here
+                t = time.perf_counter()
+                await server.tick_once()
+                torch.cuda.synchronize()
+                s["walls"].append(time.perf_counter() - t)
+                s["launches"].append(dict(dense_cuda.LAUNCHES))
+                solver = server._resident
+                for lap in ("pack", "staging"):
+                    s[lap].append((solver.phase_s[lap] - ph0.get(lap, 0.0))
+                                  * 1e3)
+                if solver.staging is not None:
+                    s["staged"].append(
+                        solver.staging.status()["staged_rows_total"]
+                        - staged0)
+                    s["hits"].append(int(solver.last_fused["rows"]))
+            check(answers["fused"] == answers["unfused"],
+                  f"admission-fused: tick {tick + 1}: the twins answered "
+                  "differently")
+            diff = _byte_diff(_packed_has(fu["server"]),
+                              _packed_has(un["server"]))
+            check(diff == 0, f"admission-fused: tick {tick + 1}: {diff} "
+                  "leases differ between the twins' stores")
+            check(torch.equal(fu["server"]._resident._has,
+                              un["server"]._resident._has),
+                  f"admission-fused: tick {tick + 1}: device grants differ")
+            check(fu["launches"][-1] == un["launches"][-1],
+                  f"admission-fused: tick {tick + 1}: launches "
+                  f"{fu['launches'][-1]} != {un['launches'][-1]}")
+            if warm <= tick < warm + churn:
+                check(fu["staged"][-1] > 0 and fu["hits"][-1] > 0,
+                      f"admission-fused: churn tick {tick + 1}: staged "
+                      f"{fu['staged'][-1]} rows, {fu['hits'][-1]} served "
+                      "from the cache")
+        for s in side.values():
+            await s["server"].flush_ticks()
+        diff = _byte_diff(_packed_has(fu["server"]), _packed_has(un["server"]))
+        check(diff == 0, f"admission-fused: {diff} leases differ after the "
+              "flush")
+        check(un["server"]._resident.staging is None,
+              "admission-fused: the unfused twin staged")
+        out = dict(leases=int(fu["server"]._store_engine.total_leases),
+                   refreshes_per_churn_tick=CHURN * N_CLIENTS)
+        churn_sl = slice(warm, warm + churn)
+        for name, s in side.items():
+            p50, p95 = _pcts(s["walls"][churn_sl])
+            win = [w * 1e3 for w in s["windows"][churn_sl]]
+            k = {key: sum(x[key] for x in s["launches"]) for key in
+                 ("k1", "k2", "k3")}
+            out[name] = dict(
+                tick_p50_ms=p50, tick_p95_ms=p95,
+                walls_ms=[w * 1e3 for w in s["walls"]], windows_ms=win,
+                pack_ms=s["pack"], staging_ms=s["staging"], launches=k,
+                staged_rows=s["staged"], cache_hits=s["hits"],
+                coalescer=s["server"]._admission.coalescer.status())
+        over = [w for w in out["fused"]["windows_ms"]
+                if w > AF_WINDOW_BUDGET_S * 1e3]
+        fmt = lambda xs: [round(x, 2) for x in xs]  # noqa: E731
+        say(f"phase admission-fused: {out['leases']} leases, {warm} warm-up, "
+            f"{churn} churn ({CHURN * N_CLIENTS} refreshes a tick through "
+            f"the coalescer, {AF_CHUNK} a submission, window {AF_WINDOW}s) and "
+            f"{quiet} quiet ticks on each twin: answers, stores and device "
+            f"grants equal after every tick, launches equal "
+            f"{out['fused']['launches']}; fused twin staged rows "
+            f"{fu['staged'][churn_sl]}, cache hits {fu['hits'][churn_sl]}; "
+            f"churn tick p50 / p95 fused {out['fused']['tick_p50_ms']:.2f} / "
+            f"{out['fused']['tick_p95_ms']:.2f} ms, unfused "
+            f"{out['unfused']['tick_p50_ms']:.2f} / "
+            f"{out['unfused']['tick_p95_ms']:.2f} ms; pack ms fused "
+            f"{fmt(fu['pack'][churn_sl])} unfused {fmt(un['pack'][churn_sl])}; "
+            f"staging ms fused {fmt(fu['staging'][churn_sl])} unfused "
+            f"{fmt(un['staging'][churn_sl])}; windows ms a churn tick fused "
+            f"{fmt(out['fused']['windows_ms'])} unfused "
+            f"{fmt(out['unfused']['windows_ms'])}; card {card}")
+        if over:
+            say(f"phase admission-fused: the windows took more than "
+                f"{AF_WINDOW_BUDGET_S:.0f} s on {len(over)} of {churn} churn "
+                f"ticks ({fmt(over)} ms): written down, traffic kept")
+        out["windows_over_budget"] = len(over)
+        return out
+    finally:
+        for s in side.values():
+            await s["server"].stop()
+
+
+# -- the storm's client processes (spawned: this module's top level imports
+# nothing heavier than the standard library) ----------------------------------
+
+def _percentile(sorted_values, q):
+    """Nearest-rank percentile of an ascending list (0 when empty)."""
+    if not sorted_values:
+        return 0.0
+    idx = min(len(sorted_values) - 1,
+              max(0, int(round(q * (len(sorted_values) - 1)))))
+    return sorted_values[idx]
+
+
+def _retry_hint(err, key):
+    for k, v in err.trailing_metadata() or ():
+        if k == key:
+            return v
+    return None
+
+
+async def _poll_storm(addr, workers, index_base, duration, bands, seed):
+    """Closed-loop GetCapacity workers (bands round-robin), honouring the
+    retry-after hint with the client's half jitter; every
+    STORM_RELEASE_EVERY-th call of a worker is a ReleaseCapacity."""
+    import random
+
+    import grpc
+
+    from doorman_tpu_torch.admission.policy import RETRY_AFTER_KEY
+    from doorman_tpu_torch.proto import doorman_pb2 as pb
+    from doorman_tpu_torch.proto.grpc_api import CapacityStub
+
+    st = dict(ok=0, shed=0, errors=0, shed_no_hint=0, releases=0,
+              release_shed=0, ok_by_band={}, shed_by_band={}, lat={})
+    deadline = time.monotonic() + duration
+    rng = random.Random(seed)
+
+    async def worker(i):
+        band = bands[(index_base + i) % len(bands)]
+        wrng = random.Random(rng.random())
+        async with grpc.aio.insecure_channel(addr) as ch:
+            stub = CapacityStub(ch)
+            req = pb.GetCapacityRequest(client_id=f"storm-{index_base + i}")
+            rr = req.resource.add()
+            rr.resource_id, rr.wants, rr.priority = "storm", 10.0, band
+            n = 0
+            while time.monotonic() < deadline:
+                n += 1
+                if n % STORM_RELEASE_EVERY == 0:
+                    try:
+                        await stub.ReleaseCapacity(pb.ReleaseCapacityRequest(
+                            client_id=req.client_id, resource_id=["storm"]))
+                        st["releases"] += 1
+                    except grpc.aio.AioRpcError as e:
+                        if e.code() == grpc.StatusCode.RESOURCE_EXHAUSTED:
+                            st["release_shed"] += 1
+                        else:
+                            st["errors"] += 1
+                    rr.ClearField("has")
+                    continue
+                t0 = time.monotonic()
+                try:
+                    out = await stub.GetCapacity(req)
+                    lat = time.monotonic() - t0
+                    st["ok"] += 1
+                    st["ok_by_band"][band] = st["ok_by_band"].get(band, 0) + 1
+                    st["lat"].setdefault(band, []).append(lat)
+                    rr.has.CopyFrom(out.response[0].gets)
+                except grpc.aio.AioRpcError as e:
+                    if e.code() != grpc.StatusCode.RESOURCE_EXHAUSTED:
+                        st["errors"] += 1
+                        continue
+                    st["shed"] += 1
+                    st["shed_by_band"][band] = (
+                        st["shed_by_band"].get(band, 0) + 1)
+                    hint = _retry_hint(e, RETRY_AFTER_KEY)
+                    if hint is None or hint != f"{float(hint):.3f}":
+                        st["shed_no_hint"] += 1
+                        hint = "1.0"
+                    h = float(hint)
+                    await asyncio.sleep(min(
+                        0.5 * h + wrng.uniform(0, 0.5 * h),
+                        max(deadline - time.monotonic(), 0.0)))
+
+    t = time.monotonic()
+    await asyncio.gather(*(worker(i) for i in range(workers)))
+    st["duration_s"] = time.monotonic() - t
+    return st
+
+
+async def _stream_storm(addr, workers, index_base, duration, bands, seed,
+                        streams_per_worker, spread, ramp=64):
+    """WatchCapacity workers, each holding up to `streams_per_worker`
+    streams over one channel and opening at most `ramp` at a time
+    (bench.py's mux worker): ok counts establishments (the first message
+    of a stream), pushes every message; a shed honours the retry-after
+    hint before that stream reopens. Streams stay held until the end."""
+    import random
+    from collections import deque
+
+    import grpc
+
+    from doorman_tpu_torch.admission.policy import RETRY_AFTER_KEY
+    from doorman_tpu_torch.proto import doorman_stream_pb2 as spb
+    from doorman_tpu_torch.proto.grpc_api import CapacityStub
+
+    st = dict(ok=0, shed=0, errors=0, shed_no_hint=0, pushes=0, resets=0,
+              ok_by_band={}, shed_by_band={}, lat={})
+    deadline = time.monotonic() + duration
+    rng = random.Random(seed)
+
+    async def worker(i):
+        wrng = random.Random(rng.random())
+        async with grpc.aio.insecure_channel(
+                addr, options=(("grpc.use_local_subchannel_pool", 1),)) as ch:
+            stub = CapacityStub(ch)
+            done_q = asyncio.Queue()
+            streams = []
+            for j in range(streams_per_worker):
+                gi = (index_base + i) * streams_per_worker + j
+                band = bands[gi % len(bands)]
+                req = spb.WatchCapacityRequest(
+                    client_id=f"storm-{index_base + i}-{j}")
+                rr = req.resource.add()
+                rr.resource_id = f"storm-{gi % spread}"
+                rr.wants, rr.priority = 5.0, band
+                streams.append(dict(req=req, band=band, call=None, fut=None,
+                                    est=False, t0=0.0, wake=0.0))
+            unopened, waking, opening = deque(streams), [], 0
+
+            def close(s, wake_in):
+                if s["fut"] is not None:
+                    s["fut"].cancel()
+                    s["fut"] = None
+                if s["call"] is not None:
+                    s["call"].cancel()
+                    s["call"] = None
+                s["est"] = False
+                s["wake"] = time.monotonic() + wake_in
+                waking.append(s)
+
+            def read(s):
+                s["fut"] = asyncio.ensure_future(s["call"].read())
+                s["fut"].add_done_callback(
+                    lambda f, s=s: done_q.put_nowait((f, s)))
+
+            try:
+                while True:
+                    now = time.monotonic()
+                    if now >= deadline:
+                        return
+                    still = []
+                    for s in waking:
+                        (unopened.append if s["wake"] <= now
+                         else still.append)(s)
+                    waking[:] = still
+                    while unopened and opening < ramp:
+                        s = unopened.popleft()
+                        s["t0"] = time.monotonic()
+                        s["call"] = stub.WatchCapacity(s["req"])
+                        read(s)
+                        opening += 1
+                    try:
+                        fut, s = await asyncio.wait_for(
+                            done_q.get(), timeout=max(min(
+                                deadline - now, 0.05), 0.01))
+                    except asyncio.TimeoutError:
+                        continue
+                    if s["fut"] is not fut:
+                        continue
+                    s["fut"] = None
+                    if not s["est"]:
+                        opening -= 1
+                    try:
+                        msg = fut.result()
+                    except asyncio.CancelledError:
+                        continue
+                    except grpc.aio.AioRpcError as e:
+                        if e.code() == grpc.StatusCode.RESOURCE_EXHAUSTED:
+                            st["shed"] += 1
+                            b = s["band"]
+                            st["shed_by_band"][b] = (
+                                st["shed_by_band"].get(b, 0) + 1)
+                            hint = _retry_hint(e, RETRY_AFTER_KEY)
+                            if hint is None:
+                                st["shed_no_hint"] += 1
+                                hint = "1.0"
+                            h = float(hint)
+                            close(s, 0.5 * h + wrng.uniform(0, 0.5 * h))
+                        else:
+                            st["errors"] += 1
+                            close(s, 0.2)
+                        continue
+                    if msg is grpc.aio.EOF or msg.HasField("mastership"):
+                        st["resets"] += 1
+                        close(s, 0.0)
+                        continue
+                    if not s["est"]:
+                        s["est"] = True
+                        st["ok"] += 1
+                        b = s["band"]
+                        st["ok_by_band"][b] = st["ok_by_band"].get(b, 0) + 1
+                        st["lat"].setdefault(b, []).append(
+                            time.monotonic() - s["t0"])
+                    st["pushes"] += 1
+                    s["req"].resume_seq = max(s["req"].resume_seq,
+                                              int(msg.seq))
+                    mine = s["req"].resource[0]
+                    for row in msg.response:
+                        if row.resource_id == mine.resource_id:
+                            mine.has.CopyFrom(row.gets)
+                    read(s)
+            finally:
+                # End every call and let its read settle while the
+                # channel is still open: a read left pending past the
+                # loop's close can hang the interpreter's exit.
+                pending = [s["fut"] for s in streams if s["fut"] is not None]
+                for s in streams:
+                    if s["call"] is not None:
+                        s["call"].cancel()
+                for f in pending:
+                    f.cancel()
+                await asyncio.gather(*pending, return_exceptions=True)
+
+    t = time.monotonic()
+    await asyncio.gather(*(worker(i) for i in range(workers)))
+    st["duration_s"] = time.monotonic() - t
+    return st
+
+
+def _storm_child(out_q, kind, kwargs):
+    """Spawned storm process: one event loop's share of the workers. The
+    result is flushed to the parent and the process ends at once: with
+    many streams cancelled at the deadline, grpc's teardown at the event
+    loop's close can block the interpreter's exit."""
+    import os
+
+    async def run():
+        fn = _poll_storm if kind == "poll" else _stream_storm
+        try:
+            out_q.put(await fn(**kwargs))
+        except Exception as exc:  # reported to the parent, which fails
+            out_q.put({"error": f"{type(exc).__name__}: {exc}"})
+        out_q.close()
+        out_q.join_thread()
+        os._exit(0)
+
+    sys.path.insert(0, str(ROOT))
+    asyncio.run(run())
+
+
+def _storm(kind, addr, *, procs, workers, duration, bands, seed, **kw):
+    """`workers` storm workers split over `procs` spawned processes; the
+    merged counts, goodput and exact latency percentiles by band.
+    Blocking: run it off the serving loop."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    out_q = ctx.Queue()
+    children, base = [], 0
+    share, extra = divmod(workers, procs)
+    for p in range(procs):
+        n = share + (1 if p < extra else 0)
+        if not n:
+            continue
+        proc = ctx.Process(target=_storm_child, args=(out_q, kind, dict(
+            addr=addr, workers=n, index_base=base, duration=duration,
+            bands=bands, seed=seed * 1000 + p, **kw)), daemon=True)
+        proc.start()
+        children.append(proc)
+        base += n
+    started = time.monotonic()
+    parts, deadline = [], started + duration + 120.0
+    try:
+        while len(parts) < len(children):
+            try:
+                parts.append(out_q.get(timeout=1.0))
+            except queue.Empty:
+                alive = any(proc.is_alive() for proc in children)
+                check(alive and time.monotonic() < deadline,
+                      f"storm: {len(children) - len(parts)} of "
+                      f"{len(children)} processes gave no result in "
+                      f"{time.monotonic() - started:.1f}s (exit codes "
+                      f"{[proc.exitcode for proc in children]})")
+    finally:
+        for proc in children:
+            proc.join(timeout=20.0)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    errors = [p["error"] for p in parts if "error" in p]
+    check(not errors, f"storm process failed: {errors[:1]}")
+    merged = {k: sum(p.get(k, 0) for p in parts) for k in (
+        "ok", "shed", "errors", "shed_no_hint", "releases", "release_shed",
+        "pushes", "resets")}
+    for key in ("ok_by_band", "shed_by_band"):
+        merged[key] = {}
+        for p in parts:
+            for b, n in p[key].items():
+                merged[key][b] = merged[key].get(b, 0) + n
+    lat_by = {}
+    for p in parts:
+        for b, v in p["lat"].items():
+            lat_by.setdefault(b, []).extend(v)
+    lat = sorted(x for v in lat_by.values() for x in v)
+    elapsed = max(p["duration_s"] for p in parts)
+    merged.update(
+        procs=len(parts), workers=workers, duration_s=elapsed,
+        goodput_qps=merged["ok"] / elapsed,
+        offered_qps=(merged["ok"] + merged["shed"] + merged["errors"])
+        / elapsed,
+        p50_s=_percentile(lat, 0.50), p99_s=_percentile(lat, 0.99),
+        p50_s_by_band={b: _percentile(sorted(v), 0.50)
+                       for b, v in sorted(lat_by.items())},
+        p99_s_by_band={b: _percentile(sorted(v), 0.99)
+                       for b, v in sorted(lat_by.items())})
+    return merged
+
+
+async def _storm_run(admission, workers, seconds, procs):
+    """An immediate-mode server in this process under a poll storm from
+    `procs` other processes."""
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer
+
+    server = CapacityServer(
+        "storm", TrivialElection(), mode="immediate",
+        minimum_refresh_interval=0.0, admission=admission,
+        flightrec_capacity=0, device=DEVICE)
+    port = await server.start(0, host="127.0.0.1")
+    try:
+        await server.load_config(parse_yaml_config(STORM_CONFIG))
+        await asyncio.sleep(0)
+        st = await asyncio.get_running_loop().run_in_executor(
+            None, lambda: _storm(
+                "poll", f"127.0.0.1:{port}", procs=procs, workers=workers,
+                duration=seconds, bands=STORM_BANDS, seed=7))
+        if admission is not None:
+            st["server_tallies"] = {
+                f"{m}/{b}": dict(v)
+                for (m, b), v in sorted(admission.tallies.items())}
+            st["level"] = admission.controller.level
+        return st
+    finally:
+        await server.stop()
+
+
+def phase_admission_storm(torch, card):
+    """bench.py's RPC storm: a one-worker calibration, then 48 closed-loop
+    workers in other processes against the immediate-mode server with
+    admission off, then on (a budget of 70% of the off run's goodput)."""
+    from doorman_tpu_torch.admission import Admission
+    from doorman_tpu_torch.obs import slo as slo_mod
+
+    async def drive():
+        calib = await _storm_run(None, 1, STORM_CALIB_SECONDS, 1)
+        off = await _storm_run(None, STORM_WORKERS, STORM_SECONDS,
+                               STORM_PROCS)
+        floor = STORM_SATURATION * max(calib["p50_s"], 1e-6)
+        if off["p99_s"] < floor or off["ok"] == 0:
+            say(f"phase admission-storm: the admission-off storm did not "
+                f"queue: p99 {off['p99_s'] * 1e3:.3f} ms below the "
+                f"saturation floor {floor * 1e3:.3f} ms ({STORM_SATURATION}x"
+                f" the one-worker p50 {calib['p50_s'] * 1e3:.3f} ms): no "
+                "comparison")
+            check(False, "admission-storm: the storm never queued")
+        adm = Admission(coalesce_window=0.005, window=0.25,
+                        max_rps=off["goodput_qps"] * 0.7)
+        on = await _storm_run(adm, STORM_WORKERS, STORM_SECONDS, STORM_PROCS)
+        return calib, off, on
+
+    calib, off, on = asyncio.run(drive())
+    top = max(STORM_BANDS)
+    verdicts = slo_mod.storm_slo_verdicts(off, on, goodput_floor_ratio=0.7)
+    ms = lambda d: {b: round(v * 1e3, 3) for b, v in d.items()}  # noqa: E731
+    say(f"phase admission-storm: one-worker calibration p50 "
+        f"{calib['p50_s'] * 1e3:.3f} ms; {STORM_WORKERS} workers in "
+        f"{STORM_PROCS} processes for {STORM_SECONDS}s: admission off "
+        f"goodput {off['goodput_qps']:.1f}/s p50 {off['p50_s'] * 1e3:.3f} ms "
+        f"p99 {off['p99_s'] * 1e3:.3f} ms (p99 by band "
+        f"{ms(off['p99_s_by_band'])}); on (max_rps "
+        f"{off['goodput_qps'] * 0.7:.1f}) goodput {on['goodput_qps']:.1f}/s "
+        f"p50 {on['p50_s'] * 1e3:.3f} ms p99 {on['p99_s'] * 1e3:.3f} ms (by "
+        f"band {ms(on['p99_s_by_band'])}), shed by band {on['shed_by_band']}"
+        f", admitted by band {on['ok_by_band']}, final level "
+        f"{on['level']:.3f}; releases {on['releases']} (shed "
+        f"{on['release_shed']}), sheds without the retry-after trailer "
+        f"{on['shed_no_hint']}; card {card}")
+    say("phase admission-storm: SLO verdicts " + json.dumps(
+        [{k: v[k] for k in ("slo", "status", "observed", "target")
+          if k in v} for v in verdicts]))
+    check(on["shed_by_band"].get(top, 0) == 0,
+          f"admission-storm: the top band {top} was shed "
+          f"{on['shed_by_band'].get(top, 0)} times")
+    check(on["shed_no_hint"] == 0,
+          f"admission-storm: {on['shed_no_hint']} sheds without "
+          "doorman-retry-after")
+    check(on["release_shed"] == 0 and on["releases"] > 0,
+          f"admission-storm: releases {on['releases']}, shed "
+          f"{on['release_shed']}")
+    return dict(calibration_p50_ms=calib["p50_s"] * 1e3,
+                off={k: v for k, v in off.items()},
+                on={k: v for k, v in on.items()}, slo=verdicts)
+
+
+def _flash_crowd_rates(np):
+    """The flash-crowd scenario's offered rates by band: six band-1 base
+    clients at 10/s, a 24-client band-0 crowd at 10/s for 4 ticks every
+    FC_PERIOD ticks from tick 8."""
+    xs = np.zeros((FC_TICKS, FC_SERIES), np.float32)
+    xs[:, 1] = 60.0
+    for t in range(FC_TICKS):
+        if t >= 8 and (t - 8) % FC_PERIOD < 4:
+            xs[t, 0] = 240.0
+    return xs
+
+
+def phase_forecast(torch, card):
+    """The forecaster's step on the card against the numpy oracle, bit for
+    bit, over the flash-crowd stream; its time a step."""
+    import numpy as np
+
+    from doorman_tpu_torch.workload.forecast import SeasonalForecaster
+
+    xs = _flash_crowd_rates(np)
+    runs = {}
+    for engine in ("device", "host"):
+        f = SeasonalForecaster(FC_SERIES, FC_PERIOD, alpha=FC_ALPHA,
+                               beta=FC_BETA, engine=engine, device=DEVICE)
+        out, times = [], []
+        for x in xs:
+            t = time.perf_counter()
+            out.append(f.observe(x))
+            times.append(time.perf_counter() - t)
+        runs[engine] = dict(f=f, out=np.stack(out), times=times)
+    dev, host = runs["device"], runs["host"]
+    check(dev["f"].device.type == "cuda"
+          and dev["f"]._state[0].device.type == "cuda",
+          "forecast: the device step is not on the card")
+    same = np.array_equal(dev["out"].view(np.uint32),
+                          host["out"].view(np.uint32)) and all(
+        np.array_equal(a.view(np.uint32), b.view(np.uint32))
+        for a, b in zip(dev["f"].state(), host["f"].state()))
+    check(same, "forecast: the card's step differs from the numpy oracle")
+    us = np.asarray(dev["times"][1:]) * 1e6
+    hus = np.asarray(host["times"][1:]) * 1e6
+    say(f"phase forecast: {FC_SERIES} series, period {FC_PERIOD}, alpha "
+        f"{FC_ALPHA}, beta {FC_BETA}, {FC_TICKS} ticks on the card: every "
+        f"forecast and the final state equal the numpy oracle bit for bit; "
+        f"observe (upload, step, download) p50 {np.percentile(us, 50):.1f} "
+        f"us, p95 {np.percentile(us, 95):.1f} us a step (host oracle p50 "
+        f"{np.percentile(hus, 50):.1f} us); card {card}")
+    return dict(step_p50_us=float(np.percentile(us, 50)),
+                step_p95_us=float(np.percentile(us, 95)),
+                host_p50_us=float(np.percentile(hus, 50)), bit_equal=True)
+
+
+def _proc_maps_torch(pid):
+    """True when the process maps a torch or CUDA library."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            maps = f.read()
+    except OSError:
+        return None
+    return any(x in maps for x in ("libtorch", "libc10", "libcuda.so"))
+
+
+async def _frontend_pool(torch, card):
+    import os
+    import socket
+
+    import grpc
+
+    from doorman_tpu_torch.algorithms import Request
+    from doorman_tpu_torch.obs import slo as slo_mod
+    from doorman_tpu_torch.proto import doorman_stream_pb2 as spb
+    from doorman_tpu_torch.proto.grpc_api import CapacityStub
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer
+    from doorman_tpu_torch.solver import dense_cuda
+
+    cores = os.cpu_count() or 1
+    say(f"phase frontend-pool: os.cpu_count() = {cores} (needs "
+        f"{FP_CORES_NEEDED}: {FE_WORKERS} listener workers, the tick "
+        "process and the storm clients)")
+    check(cores >= FP_CORES_NEEDED,
+          f"frontend-pool: {cores} cores, fewer than {FP_CORES_NEEDED}")
+    server = CapacityServer(
+        "fe-pool", TrivialElection(), mode="batch", native_store=True,
+        solver_dtype="f32", tick_interval=FP_TICK_INTERVAL,
+        minimum_refresh_interval=0.0, stream_push=True,
+        stream_shards=ST_SHARDS, flightrec_capacity=0, device=DEVICE)
+    pool = server.attach_frontend(FE_WORKERS, ring_bytes=FE_RING_BYTES,
+                                  inline=False)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        public = f"127.0.0.1:{s.getsockname()[1]}"
+    loop = asyncio.get_running_loop()
+    held = lambda: sum(pool.control.status()["worker_held"].values())  # noqa
+    try:
+        backend = await server.start(0, host="127.0.0.1", tick_loop=False)
+        await server.load_config(parse_yaml_config(FP_CONFIG))
+        await asyncio.sleep(0)
+        server.current_master = public
+        t = time.perf_counter()
+        await pool.start(public, f"127.0.0.1:{backend}")
+        deadline = time.monotonic() + FP_READY_SECONDS
+        while len(pool.control.status()["worker_held"]) < FE_WORKERS:
+            check(time.monotonic() < deadline,
+                  "frontend-pool: the workers never heartbeat")
+            await asyncio.sleep(0.2)
+        ready_s = time.perf_counter() - t
+        pids = [p.pid for p in pool._procs.values()]
+        torch_in = [pid for pid in pids if _proc_maps_torch(pid)]
+        check(not torch_in, f"frontend-pool: workers {torch_in} map torch "
+              "or CUDA")
+        procs = max(2, min(cores - FE_WORKERS - 1, 8))
+        # Leg 1: the establishment storm (band 0): enough streams to keep
+        # the window busy at the floor rate.
+        est_streams = int(FP_EST_FLOOR * FP_EST_SECONDS)
+        est_workers = procs * 16
+        est = await loop.run_in_executor(None, lambda: _storm(
+            "stream", public, procs=procs, workers=est_workers,
+            duration=FP_EST_SECONDS, bands=(0,), seed=7,
+            streams_per_worker=max(est_streams // est_workers, 1),
+            spread=max(est_streams // FP_SUBS_PER_RESOURCE, 1)))
+        est_rate = est["ok"] / max(est["duration_s"], 1e-9)
+        settle = time.monotonic() + 10.0
+        while time.monotonic() < settle and held() > 0:
+            await asyncio.sleep(0.2)
+        # Leg 2: a held population and the sentinel's push laps.
+        hold_workers = procs * 32
+        hold_future = loop.run_in_executor(None, lambda: _storm(
+            "stream", public, procs=procs, workers=hold_workers,
+            duration=FP_HOLD_SECONDS, bands=(0,), seed=11,
+            streams_per_worker=-(-FP_HELD_TARGET // hold_workers),
+            spread=max(FP_HELD_TARGET // FP_SUBS_PER_RESOURCE, 1)))
+        # The server ticks at its cadence while the population ramps: the
+        # tick edge's beat keeps every held stream inside its worker's
+        # stall margin (3 ticks), as the tick loop would.
+        held_max, ramp_ticks = 0, 0
+        ramp_end = time.monotonic() + FP_HOLD_SECONDS / 2
+        while time.monotonic() < ramp_end:
+            t_tick = time.monotonic()
+            await server.tick_once()
+            ramp_ticks += 1
+            held_max = max(held_max, held())
+            if held_max >= FP_HELD_TARGET:
+                break
+            await asyncio.sleep(max(
+                FP_TICK_INTERVAL - (time.monotonic() - t_tick), 0.0))
+        push_lat, push_edges, launches = [], [], []
+        async with grpc.aio.insecure_channel(public) as chan:
+            stub = CapacityStub(chan)
+            wreq = spb.WatchCapacityRequest(client_id="sentinel")
+            rr = wreq.resource.add()
+            rr.resource_id, rr.wants, rr.priority = "sentinel", 10.0, 1
+            call = stub.WatchCapacity(wreq)
+            reader = _StreamReader(call)
+            while not (await reader.read(timeout=30.0)).response:
+                pass
+            for k in range(FP_PUSH_TICKS):
+                # The churner flips between overloading the row and not,
+                # so the sentinel's grant moves every time (bench.py's
+                # 500 never passes the capacity of 600 beside the
+                # sentinel's 10: its grant would not move). The server
+                # keeps its 1 s cadence until the push arrives: the
+                # resident tick lands a solve's grants in the store at
+                # the next tick's collect, and the fanout pushes from
+                # the store.
+                server._decide("sentinel", Request(
+                    "churner", 0.0, FP_CHURN_WANTS[k % 2], 1, priority=0))
+                t0, msg, edges = time.monotonic(), None, 0
+                while msg is None:
+                    check(edges < FP_PUSH_EDGES,
+                          f"frontend-pool: no push to the sentinel in "
+                          f"{edges} ticks after its churn {k + 1}")
+                    t_edge = time.monotonic()
+                    dense_cuda.reset_launches()  # this tick starts here
+                    await server.tick_once()
+                    launches.append(dict(dense_cuda.LAUNCHES))
+                    edges += 1
+                    while msg is None:
+                        left = FP_TICK_INTERVAL - (time.monotonic() - t_edge)
+                        got = await reader.poll(max(left, 0.0))
+                        if got is None:
+                            break
+                        check(got is not grpc.aio.EOF,
+                              f"frontend-pool: the sentinel's stream ended "
+                              f"after its churn {k + 1}")
+                        if got.response:
+                            msg = got
+                push_lat.append(time.monotonic() - t0)
+                push_edges.append(edges)
+                held_max = max(held_max, held())
+                await asyncio.sleep(max(
+                    FP_TICK_INTERVAL - (time.monotonic() - t_edge), 0.0))
+            reader.cancel()
+        # The cadence goes on until the held population's storm ends.
+        while not hold_future.done():
+            t_edge = time.monotonic()
+            dense_cuda.reset_launches()
+            await server.tick_once()
+            launches.append(dict(dense_cuda.LAUNCHES))
+            held_max = max(held_max, held())
+            await asyncio.sleep(max(
+                FP_TICK_INTERVAL - (time.monotonic() - t_edge), 0.0))
+        hold = await hold_future
+        push_lat.sort()
+        p50 = _percentile(push_lat, 0.50) * 1e3
+        p99 = _percentile(push_lat, 0.99) * 1e3
+        verdicts = slo_mod.SloEngine([
+            slo_mod.SloSpec(
+                "frontend_establishment_storm:rate", "min", FP_EST_FLOOR,
+                {"type": "scalar", "key": "est_rate"}, unit="est_per_s"),
+            slo_mod.SloSpec(
+                "frontend_held_streams:held", "min", float(FP_HELD_TARGET),
+                {"type": "scalar", "key": "held_max"}, unit="streams"),
+            slo_mod.SloSpec(
+                "frontend_held_streams:push_p99", "max",
+                1000.0 * FP_TICK_INTERVAL,
+                {"type": "scalar", "key": "push_p99_ms"}, unit="ms"),
+        ]).evaluate(slo_mod.SloInputs(scalars={
+            "est_rate": est_rate, "held_max": float(held_max),
+            "push_p99_ms": p99}))
+        st = pool.status()
+        say(f"phase frontend-pool: {FE_WORKERS} spawned workers ready in "
+            f"{ready_s:.1f}s (none maps torch or CUDA); establishment storm "
+            f"{FP_EST_SECONDS:.0f}s band 0 from {procs} processes x "
+            f"{est_workers // procs} workers: {est['ok']} established, "
+            f"{est_rate:.1f}/s against the reference's floor "
+            f"{FP_EST_FLOOR:.0f}/s, shed {est['shed']}, errors "
+            f"{est['errors']}, establish p50 {est['p50_s'] * 1e3:.2f} ms p99 "
+            f"{est['p99_s'] * 1e3:.2f} ms; held streams max {held_max} of "
+            f"{FP_HELD_TARGET} ({ramp_ticks} ticks at the 1 s cadence while it "
+            f"ramped); sentinel push latency (its churn's first tick edge "
+            f"to the client's message) over {FP_PUSH_TICKS} churns p50 "
+            f"{p50:.2f} ms p99 {p99:.2f} ms against one tick "
+            f"({FP_TICK_INTERVAL * 1e3:.0f} ms), tick edges a push "
+            f"{push_edges}; hold storm pushes "
+            f"{hold['pushes']} resets {hold['resets']} errors "
+            f"{hold['errors']}; frames published "
+            f"{st['publisher']['published_frames']}; card {card}")
+        say("phase frontend-pool: SLO verdicts " + json.dumps(
+            [{k: v[k] for k in ("slo", "status", "observed", "target")
+              if k in v} for v in verdicts]))
+        check(est["ok"] > 0 and held_max > 0,
+              "frontend-pool: nothing established")
+        return dict(cores=cores, ready_s=ready_s, est_rate=est_rate,
+                    est={k: v for k, v in est.items()}, held_max=held_max,
+                    push_p50_ms=p50, push_p99_ms=p99,
+                    push_ms=[x * 1e3 for x in push_lat],
+                    push_edges=push_edges,
+                    hold={k: hold[k] for k in ("ok", "pushes", "resets",
+                                               "errors", "shed")},
+                    slo=verdicts, launches={
+                        k: sum(x[k] for x in launches)
+                        for k in ("k1", "k2", "k3")})
+    finally:
+        await server.stop()
+
+
+def _frontend_smoke(card):
+    """cmd/frontend_smoke's kill-and-resume arc on the real pool."""
+    import os
+
+    t = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-m", "doorman_tpu_torch.cmd.frontend_smoke",
+         "--workers", "2", "--device", DEVICE, "--timeout", "120"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
+    secs = time.perf_counter() - t
+    if out.returncode != 0:
+        say(out.stdout[-2000:] + out.stderr[-4000:])
+    check(out.returncode == 0,
+          f"frontend_smoke exited {out.returncode}")
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    say(f"phase frontend-pool: cmd.frontend_smoke exited 0 in {secs:.1f}s: "
+        f"worker {result['victim']} killed, its stream ended, resumed at "
+        f"seq {result['resumed_seq']} with no replay; card {card}")
+    return dict(seconds=secs, **result)
+
+
+def phase_admission(torch, card):
+    """admission-fused, admission-storm and forecast."""
+    fused = asyncio.run(_admission_fused(torch, card))
+    storm = phase_admission_storm(torch, card)
+    forecast = phase_forecast(torch, card)
+    return dict(fused=fused, storm=storm, forecast=forecast)
+
+
+def _fe_pump(pool):
+    """One pump pass of an inline pool; its ring laps (a corrupt frame or
+    a stalled stream fails)."""
+    res = pool.pump_all()
+    check(res["corrupt"] == 0 and res["stalled"] == 0,
+          f"frontend-parity: pump {res}")
+    return res["lapped"]
+
+
+def phase_frontend(torch, card):
+    """frontend-pool, then cmd.frontend_smoke (frontend-parity runs in the
+    streams phase)."""
+    pool = asyncio.run(_frontend_pool(torch, card))
+    pool["smoke"] = _frontend_smoke(card)
+    return dict(pool=pool)
+
+
 def main() -> int:
     try:
         import torch
@@ -6702,6 +7731,25 @@ def main() -> int:
             entry["launches_by_path"]["federation"] = fed["total"][key]
             entry["launches"] += fed["total"][key]
         line["federation"] = fed
+        say(f"elapsed {time.perf_counter() - t0:.1f}s before admission")
+        # Admission and the frontend: K1/K2 on the admission-fused twins,
+        # the pooled stream server and its twin, and the real pool's
+        # server (no PRIORITY_BANDS resource on these paths: no K3).
+        adm = phase_admission(torch, card)
+        say(f"elapsed {time.perf_counter() - t0:.1f}s before frontend")
+        fe = phase_frontend(torch, card)
+        fe_by = {
+            "admission-fused fused f32": adm["fused"]["fused"]["launches"],
+            "admission-fused unfused f32":
+                adm["fused"]["unfused"]["launches"],
+            "frontend-pool f32": fe["pool"]["launches"],
+        }
+        for key, entry in (("k1", k1), ("k2", k2), ("k3", k3)):
+            adds = {path: n[key] for path, n in fe_by.items()}
+            entry["launches_by_path"].update(adds)
+            entry["launches"] += sum(adds.values())
+        line["admission"] = adm
+        line["frontend"] = fe
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6758,6 +7806,19 @@ def main() -> int:
         + f", reconcile beat p50 "
         f"{_pcts([x / 1e3 for x in fed['roots']['beat_ms']])[0]:.3f} ms, "
         f"exchange p50 {fed['intermediate']['p50']:.2f} ms"
+        f"; admission-fused churn tick p50 / p95 fused "
+        f"{adm['fused']['fused']['tick_p50_ms']:.2f} / "
+        f"{adm['fused']['fused']['tick_p95_ms']:.2f} ms (unfused "
+        f"{adm['fused']['unfused']['tick_p50_ms']:.2f} / "
+        f"{adm['fused']['unfused']['tick_p95_ms']:.2f}); storm goodput off "
+        f"{adm['storm']['off']['goodput_qps']:.1f}/s on "
+        f"{adm['storm']['on']['goodput_qps']:.1f}/s; forecast step p50 "
+        f"{adm['forecast']['step_p50_us']:.1f} us; frontend-parity "
+        f"{streams['streams']['frontend']['pushes']} pushes equal; "
+        f"frontend-pool "
+        f"{fe['pool']['est_rate']:.1f} establishments/s, held "
+        f"{fe['pool']['held_max']}, push p99 "
+        f"{fe['pool']['push_p99_ms']:.2f} ms"
         f"; total {time.perf_counter() - t0:.1f}s")
     say(card)
     say(json.dumps(line))

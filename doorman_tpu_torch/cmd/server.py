@@ -7,6 +7,9 @@
         [--mode immediate|batch] [--native-store] [--no-fused-tick] \\
         [--device cuda] [--solver-dtype f32] \\
         [--stream-push [--max-streams-per-band N] [--stream-shards N]] \\
+        [--admission [--coalesce-window S] [--admission-max-rps R] \\
+         [--fuse-admission]] \\
+        [--frontend-workers N [--frontend-ring-bytes B]] \\
         [--minimum-refresh-interval S] [--debug-port N] [--shard i/N] \\
         [--profile-dir DIR [--profile-ticks N]] [--trace [--trace-buffer N]] \\
         [--flightrec-buffer N] [--flightrec-dir DIR] \\
@@ -34,14 +37,24 @@ backs the stores with the C++ engine and its device-resident tick, whose
 `--shard i/N` makes the server root shard i of a federation of N: the
 election lock gets the suffix /shard<i>, `--persist` is namespaced under
 shard<i>, and the shard index rides status() and every flight record.
+`--admission` puts the RPC admission front-end before GetCapacity and
+WatchCapacity: coalesced GetCapacity windows of `--coalesce-window`
+seconds, AIMD shedding by priority band (`--admission-max-rps` is the
+hard offered-load budget) with the doorman-retry-after trailer, and
+deadline fast-fail; `--fuse-admission` (batch mode, with --admission and
+--native-store) lets each window pre-pack the rows it wrote into the
+resident tick's staging. `--frontend-workers N` (with --stream-push)
+serves the public port from N SO_REUSEPORT listener worker processes
+over per-worker push rings of `--frontend-ring-bytes`, the tick process
+moving to a loopback backend port.
 The debug pages (/debug/status, /metrics, /debug/traces, /debug/flightrec,
 ...) listen on `--debug-port` (15050; 0 picks one, -1 disables);
 `--profile-dir` writes a torch.profiler Chrome trace of the first
 `--profile-ticks` batch ticks; the other observability flags are the
-reference's. Flags not listed here — admission, the frontend pool,
-the fleet (--fleet-beat, --fleet-straddle, --fleet-report-interval),
-TLS (the server's own and --parent-tls / --parent-tls-ca) — are not
-ported yet.
+reference's. Flags not listed here — the fleet (--fleet-beat,
+--fleet-straddle, --fleet-report-interval), TLS (the server's own,
+--frontend-tls-cert / --frontend-tls-key and --parent-tls /
+--parent-tls-ca) — are not ported yet.
 """
 
 from __future__ import annotations
@@ -156,6 +169,50 @@ def make_parser() -> argparse.ArgumentParser:
                         "status pages and flight-recorder records. "
                         "Every candidate of one shard passes the SAME "
                         "value; clients route with the same N")
+    p.add_argument("--admission", action="store_true",
+                   help="enable the RPC admission front-end: coalesced "
+                        "GetCapacity decisions, AIMD overload shedding "
+                        "by priority band (lowest bands first; never "
+                        "ReleaseCapacity/GetServerCapacity), and "
+                        "deadline fast-fail; shed responses carry a "
+                        "doorman-retry-after hint")
+    p.add_argument("--coalesce-window", type=float, default=0.005,
+                   help="admission: seconds per micro-batch window — "
+                        "concurrent GetCapacity RPCs in a window "
+                        "resolve with one grouped decision pass "
+                        "(byte-identical to per-request; 0 disables "
+                        "coalescing but keeps shedding)")
+    p.add_argument("--admission-max-rps", type=float, default=0.0,
+                   help="admission: hard offered-load budget in "
+                        "requests/second — arrivals past it shed "
+                        "within the window; 0 leaves overload "
+                        "detection to the latency/queue/tick-lag "
+                        "signals alone")
+    p.add_argument("--fuse-admission", action="store_true",
+                   help="admission + batch mode: fuse the coalescer's "
+                        "micro-batch windows into the resident "
+                        "solver's dirty-row staging — each window "
+                        "pre-packs the rows it wrote, moving the "
+                        "store pack off the tick's critical path "
+                        "(byte-identical to the unfused tick; needs "
+                        "--admission and --native-store)")
+    p.add_argument("--frontend-workers", type=int, default=0,
+                   help="serving-plane scale-out: run this many "
+                        "SO_REUSEPORT listener worker PROCESSES on "
+                        "--port and move the gRPC backend to an "
+                        "ephemeral loopback port — workers hold the "
+                        "WatchCapacity streams (pushes fan out over "
+                        "per-worker shared-memory rings, zero "
+                        "re-encode) and forward unary RPCs to the tick "
+                        "process; a dead worker's streams reset to "
+                        "redirects and it respawns with a fresh ring "
+                        "cursor. Needs --stream-push; 0 keeps the "
+                        "single-process server")
+    p.add_argument("--frontend-ring-bytes", type=int, default=1 << 22,
+                   help="per-worker push-ring capacity in bytes; size "
+                        "to hold a few ticks of push traffic — a "
+                        "worker that falls a full ring behind laps and "
+                        "resets its streams loudly")
     p.add_argument("--minimum-refresh-interval", type=float, default=5.0,
                    help="floor for client refresh intervals (the "
                         "streams' silent-refresh cadence)")
@@ -300,6 +357,38 @@ async def serve(args: argparse.Namespace, on_started=None) -> None:
         log.info("persistence enabled: %s (snapshot every %.1fs)",
                  args.persist, args.snapshot_interval)
 
+    admission = None
+    if args.admission:
+        from doorman_tpu_torch.admission import Admission
+
+        admission = Admission(
+            coalesce_window=args.coalesce_window,
+            max_rps=args.admission_max_rps or None,
+        )
+        log.info(
+            "admission control enabled (coalesce window %.3fs, "
+            "max rps %s)", args.coalesce_window,
+            args.admission_max_rps or "unbounded",
+        )
+    if args.fuse_admission and admission is None:
+        # Loud, not fatal: the server-side guard ignores fusion without
+        # a coalescing write path, and a silently-ignored perf flag is
+        # an operator trap.
+        log.warning(
+            "--fuse-admission has no effect without --admission "
+            "(the coalescer's windows are the tracked write path)"
+        )
+    if args.fuse_admission and not args.native_store:
+        # The staging cache lives in the native store's resident solver.
+        log.warning(
+            "--fuse-admission has no effect without --native-store "
+            "(the staging cache feeds the native store's resident tick)"
+        )
+    if args.frontend_workers > 0 and not args.stream_push:
+        log.error("--frontend-workers needs --stream-push (the "
+                  "workers exist to hold WatchCapacity streams)")
+        raise SystemExit(2)
+
     server = CapacityServer(
         args.server_id or f"{args.host}:{args.port}",
         election,
@@ -325,6 +414,8 @@ async def serve(args: argparse.Namespace, on_started=None) -> None:
         audit_sample=args.audit_sample,
         detect=args.detect,
         shard=shard,
+        admission=admission,
+        fuse_admission=args.fuse_admission,
         device=args.device,
     )
     if args.history_dir:
@@ -333,10 +424,32 @@ async def serve(args: argparse.Namespace, on_started=None) -> None:
                  len(server.history.records()))
     if args.audit_sample:
         log.info("shadow-oracle audit every %d ticks", args.audit_sample)
-    port = await server.start(args.port, host=args.host)
-    log.info("serving gRPC on %s:%d (%s mode, %s store, tick device %s)",
-             args.host, port, server.mode,
-             "native" if args.native_store else "Python", server.device)
+    frontend = None
+    if args.frontend_workers > 0:
+        # Construct BEFORE start(): the pool's control surface
+        # (Establish/Drop/Heartbeat) registers on the backend gRPC
+        # server at start().
+        frontend = server.attach_frontend(
+            args.frontend_workers,
+            ring_bytes=args.frontend_ring_bytes,
+            inline=False,
+            ramp_window=args.coalesce_window if args.admission else 0.0,
+        )
+        # The tick process retreats to an ephemeral loopback backend;
+        # the workers own the public port via SO_REUSEPORT.
+        backend_port = await server.start(0, host="127.0.0.1")
+        await frontend.start(
+            f"{args.host}:{args.port}", f"127.0.0.1:{backend_port}",
+        )
+        log.info("serving gRPC on %s:%d via %d frontend workers "
+                 "(backend 127.0.0.1:%d)", args.host, args.port,
+                 args.frontend_workers, backend_port)
+    else:
+        port = await server.start(args.port, host=args.host)
+        log.info("serving gRPC on %s:%d (%s mode, %s store, tick device "
+                 "%s)", args.host, port, server.mode,
+                 "native" if args.native_store else "Python",
+                 server.device)
     if args.trace:
         default_tracer().enable(capacity=args.trace_buffer)
         log.info("span tracer enabled (ring %d); see /debug/traces",

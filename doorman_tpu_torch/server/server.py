@@ -52,7 +52,12 @@ the tick or a timer loop flushes and snapshots, and a new master
 restores before it serves), the root and intermediate roles, a
 federated root shard's seams (`shard=`, `set_straddle_share`, the flight
 record's federation beat and `status()["federation"]`; the federation/
-package drives them), and the
+package drives them), RPC admission (`admission=`, an
+admission.Admission: GetCapacity's coalescer, AIMD band shedding with
+the retry-after trailer, deadline fast-fail, the WatchCapacity gate,
+and with `fuse_admission` the coalescer's windows staging the resident
+tick's rows), the serving-plane frontend pool (`attach_frontend`: the
+push rings, listener workers and the establishment ramp), and the
 Discovery / GetCapacity / GetServerCapacity / ReleaseCapacity /
 WatchCapacity RPCs on the reference's wire service
 (doorman_tpu.Capacity), and the reference's observability (obs/): the
@@ -85,7 +90,7 @@ from doorman_tpu_torch.admission.policy import RETRY_AFTER_KEY, Shed
 from doorman_tpu_torch.algorithms import Request
 from doorman_tpu_torch.algorithms.kinds import AlgoKind
 from doorman_tpu_torch.client.connection import Connection
-from doorman_tpu_torch.core.resource import Resource
+from doorman_tpu_torch.core.resource import Resource, algo_kind_for
 from doorman_tpu_torch.obs import metrics as metrics_mod
 from doorman_tpu_torch.obs import phases as phases_mod
 from doorman_tpu_torch.obs import slo as slo_mod
@@ -200,6 +205,8 @@ class CapacityServer(CapacityServicer):
         audit_inline: bool = False,
         detect: bool = False,
         shard: Optional[int] = None,
+        admission=None,  # Optional[doorman_tpu_torch.admission.Admission]
+        fuse_admission: bool = False,
         device="cuda",
     ):
         if mode not in ("immediate", "batch"):
@@ -245,6 +252,11 @@ class CapacityServer(CapacityServicer):
         self._native_store = bool(native_store)
         self._fused_tick = bool(fused_tick)
         self._scoped_solve = bool(scoped_solve)
+        # Admission-fused staging: the coalescer's windows pre-pack their
+        # touched rows into the resident solver's staging cache, moving
+        # the store pack off the tick's critical path (engine.FusedStaging;
+        # requires admission coalescing to be the write path).
+        self._fuse_admission = bool(fuse_admission)
         # The Python store keeps both None: every Resource makes its own
         # core.store.LeaseStore.
         self._store_engine = None
@@ -311,6 +323,14 @@ class CapacityServer(CapacityServicer):
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self.port: Optional[int] = None
 
+        # RPC admission control (admission/): micro-batched GetCapacity
+        # decisions, AIMD overload shedding by priority band, deadline
+        # fast-fail. None serves every request inline — the reference's
+        # only defense is client refresh cadence.
+        self._admission = (
+            admission.bind(self) if admission is not None else None
+        )
+
         # Streaming lease push (server/streams.py): clients hold one
         # WatchCapacity stream instead of polling, and the tick-edge
         # fanout pushes only the rows whose lease moved. Off by default
@@ -327,6 +347,14 @@ class CapacityServer(CapacityServicer):
                 self, max_streams_per_band=max_streams_per_band,
                 shards=stream_shards,
             )
+        # Frontend serving pool (frontend/): the multi-process
+        # SO_REUSEPORT listener plane. attach_frontend wires an inline or
+        # process pool; the control surface registers on the backend
+        # gRPC server at start(); the establishment ramp micro-batches
+        # forwarded stream establishments.
+        self._frontend = None
+        self._frontend_control = None
+        self._frontend_ramp = None
         # Delta bookkeeping for the fanout: ticks whose changes have no
         # tracked source (Python store, overflow tick, wide/priority
         # solver parts, config epoch moves) force a full subscription
@@ -427,6 +455,15 @@ class CapacityServer(CapacityServicer):
         self._loop = asyncio.get_running_loop()
         server = grpc.aio.server()
         add_capacity_servicer(server, self)
+        if self._frontend_control is not None:
+            # The frontend pool's control surface (Establish / Drop /
+            # Heartbeat) rides the backend gRPC server; handlers must
+            # register before the server starts.
+            from doorman_tpu_torch.frontend.control import (
+                add_frontend_control,
+            )
+
+            add_frontend_control(server, self._frontend_control)
         self.port = server.add_insecure_port(f"{host}:{port}")
         await server.start()
         self._grpc_server = server
@@ -452,8 +489,49 @@ class CapacityServer(CapacityServicer):
             self._tasks.append(asyncio.create_task(self._stream_loop()))
         return self.port
 
+    def attach_frontend(self, workers: int, *, ring_bytes: int = 1 << 20,
+                        inline: bool = True, ramp_window: float = 0.0):
+        """Attach the serving-plane pool (frontend/): N listener
+        workers over per-worker push rings, plus the establishment ramp.
+        `inline=True` builds the deterministic same-process pool (tests;
+        call `pump_all()` after push edges); `inline=False` builds the
+        real process pool (construct BEFORE start(); its control surface
+        registers on the backend gRPC server at start). Returns the
+        pool. (The reference's worker TLS waits with TLS.)"""
+        if self._streams is None:
+            raise ValueError(
+                "attach_frontend needs stream push enabled (stream_push)"
+            )
+        from doorman_tpu_torch.admission.ramp import EstablishmentRamp
+        from doorman_tpu_torch.frontend.pool import (
+            FrontendPool,
+            InlineFrontendPool,
+        )
+
+        if inline:
+            self._frontend = InlineFrontendPool(
+                self, workers, ring_bytes=ring_bytes
+            )
+        else:
+            self._frontend = FrontendPool(
+                self, workers, ring_bytes=ring_bytes,
+                tick_interval=self.tick_interval,
+            )
+        self._frontend_ramp = EstablishmentRamp(window=ramp_window)
+        return self._frontend
+
     async def stop(self) -> None:
         self._stop_profiler()
+        if self._frontend_ramp is not None:
+            self._frontend_ramp.close()
+            self._frontend_ramp = None
+        if self._frontend is not None:
+            closer = getattr(self._frontend, "stop", None)
+            if closer is not None:
+                await closer()
+            else:
+                self._frontend.close()
+            self._frontend = None
         if self._streams is not None:
             self._streams.close()
         for t in self._tasks:
@@ -696,6 +774,13 @@ class CapacityServer(CapacityServicer):
                 rotate_ticks=None, tick_interval=self.tick_interval,
                 fused=self._fused_tick, scoped=self._scoped_solve,
             )
+            if self._fuse_admission and self._admission is not None:
+                # Admission-fused staging: the coalescer's windows
+                # pre-pack their touched rows (engine.FusedStaging);
+                # only meaningful when coalescing is the GetCapacity
+                # write path — without admission every write is
+                # untracked and the cache would just be invalidated.
+                self._resident.attach_staging()
             if self._streams is not None:
                 # Streaming lease push: the tick compares delivered rows
                 # against a resident previous-grants table (K2's
@@ -785,6 +870,15 @@ class CapacityServer(CapacityServicer):
             # counter is cumulative either way).
             self._audit_step()
             self._flight_record_tick(tick_start)
+            if self._admission is not None:
+                # Tick lag feeds the overload controller: a solve
+                # falling behind its cadence is overload even while the
+                # RPC path still looks healthy. Measured on the server
+                # clock so replays on a fake clock stay deterministic.
+                self._admission.controller.observe_tick_lag(
+                    (self._clock() - tick_start)
+                    / max(self.tick_interval, 1e-9)
+                )
 
     async def _tick_once_locked(self) -> None:
         if not self.resources:
@@ -999,8 +1093,9 @@ class CapacityServer(CapacityServicer):
         O(#resources): the stores keep running sums. A root shard's
         record carries the federation beat (shard, straddle updates and
         upstream RPCs since the last record, the installed shares' sum).
-        The reference's admission and frontend fields are absent, as in
-        the reference when those parts are off."""
+        With admission on, the record carries the admit level and the
+        GetCapacity tallies; with a frontend pool, its held streams and
+        published frames."""
         fr = self.flightrec
         if fr is None and self.history is None and self.detector is None:
             return
@@ -1090,6 +1185,33 @@ class CapacityServer(CapacityServicer):
             rec["stream_shards"] = st["stream_shards"]
             rec["matched_pairs"] = st["matched_pairs"]
             rec["serialized_bytes"] = st["serialized_bytes"]
+        if self._frontend is not None:
+            # Serving-plane pool shape: streams held across listener
+            # workers and the frames published to the rings — the triage
+            # counters for "a worker fell behind its ring".
+            rec["frontend_held"] = self._frontend.held() if hasattr(
+                self._frontend, "held"
+            ) else sum(
+                self._frontend.control.worker_held.values()
+            )
+            rec["frontend_frames"] = (
+                self._frontend.publisher.published_frames
+            )
+        if self._admission is not None:
+            admitted = 0
+            shed_by_band: Dict[str, int] = {}
+            for (method, band), counts in self._admission.tallies.items():
+                if method != "GetCapacity":
+                    continue
+                admitted += counts["admitted"]
+                if counts["shed"]:
+                    shed_by_band[str(band)] = counts["shed"]
+            rec["admission_level"] = round(
+                self._admission.controller.level, 6
+            )
+            rec["admitted_total"] = admitted
+            if shed_by_band:
+                rec["shed_by_band"] = shed_by_band
         if self._persist is not None:
             rec["persist_seq"] = self._persist.journal.seq
         shards = phases_mod.last_shard_bytes()
@@ -1143,9 +1265,9 @@ class CapacityServer(CapacityServicer):
 
     def evaluate_slos(self, registry=None) -> List[dict]:
         """Evaluate the standing SLO set (obs.slo.server_slos) over the
-        flight-recorder window (the history's, when one is kept) and the
+        flight-recorder window (the history's, when one is kept), the
         request histograms in `registry` (default: the process-global
-        one). Caches the result in `last_slo` for status() and
+        one) and the admission tallies. Caches the result in `last_slo` for status() and
         /debug/slo."""
         samples: Dict[str, list] = {}
         if self.history is not None:
@@ -1169,6 +1291,11 @@ class CapacityServer(CapacityServicer):
             scalars["restore_staleness_s"] = float(
                 self.last_restore.get("age", 0.0)
             )
+        band_tallies: Dict[int, dict] = {}
+        if self._admission is not None:
+            for (method, band), counts in self._admission.tallies.items():
+                if method == "GetCapacity":
+                    band_tallies[int(band)] = dict(counts)
         specs = slo_mod.server_slos()
         if self.shadow_audit is not None:
             # Any confirmed divergence fails the SLO block until the
@@ -1184,7 +1311,7 @@ class CapacityServer(CapacityServicer):
             registry=registry or metrics_mod.default_registry(),
             samples=samples,
             scalars=scalars,
-            band_tallies={},
+            band_tallies=band_tallies,
         )
         verdicts = slo_mod.SloEngine(specs).evaluate(inputs)
         self.last_slo = {
@@ -1248,6 +1375,41 @@ class CapacityServer(CapacityServicer):
                 await self.tick_once()
             except Exception:
                 log.exception("%s: batched tick failed", self.id)
+
+    # -- admission-fused staging hooks ---------------------------------
+    # (the tracked-writer registry FUSED_TRACKED_WRITERS lives at module
+    # level below the class; tests/test_torch_admission.py reads it)
+
+    def _fused_stage(self, resource_ids) -> None:
+        """Coalescer hook, called right after a window's grouped store
+        writes: pre-pack the touched NARROW lane rows into the resident
+        solver's staging cache, moving the pack off the next tick's
+        critical path and into the RPC window that caused it. Runs
+        wherever the grouped pass runs (loop or executor thread): the
+        native pack call and the cache are both thread-safe, and the
+        staging is host-only (a native pack into numpy under the cache's
+        lock, no CUDA call; the tick's one upload stays on the tick's
+        stream). The drained dirty set remains authoritative for WHICH
+        rows upload; this only short-circuits packing their VALUES
+        (engine.FusedStaging)."""
+        solver = self._resident
+        if (
+            solver is None
+            or solver.staging is None
+            or not self.is_master
+        ):
+            return
+        rids = []
+        for resource_id in resource_ids:
+            res = self.resources.get(resource_id)
+            if (
+                res is not None
+                and resource_id not in self._wide_ids
+                and algo_kind_for(res.template) != AlgoKind.PRIORITY_BANDS
+            ):
+                rids.append(res.store._rid)
+        if rids:
+            solver.stage_rids(rids)
 
     def _fused_invalidate(self, resource_id: Optional[str] = None) -> None:
         """Untracked-writer hook: a store write outside the coalescer's
@@ -1490,6 +1652,8 @@ class CapacityServer(CapacityServicer):
         start = self._clock()
         out = pb.GetCapacityResponse()
         err = False
+        adm = self._admission
+        adm_observed = False
         with self._rpc_span("GetCapacity", context, request.client_id):
             try:
                 if not self.is_master:
@@ -1498,7 +1662,32 @@ class CapacityServer(CapacityServicer):
                 msg = config_mod.validate_get_capacity_request(request)
                 if msg is not None:
                     err = True
+                    if adm is not None:
+                        adm.observe_rpc(self._clock() - start)
+                        adm_observed = True
                     await context.abort(grpc.StatusCode.INVALID_ARGUMENT, msg)
+                if adm is not None:
+                    shed = adm.check_get_capacity(request, context)
+                    if shed is not None:
+                        err = True
+                        # Latency is observed BEFORE the abort: the
+                        # abort's unwind races the client's resumption on
+                        # the loop, so a finally-side measurement could
+                        # land after a fake clock's next advance and feed
+                        # the controller a bogus tick-length sample.
+                        adm.observe_rpc(self._clock() - start)
+                        adm_observed = True
+                        # The retry-after hint rides trailing metadata (a
+                        # non-OK status cannot carry a response message);
+                        # semantically it is the admission path's
+                        # refresh_interval — "come back in N seconds".
+                        context.set_trailing_metadata((
+                            (RETRY_AFTER_KEY, f"{shed.retry_after:.3f}"),
+                        ))
+                        await context.abort(
+                            grpc.StatusCode.RESOURCE_EXHAUSTED, shed.reason
+                        )
+                    return await adm.serve_get_capacity(request)
                 for req in request.resource:
                     has = req.has.capacity if req.HasField("has") else 0.0
                     lease, res = self._decide(
@@ -1515,6 +1704,10 @@ class CapacityServer(CapacityServicer):
                 return out
             finally:
                 dur = self._clock() - start
+                if adm is not None and not adm_observed:
+                    # Latency feed for the overload controller (shed
+                    # requests are observed at the abort above).
+                    adm.observe_rpc(dur)
                 self.on_request("GetCapacity", dur, err)
                 self.request_log.record(
                     "GetCapacity", request.client_id,
@@ -1526,8 +1719,7 @@ class CapacityServer(CapacityServicer):
     async def GetServerCapacity(self, request, context):
         """One downstream server's aggregated demand, one sub-lease per
         (server, priority band): each band is decided as a client of the
-        resource and the response carries the sum of the band grants.
-        (The reference's admission tally is not ported yet.)"""
+        resource and the response carries the sum of the band grants."""
         start = self._clock()
         out = pb.GetServerCapacityResponse()
         err = False
@@ -1545,6 +1737,18 @@ class CapacityServer(CapacityServicer):
             if msg is not None:
                 err = True
                 await context.abort(grpc.StatusCode.INVALID_ARGUMENT, msg)
+            if self._admission is not None:
+                # Never shed (one RPC carries a whole downstream
+                # subtree's demand — the shed matrix's 'never' row);
+                # tallied so the load is visible in the counters.
+                self._admission.note_pass_through(
+                    "GetServerCapacity",
+                    max(
+                        (band.priority for r in request.resource
+                         for band in r.wants),
+                        default=0,
+                    ),
+                )
             self._sweep_server_bands()
             for req in request.resource:
                 # The store keeps the downstream server's band composition
@@ -1656,10 +1860,10 @@ class CapacityServer(CapacityServicer):
     async def WatchCapacity(self, request, context):
         """Streaming lease push: one subscription request, a stream of
         tick-edge deltas. Establishment walks the same gate as a poll —
-        mastership, validation, the per-band stream cap — then the
-        registry owns the stream until it ends with a terminal
-        mastership redirect. (The reference's admission gate and
-        establishment ramp are not ported yet.)"""
+        mastership, validation, admission (AIMD band shed + per-band
+        stream cap), through the establishment ramp when a frontend pool
+        is attached — then the registry owns the stream until it ends
+        with a terminal mastership redirect."""
         start = self._clock()
         err = True
         try:
@@ -1685,20 +1889,39 @@ class CapacityServer(CapacityServicer):
                 band = max(
                     (rr.priority for rr in request.resource), default=0
                 )
-                shed: Optional[Shed] = self._streams.check_cap(band)
-                if shed is not None:
+
+                def _establish():
+                    """Gate + subscribe, in arrival order — ridden
+                    directly or through the establishment ramp's
+                    grid-aligned window (admission/ramp.py)."""
+                    shed = None
+                    if self._admission is not None:
+                        shed = self._admission.check_watch(request)
+                    if shed is None:
+                        shed = self._streams.check_cap(band)
+                    if shed is not None:
+                        return shed
+                    sub = self._streams.subscribe(request)
+                    # Bind the new stream into the device matcher's
+                    # incidence structure (a point scatter, not a
+                    # rebuild).
+                    self._stream_match_add(sub)
+                    return sub
+
+                if self._frontend_ramp is not None:
+                    result = await self._frontend_ramp.submit(_establish)
+                else:
+                    result = _establish()
+                if isinstance(result, Shed):
                     # Same wire contract as a shed poll: the pacing hint
                     # rides trailing metadata.
                     context.set_trailing_metadata((
-                        (RETRY_AFTER_KEY, f"{shed.retry_after:.3f}"),
+                        (RETRY_AFTER_KEY, f"{result.retry_after:.3f}"),
                     ))
                     await context.abort(
-                        grpc.StatusCode.RESOURCE_EXHAUSTED, shed.reason
+                        grpc.StatusCode.RESOURCE_EXHAUSTED, result.reason
                     )
-                sub = self._streams.subscribe(request)
-                # Bind the new stream into the device matcher's
-                # incidence structure (a point scatter, not a rebuild).
-                self._stream_match_add(sub)
+                sub = result
                 err = False
         finally:
             dur = self._clock() - start
@@ -1740,6 +1963,10 @@ class CapacityServer(CapacityServicer):
             if msg is not None:
                 err = True
                 await context.abort(grpc.StatusCode.INVALID_ARGUMENT, msg)
+            if self._admission is not None:
+                # Never shed: releases shrink load; refusing one pins a
+                # dead client's capacity and worsens the overload.
+                self._admission.note_pass_through("ReleaseCapacity")
             for resource_id in request.resource_id:
                 res = self.resources.get(resource_id)
                 if res is None:
@@ -1806,6 +2033,76 @@ class CapacityServer(CapacityServicer):
             # last snapshot reconstructs this exact store row.
             self._persist.record_assign(resource_id, request.client, lease)
         return lease, res
+
+    def decide_bulk(
+        self,
+        resource_id: str,
+        cids,
+        has,
+        wants,
+        priorities,
+        *,
+        old_has,
+        old_wants,
+        new_mask,
+        cid_handles=None,
+        expected_count=None,
+    ):
+        """Bulk refresh entry for array-backed drivers: decide one
+        resource's batch of single-resource requests in arrival order
+        and return ``(grants, expiry, refresh_interval, safe,
+        fast_rows)`` arrays. Tries the vectorized grouped pass first
+        (`coalesce.decide_grouped_arrays`, grant-exact with the
+        per-request path) and falls back to the sequential
+        `decide_grouped` — identical responses either way, only
+        ``fast_rows`` says how much of the batch went through arrays.
+        Caller preconditions: this server is master, no stored lease is
+        expired, and the mirror arrays describe the store's rows
+        exactly. Must run on the event loop (the same discipline as the
+        coalescer's inline window)."""
+        from doorman_tpu_torch.admission import coalesce as coalesce_mod
+
+        try:
+            out = coalesce_mod.decide_grouped_arrays(
+                self, resource_id, cids, has, wants, priorities,
+                old_has=old_has, old_wants=old_wants, new_mask=new_mask,
+                cid_handles=cid_handles, expected_count=expected_count,
+            )
+            if out is None:
+                name_of = (
+                    self._store_engine.client_name
+                    if cids is None else None
+                )
+                work = []
+                for i in range(len(wants)):
+                    name = (
+                        cids[i] if cids is not None
+                        else name_of(int(cid_handles[i]))
+                    )
+                    work.append((resource_id, Request(
+                        name, float(has[i]), float(wants[i]), 1,
+                        priority=int(priorities[i]),
+                    )))
+                decided = coalesce_mod.decide_grouped(self, work)
+                n = len(work)
+                grants = np.empty(n, np.float64)
+                expiry = np.empty(n, np.float64)
+                refresh = np.empty(n, np.float64)
+                safe = np.empty(n, np.float64)
+                for i, (lease, _res, s) in enumerate(decided):
+                    grants[i] = lease.has
+                    expiry[i] = lease.expiry
+                    refresh[i] = lease.refresh_interval
+                    safe[i] = s
+                out = (grants, expiry, refresh, safe, 0)
+        except BaseException:
+            # Same contract as the coalescer's window: a partially
+            # applied batch can't prove staging freshness — drop the
+            # fused cache and re-raise.
+            self._fused_invalidate()
+            raise
+        self._fused_stage({resource_id})
+        return out
 
     # ------------------------------------------------------------------
     # Intermediate-server updater (refresh capacity from the parent)
@@ -2018,12 +2315,33 @@ class CapacityServer(CapacityServicer):
                 if self._persist is not None
                 else None
             ),
-            "admission": None,
+            "admission": (
+                self._admission.status()
+                if self._admission is not None
+                else None
+            ),
             # Streaming lease push (None: stream push off).
             "streams": (
                 self._streams.status() if self._streams is not None else None
             ),
-            "frontend": None,
+            # Serving-plane pool (None: single-process front-end).
+            "frontend": (
+                {
+                    **self._frontend.status(),
+                    "ramp": (
+                        self._frontend_ramp.status()
+                        if self._frontend_ramp is not None
+                        else None
+                    ),
+                    "control": (
+                        self._frontend_control.status()
+                        if self._frontend_control is not None
+                        else None
+                    ),
+                }
+                if self._frontend is not None
+                else None
+            ),
             # Federation identity + traffic (None: unsharded server
             # with no federated activity).
             "federation": (
@@ -2083,3 +2401,57 @@ class CapacityServer(CapacityServicer):
         if res is None:
             return None
         return res.store.lease_status()
+
+
+# ----------------------------------------------------------------------
+# Fused-staging tracked-writer registry
+# ----------------------------------------------------------------------
+# The FusedStaging freshness contract (solver/engine.py): a window-time
+# pack cache entry is valid only while no store write touched its row
+# after staging. Every store-row writer in this file and
+# admission/coalesce.py either calls _fused_invalidate (release paths,
+# band sub-leases, band sweeps do) or appears here with the note saying
+# who owns its staging obligation (tests/test_torch_admission.py checks
+# both files against this list). Adding a writer to this list is a
+# CONTRACT CLAIM — include the argument, like the entries below.
+FUSED_TRACKED_WRITERS = frozenset({
+    # The coalescer's grouped pass is THE tracked writer: it re-stages
+    # everything it wrote via _fused_stage at window close and drops the
+    # whole cache on a partially-applied window. (It calls both hooks
+    # inline, so it self-certifies; listed for documentation.)
+    "Coalescer._decide_batch",
+    # The shared grouped-decide core (admission/coalesce.decide_grouped)
+    # only dispatches to _decide; its CALLERS own the contract exactly
+    # like _decide's own call sites below: Coalescer._decide_batch
+    # re-stages via _fused_stage after the window's writes, and the
+    # stream fanout's per-shard pass runs only steady-state refresh
+    # decides — identical wants rewritten, packed bytes unchanged (the
+    # StreamRegistry._decide argument).
+    "decide_grouped",
+    # _decide writes one row per call; its call sites own the contract:
+    # Coalescer._decide_batch re-stages after the window's writes,
+    # _get_server_capacity invalidates after the band loop, GetCapacity's
+    # direct loop only runs with admission off (below), and the stream
+    # registry (server/streams.py) invalidates on its establishment
+    # decide — the only one of its decides that changes packed bytes.
+    "CapacityServer._decide",
+    # The direct per-request loop runs only when admission is None
+    # (coalescing otherwise owns every GetCapacity decide), and fused
+    # staging is attached iff fuse_admission AND admission coalescing
+    # are active (_resident_solver) — so on this path the staging cache
+    # provably does not exist.
+    "CapacityServer.GetCapacity",
+    # Mastership transitions swap the store engine and null the
+    # resident solvers before persist.restore writes the fresh engine:
+    # the staged cache dies with the old solver (engine handles are
+    # meaningless across the swap), and a new cache cannot exist until
+    # a new solver is built after this method returns.
+    "CapacityServer._on_is_master",
+    # The array decide pass (admission/coalesce.decide_grouped_arrays)
+    # commits its grants in one bulk_assign; its sole caller,
+    # CapacityServer.decide_bulk, owns the contract exactly like
+    # Coalescer._decide_batch does for decide_grouped — it calls
+    # _fused_stage after the batch's writes and _fused_invalidate on a
+    # partially-applied batch (the exception path).
+    "decide_grouped_arrays",
+})

@@ -72,8 +72,12 @@ store, the admission coalescer's executor rule — with each shard's
 state touched by exactly one thread and all queue enqueues applied back
 on the loop after the shard passes join.
 
-Not ported yet: the frontend pool's push-ring seam (publisher, pooled
-stream ids, worker teardown).
+The frontend pool's push-ring seam (frontend/): with a RingPublisher
+attached, a new subscription is pooled — pinned to the listener worker
+owning its stream shard, addressed by a registry-global stream id — and
+its pushes and terminal ride that worker's ring as the same
+pre-serialized bytes; `drop_worker` ends a dead worker's streams with
+redirects.
 """
 
 from __future__ import annotations
@@ -133,7 +137,8 @@ class Subscription:
 
     __slots__ = (
         "client_id", "band", "lines", "last", "queue", "next_refresh",
-        "terminated", "shard", "match_slot", "order",
+        "terminated", "shard", "match_slot", "order", "stream_id",
+        "worker",
     )
 
     def __init__(self, client_id: str, band: int,
@@ -156,6 +161,12 @@ class Subscription:
         self.shard = shard
         # Device-matcher slot (server/match.py); owned by the server.
         self.match_slot: "int | None" = None
+        # Frontend pool routing (frontend/): a pooled subscription is
+        # addressed on the push ring by stream_id and owned by exactly
+        # one listener worker, pinned at establishment. worker=None is
+        # the in-process path.
+        self.stream_id = 0
+        self.worker: "int | None" = None
 
 
 class StreamShard:
@@ -377,6 +388,17 @@ class StreamShard:
         sub.terminated = True
         msg = spb.WatchCapacityResponse(seq=self._next_seq())
         msg.mastership.CopyFrom(mastership)
+        publisher = self._registry.publisher
+        if sub.worker is not None and publisher is not None:
+            # Pooled stream: the terminal rides the owning worker's ring
+            # as a KIND_TERMINAL frame (the worker sends the bytes and
+            # ends the stream). A dead worker can't deliver — the
+            # registry's drop_worker sweep is the teardown there.
+            if publisher.publish_terminal(
+                sub.worker, self.index, sub.stream_id,
+                msg.SerializeToString(),
+            ):
+                return
         while True:
             try:
                 sub.queue.put_nowait(msg)
@@ -458,11 +480,24 @@ class StreamShard:
                 n_rows: int) -> None:
         if sub.terminated:
             return
-        try:
-            sub.queue.put_nowait(payload)
-        except asyncio.QueueFull:
-            self.reset(sub)
-            return
+        publisher = self._registry.publisher
+        if sub.worker is not None and publisher is not None:
+            # Pooled stream: the SAME pre-serialized bytes ride the
+            # owning worker's ring instead of the local queue (the
+            # zero-re-encode seam; tests/test_torch_frontend.py pins the
+            # pooled frames byte-equal to the in-process pushes). A dead
+            # worker drops the frame; drop_worker's sweep ends the
+            # stream, so the client re-establishes, never lapses.
+            if not publisher.publish(
+                sub.worker, self.index, sub.stream_id, payload
+            ):
+                return
+        else:
+            try:
+                sub.queue.put_nowait(payload)
+            except asyncio.QueueFull:
+                self.reset(sub)
+                return
         size = len(payload)
         self.total_messages += 1
         self.total_deltas += n_rows
@@ -528,6 +563,18 @@ class StreamRegistry:
         # Tick-edge fanouts that raised (the server's push_streams
         # catches them so the tick survives; status reports the count).
         self.fanout_errors = 0
+        # Frontend pool seam (frontend/): when a RingPublisher is
+        # attached, every new subscription is pooled — pinned to the
+        # worker owning its stream shard, addressed by a registry-global
+        # stream_id, with pushes routed onto the ring.
+        self.publisher = None
+        self._stream_ids = 0
+        self._by_stream_id: Dict[int, Subscription] = {}
+        # Inline pool registration hook: called with the new pooled sub
+        # BEFORE its snapshot publishes, so the worker core never parks
+        # establishment frames. Real workers register via the Establish
+        # reply instead (frontend/control.py) and this stays None.
+        self.on_pooled_subscribe = None
 
     # -- routing -------------------------------------------------------
 
@@ -569,7 +616,8 @@ class StreamRegistry:
             )
         return None
 
-    def subscribe(self, request) -> Subscription:
+    def subscribe(self, request, worker: "Optional[int]" = None
+                  ) -> Subscription:
         band = max((rr.priority for rr in request.resource), default=0)
         lines = {
             rr.resource_id: (rr.wants, rr.priority)
@@ -580,11 +628,82 @@ class StreamRegistry:
                            shard=shard.index)
         self._order += 1
         sub.order = self._order
+        if self.publisher is not None:
+            # Pooled routing is pinned BEFORE the first message builds:
+            # the establishment snapshot already rides the ring. The
+            # inline pool routes by the shard's home worker; a REAL
+            # worker passes itself (`worker`) — SO_REUSEPORT hands the
+            # TCP connection to an arbitrary worker, and the frames must
+            # ride the ring of the worker that holds the stream.
+            self._stream_ids += 1
+            sub.stream_id = self._stream_ids
+            sub.worker = (
+                worker if worker is not None
+                else self.publisher.shard_worker(shard.index)
+            )
+            self._by_stream_id[sub.stream_id] = sub
+            if self.on_pooled_subscribe is not None:
+                self.on_pooled_subscribe(sub)
         shard.subscribe(request, sub)
         return sub
 
     def unsubscribe(self, sub: Subscription) -> None:
         self._shards[sub.shard].unsubscribe(sub)
+        if sub.stream_id:
+            self._by_stream_id.pop(sub.stream_id, None)
+
+    # -- frontend pool handoff -----------------------------------------
+
+    def attach_publisher(self, publisher) -> None:
+        """Attach the frontend pool's RingPublisher. Existing
+        subscriptions stay in-process (worker=None); only streams
+        established afterwards are pooled — attachment happens before
+        the listener opens, so in practice all of them."""
+        self.publisher = publisher
+
+    def stream_by_id(self, stream_id: int) -> "Optional[Subscription]":
+        return self._by_stream_id.get(stream_id)
+
+    def worker_subs(self, worker: int) -> List[Subscription]:
+        return [
+            sub for sub in self._by_stream_id.values()
+            if sub.worker == worker
+        ]
+
+    def drop_worker(self, worker: int, mastership) -> int:
+        """One listener worker died: remap its stream shards to the
+        survivors and end every stream it held — terminal redirects
+        delivered LOCALLY (the worker that would have pumped the ring is
+        gone; in the real pool the TCP teardown already reset the
+        clients, in the inline pool the local queue models it). The
+        clients re-establish — routed to a surviving worker by the
+        reassigned map — and resume from seq: per-shard seq counters
+        never reset, so the resumed stream sees no replay and no gap.
+        Returns the number of streams dropped. Never silent-lapse: a
+        crash is a loud terminal, not a quiet stall."""
+        if self.publisher is not None:
+            self.publisher.reassign(worker)
+        dropped = 0
+        for sub in self.worker_subs(worker):
+            if not sub.terminated:
+                # Clear the worker pin first so the terminal takes the
+                # local-queue path (the dead worker's ring has no reader
+                # to forward it).
+                sub.worker = None
+                self._shards[sub.shard].terminate(sub, mastership)
+                dropped += 1
+            self.unsubscribe(sub)
+            # No handler finally / Drop RPC runs for a crashed worker:
+            # release the device-matcher slot here or it leaks
+            # (idempotent — a stream whose handler does come back around
+            # just no-ops).
+            self._server._stream_match_remove(sub)
+        if dropped:
+            log.info(
+                "%s: frontend worker %d lost — dropped %d stream(s) "
+                "with redirects", self._server.id, worker, dropped,
+            )
+        return dropped
 
     # -- the tick-edge fanout ------------------------------------------
 
@@ -631,6 +750,11 @@ class StreamRegistry:
         if not work:
             for shard, due in zip(self._shards, due_by_shard):
                 shard.advance_refresh(now, due)
+            if self.publisher is not None:
+                # A quiet tick is still a push edge: the beat is how a
+                # worker's deadline wheel tells "nothing to push" from
+                # "ring stalled" (frontend/ring.py KIND_BEAT).
+                self.publisher.beat()
             self.last_fanout_seconds = time.perf_counter() - t0
             return
         decided = self._decide_all(work)
@@ -671,12 +795,14 @@ class StreamRegistry:
                 shard.enqueue(sub, payload, n_rows)
         for shard, due in zip(self._shards, due_by_shard):
             shard.advance_refresh(now, due)
+        if self.publisher is not None:
+            self.publisher.beat()
         self.last_fanout_seconds = time.perf_counter() - t0
 
     def _decide_all(self, work: List[Tuple[str, Request]]) -> List[tuple]:
         """The edge-global decide pass. Sequential it is exactly
         decide_grouped; when leaving the loop is safe (the native
-        engine's mutex guards store writes) the
+        engine's mutex guards store writes, no loop-only journal) the
         per-resource groups fan to worker threads — different resources
         touch disjoint stores, so the parallel replay is byte-identical
         to the sequential one."""
@@ -715,10 +841,11 @@ class StreamRegistry:
     def _parallel_ok(self) -> bool:
         """Shard fanouts may leave the event loop only when that is
         safe — the admission coalescer's executor rule: the native
-        engine's mutex guards concurrent store writes (the reference
-        also requires no persist journal, which is loop-only; the port
-        has none)."""
-        return self._server._native_store
+        engine's mutex guards concurrent store writes, but the persist
+        journal is loop-only."""
+        return (
+            self._server._native_store and self._server._persist is None
+        )
 
     def _pool(self) -> ThreadPoolExecutor:
         if self._executor is None:
@@ -808,9 +935,8 @@ class StreamRegistry:
             for band, n in shard._band_counts.items():
                 band_counts[band] = band_counts.get(band, 0) + n
         return {
-            # The federated root shard this registry serves (None: the
-            # port serves no federation yet); resume tokens are scoped
-            # to it.
+            # The federated root shard this registry serves (None: an
+            # unsharded server); resume tokens are scoped to it.
             "shard": getattr(self._server, "shard", None),
             "shards": len(self._shards),
             "subscribers": len(self),
@@ -825,7 +951,9 @@ class StreamRegistry:
             "resets_total": self.total_resets,
             "last_fanout_ms": round(self.last_fanout_seconds * 1000.0, 3),
             "per_shard": [s.status() for s in self._shards],
-            # The frontend pool's status in the reference (not ported).
-            "frontend": None,
+            "frontend": (
+                self.publisher.status()
+                if self.publisher is not None else None
+            ),
             "fanout_errors": self.fanout_errors,
         }

@@ -264,7 +264,12 @@ class FusedStaging:
     source of truth for WHICH rows upload; the cache only short-circuits
     packing their VALUES. An entry is valid only while no store write
     touched its row after it was staged: untracked writers `invalidate`.
-    Thread-safe."""
+    The tick's own delivery write-back (`collect`), which in a pipeline
+    lands between a window and the next dispatch, rewrites `has` only:
+    so dispatch serves only wants-only rows from the cache (their upload
+    is `wants`) and packs full-upload rows afresh. (The reference serves
+    full rows from the cache too, and so can upload a delivered row's
+    pre-delivery `has`; ROADMAP §C.) Thread-safe."""
 
     def __init__(self, engine):
         self._engine = engine

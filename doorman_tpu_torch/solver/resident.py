@@ -286,15 +286,20 @@ class ResidentDenseSolver(TickEngineBase):
     def _drained_empty(self, drained) -> bool:
         return len(drained[0]) == 0
 
-    def _pack_rows_fused(self, pack_rids: np.ndarray, kfill: int, fused):
+    def _pack_rows_fused(self, pack_rids: np.ndarray, kfill: int, fused,
+                         n_full: int = 0):
         """Pack the given rids at lane width kfill, serving rows from the
         window-time pack cache where a valid entry exists and one C pack
-        call for the rest."""
+        call for the rest. The first `n_full` rids are full uploads
+        (has, subclients, active too): packed afresh, since a delivery
+        write-back may have moved their `has` after the window staged
+        them (engine.FusedStaging)."""
         n = len(pack_rids)
         hit = np.zeros(n, bool)
         entries = []
         if fused:
-            for i, rid in enumerate(pack_rids):
+            for i in range(n_full, n):
+                rid = pack_rids[i]
                 e = fused.get(int(rid))
                 if e is not None and e[0] == kfill:
                     hit[i] = True
@@ -350,7 +355,7 @@ class ResidentDenseSolver(TickEngineBase):
         pack_rids = self._rids[order]
         while True:
             w, h, s, act, counts, versions, rows_hit = (
-                self._pack_rows_fused(pack_rids, self._kfill, fused)
+                self._pack_rows_fused(pack_rids, self._kfill, fused, n_full)
             )
             kmax = int(counts.max()) if len(counts) else 0
             if kmax <= self._kfill:

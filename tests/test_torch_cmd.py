@@ -287,3 +287,105 @@ def test_shard_flag_suffixes_the_lock_and_namespaces_persist(tmp_path):
         asyncio.run(body())
     finally:
         fake.stop()
+
+
+ADMISSION_FLAGS = ("admission", "coalesce_window", "admission_max_rps",
+                   "fuse_admission", "frontend_workers",
+                   "frontend_ring_bytes")
+
+
+def test_admission_and_frontend_flags_have_the_reference_defaults():
+    ref, port = j_cmd.make_parser(), t_cmd.make_parser()
+    for dest in ADMISSION_FLAGS:
+        assert port.get_default(dest) == ref.get_default(dest), dest
+
+
+@pytest.mark.parametrize("argv,warning", [
+    (["--fuse-admission"], "has no effect without --admission"),
+    (["--fuse-admission", "--admission"],
+     "has no effect without --native-store"),
+])
+def test_fuse_admission_warns_without_its_write_path(
+    argv, warning, tmp_path, caplog
+):
+    """--fuse-admission without --admission (the reference's warning)
+    or without --native-store is loud, not fatal: the server starts."""
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(CONFIG)
+
+    async def body():
+        task, server, _ = await _start_serve([
+            "--config", f"file:{cfg}", "--port", "0", "--host",
+            "127.0.0.1", "--debug-port", "-1", "--device", "cpu",
+            "--mode", "batch", *argv,
+        ])
+        try:
+            assert server._fuse_admission
+            assert (server._admission is not None) == (
+                "--admission" in argv)
+        finally:
+            await _stop(task)
+
+    with caplog.at_level("WARNING"):
+        asyncio.run(body())
+    assert any(warning in r.getMessage() for r in caplog.records)
+
+
+def test_admission_flag_gates_get_capacity(tmp_path):
+    """--admission with --admission-max-rps: the binary sheds past the
+    budget with RESOURCE_EXHAUSTED and the retry-after trailer, and
+    /debug/status's admission block counts it."""
+    import grpc
+
+    from doorman_tpu_torch.admission import RETRY_AFTER_KEY
+    from doorman_tpu_torch.proto import doorman_pb2 as pb
+    from doorman_tpu_torch.proto.grpc_api import CapacityStub
+
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(CONFIG)
+
+    async def body():
+        task, server, _ = await _start_serve([
+            "--config", f"file:{cfg}", "--port", "0", "--host",
+            "127.0.0.1", "--debug-port", "-1", "--device", "cpu",
+            "--admission", "--coalesce-window", "0.002",
+            "--admission-max-rps", "0.5",
+        ])
+        try:
+            assert server._admission.coalesce_window == 0.002
+            shed = 0
+            async with grpc.aio.insecure_channel(
+                f"127.0.0.1:{server.port}"
+            ) as ch:
+                stub = CapacityStub(ch)
+                for i in range(4):
+                    req = pb.GetCapacityRequest(client_id=f"c{i}")
+                    rr = req.resource.add()
+                    rr.resource_id = "r0"
+                    rr.wants = 5.0
+                    try:
+                        await stub.GetCapacity(req)
+                    except grpc.aio.AioRpcError as e:
+                        assert e.code() == (
+                            grpc.StatusCode.RESOURCE_EXHAUSTED)
+                        assert any(k == RETRY_AFTER_KEY for k, _ in
+                                   e.trailing_metadata() or ())
+                        shed += 1
+            assert shed >= 1
+            st = server.status()["admission"]
+            assert st["tallies"]["GetCapacity/0"]["shed"] == shed
+        finally:
+            await _stop(task)
+
+    asyncio.run(body())
+
+
+def test_frontend_workers_flag_needs_stream_push(tmp_path):
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(CONFIG)
+    args = t_cmd.make_parser().parse_args([
+        "--config", f"file:{cfg}", "--port", "0", "--host", "127.0.0.1",
+        "--debug-port", "-1", "--device", "cpu", "--frontend-workers", "2",
+    ])
+    with pytest.raises(SystemExit):
+        asyncio.run(t_cmd.serve(args))

@@ -39,9 +39,9 @@ def _imported_modules(path: Path):
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
-    # The port's 80 modules and chip_smoke.py: a slice that drops one
+    # The port's 92 modules and chip_smoke.py: a slice that drops one
     # is noticed here.
-    assert len(files) >= 81
+    assert len(files) >= 93
     names = {str(f.relative_to(ROOT)) for f in files}
     for mod in ("obs/audit", "obs/debug", "obs/detect", "obs/flightrec",
                 "obs/history", "obs/metrics", "obs/phases", "obs/requests",
@@ -52,7 +52,14 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 "federation/__init__", "federation/aggregate",
                 "federation/client", "federation/discovery",
                 "federation/reconcile", "federation/roots",
-                "federation/router"):
+                "federation/router",
+                "admission/__init__", "admission/coalesce",
+                "admission/controller", "admission/deadline",
+                "admission/policy", "admission/ramp",
+                "frontend/__init__", "frontend/control",
+                "frontend/pool", "frontend/publisher", "frontend/ring",
+                "frontend/worker", "workload/__init__",
+                "workload/forecast", "cmd/frontend_smoke"):
         assert f"doorman_tpu_torch/{mod}.py" in names, mod
     bad = []
     for path in files:
@@ -65,7 +72,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 @pytest.mark.parametrize(
     "entry", ["solver", "server", "cmd", "device", "aggregate",
-              "intermediate"]
+              "intermediate", "forecast"]
 )
 def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
     entry, tmp_path
@@ -86,6 +93,7 @@ def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
     from doorman_tpu_torch.server.server import CapacityServer
     from doorman_tpu_torch.solver.resident import ResidentDenseSolver
     from doorman_tpu_torch.utils.backend import resolve_device
+    from doorman_tpu_torch.workload.forecast import SeasonalForecaster
 
     if not native.native_available():
         pytest.skip("native engine unavailable")
@@ -107,6 +115,7 @@ def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
             "i", TrivialElection(), router=ShardRouter(2),
             discovery=ShardDiscovery({}), **kw,
         ),
+        "forecast": lambda **kw: SeasonalForecaster(2, 4, **kw),
         "cmd": lambda **kw: asyncio.run(asyncio.wait_for(cmd_server.serve(
             cmd_server.make_parser().parse_args(
                 ["--config", f"file:{cfg}", "--port", "0",
@@ -126,3 +135,26 @@ def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
         got = make(device="cpu")
         dev = got if entry == "device" else got.device
         assert dev == torch.device("cpu")
+
+
+@pytest.mark.parametrize("module", [
+    "doorman_tpu_torch.frontend.worker",
+    "doorman_tpu_torch.frontend.ring",
+    "doorman_tpu_torch.cmd.frontend_smoke",
+])
+def test_frontend_worker_modules_leave_torch_out(module):
+    """A spawned listener worker imports these (its target and its main
+    module); none may pull torch, nor touch the card: a fresh
+    interpreter that imports one has no torch in sys.modules."""
+    import subprocess
+    import sys
+
+    code = (
+        f"import sys; import {module}; "
+        "bad = [m for m in sys.modules if m == 'torch' "
+        "or m.startswith('torch.')]; print(len(bad)); "
+        "sys.exit(1 if bad else 0)"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr[-2000:]
