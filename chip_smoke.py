@@ -114,6 +114,24 @@ no ring lap; and frontend-pool, four real listener workers under an
 establishment storm and a held population, the sentinel's push latency,
 then cmd/frontend_smoke's kill-and-resume arc.
 
+Last, the fleet (fleet/, cmd/fleet.py) and TLS on every hop: fleet-reshard,
+three shard roots of bench.py's build_shard shape (1M leases each) under
+the FleetController, two active, then a live reshard to three: the moved
+resources' rows carried to the new owner with their has and solved there
+within the f32 bound of the f64 oracle, 1,000 stale-router refreshes
+redirected to the new owner and counted, the stayed resources at rest
+byte-identical across the install, Σ straddling shares within capacity
+every beat; fleet-procs, cmd.fleet --smoke with its three shard processes
+ticking on the card; tls, the server binary over TLS beside a plaintext
+twin (equal grants), request latency over TLS beside plaintext, two
+listener workers terminating TLS (frames byte-equal to a plaintext
+pool's), and an intermediate dialing a TLS root.
+
+The streams phase (in two halves) and the takeover phase run in processes
+of their own beside the main sequence (BESIDE), from the end of the
+kernels' timings until the admission phase; each one's lines are printed
+when it is joined.
+
 Prints one line per phase, the card's name and power limit, one JSON line
 of per-kernel measurements, and last the JSON result line. Exits non-zero
 (and prints no result) without a CUDA device, outside a checkout of the
@@ -124,9 +142,13 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -2814,7 +2836,14 @@ async def _drive_immediate(torch):
                 resources=len(replay), ids=ids)
 
 
-async def _load(port, ids):
+def _channel(grpc, port, creds=None):
+    """A loopback channel to `port`: TLS when given credentials."""
+    if creds is not None:
+        return grpc.aio.secure_channel(f"localhost:{port}", creds)
+    return grpc.aio.insecure_channel(f"127.0.0.1:{port}")
+
+
+async def _load(port, ids, creds=None):
     """IMM_CONC[0] concurrent clients, a channel each, of IMM_CONC[1]
     sequential GetCapacity each: (request latencies, wall seconds)."""
     import grpc
@@ -2827,7 +2856,7 @@ async def _load(port, ids):
     async def client(k):
         # Each concurrent client speaks for clients of its own.
         crng, mine = np.random.default_rng(100 + k), {}
-        async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
+        async with _channel(grpc, port, creds) as ch:
             stub = CapacityStub(ch)
             for _ in range(IMM_CONC[1]):
                 req = _imm_request(crng, ids, mine, prefix=f"w{k}.")
@@ -2871,8 +2900,7 @@ async def _cli_load(ids):
             )
             try:
                 deadline = time.time() + 120.0
-                async with grpc.aio.insecure_channel(
-                        f"127.0.0.1:{port}") as ch:
+                async with _channel(grpc, port) as ch:
                     stub = CapacityStub(ch)
                     while True:
                         check(proc.poll() is None and time.time() < deadline,
@@ -2967,8 +2995,10 @@ ST_SHARDS = 4
 # every tick is scoped, the delta source the unscoped pair does not
 # reach — the first delivery of every row, then one churned set.
 # One churn tick less in each pair (from 2 + 3 + 1 and 1 + 2 + 0), for
-# the admission and frontend phases' time.
-ST_TICKS = (2, 2, 1)
+# the admission and frontend phases' time; then the unscoped pair's
+# second churn tick and its quiet tick (from 2 + 2 + 1), for the fleet
+# and TLS phases'.
+ST_TICKS = (2, 1, 0)
 ST_SCOPED_TICKS = (1, 1, 0)
 
 # bench.py's server_stream_fanout_scaling shape.
@@ -3578,12 +3608,32 @@ async def _fanout_tier(torch, n_subs):
         await server.stop()
 
 
-def phase_streams(torch, card):
-    """Stream push on the card: stream-parity, streams (the lane cell with
-    100,000 subscriptions) and stream-fanout-tiers."""
+# The two halves of the streams phase, each run in a process of its own
+# (BESIDE): stream-parity, the unscoped pair with frontend-parity and the
+# fanout tiers; and the scoped pair.
+ST_PARTS = {
+    "main": (("streams", False, ST_TICKS),),
+    "scoped": (("streams_scoped", True, ST_SCOPED_TICKS),),
+}
+
+
+def phase_streams(torch, card, part="main"):
+    """Stream push on the card: part "main" is stream-parity, streams (the
+    lane cell with 100,000 subscriptions, pooled: frontend-parity) and
+    stream-fanout-tiers; part "scoped" is the same cell's scoped pair."""
     import numpy as np
 
     out = {}
+    if part == "main":
+        out.update(_stream_parity_phase(torch))
+    for key, scoped, ticks in ST_PARTS[part]:
+        out[key] = _stream_pair_phase(torch, card, scoped, ticks)
+    if part == "main":
+        out["fanout_tiers"] = _fanout_tiers_phase(torch, np)
+    return out
+
+
+def _stream_parity_phase(torch):
     t0 = time.perf_counter()
     sp = asyncio.run(_stream_parity(torch))
     say(f"phase stream-parity: 2 native batch servers over loopback gRPC, "
@@ -3592,57 +3642,61 @@ def phase_streams(torch, card):
         f"polls' changed rows byte for byte; terminal redirect on the flip; "
         f"launches {sp['launches']}; matcher pairs {sp['matched_total']} "
         f"({time.perf_counter() - t0:.1f}s)")
-    out["stream_parity"] = sp
-    for key, scoped, ticks in (("streams", False, ST_TICKS),
-                               ("streams_scoped", True, ST_SCOPED_TICKS)):
-        t0 = time.perf_counter()
-        st = asyncio.run(_stream_lane(torch, scoped, ticks,
-                                      pooled=not scoped))
-        name = st["label"]
-        say(f"phase {name}: {st['leases']} leases, {st['subscriptions']} "
-            f"subscriptions on {st['shards']} shards (populate "
-            f"{st['populate_s']:.1f}s, establish {st['establish_s']:.1f}s / "
-            f"twin {st['twin_establish_s']:.1f}s); {len(st['per_tick'])} "
-            f"ticks ({st['solve_modes']}): every subscription's pushes "
-            f"byte-identical to the check-all twin's, device pairs == host "
-            f"mirror, stores byte-identical after the flush, no fanout "
-            f"error; filtered launches {st['launches']}; tick wall p50 / p95 "
-            f"filtered {st['filtered']['tick_p50_ms']:.2f} / "
-            f"{st['filtered']['tick_p95_ms']:.2f} ms, check-all "
-            f"{st['check-all']['tick_p50_ms']:.2f} / "
-            f"{st['check-all']['tick_p95_ms']:.2f} ms; card {card} "
-            f"({time.perf_counter() - t0:.1f}s)")
-        for row in st["per_tick"]:
-            f, c = row["filtered"], row["check-all"]
-            lap = row.get("matcher_ms")
-            dev = row.get("match_device_ms")
-            say(f"phase {name}: tick {row['tick']} ({row['kind']}): changed "
-                f"rows {row['changed_rows']}, matched pairs "
-                f"{row['match_pairs']}"
-                + (f" (device time of the match {dev:.4f} ms)" if dev else "")
-                + f", walked {f['walked']} (twin {c['walked']}), pushed "
-                f"{f['messages']} messages {f['bytes']} bytes to "
-                f"{row['pushed_subs']} subscriptions; fanout ms "
-                f"{f['fanout_ms']:.2f} (twin {c['fanout_ms']:.2f}); matcher ms "
-                + (", ".join(f"{k} {v:.3f}" for k, v in lap.items())
-                   if lap else "none (check-all)")
-                + f"; tick wall ms {f['wall_ms']:.2f} (twin "
-                f"{c['wall_ms']:.2f})")
-        fe = st["frontend"]
-        if fe is not None:
-            pub = fe["publisher"]
-            say(f"phase frontend-parity: the {name} phase's filtered server "
-                f"pooled over {fe['workers']} workers' "
-                f"{fe['ring_bytes'] >> 20} MiB rings: every one of its "
-                f"{st['subscriptions']} streams' frames, pumped from its "
-                f"worker's ring, equal the check-all twin's pushes byte for "
-                f"byte on all {len(st['per_tick'])} ticks (and the "
-                f"establishment snapshots); 0 ring laps; "
-                f"{pub['published_frames']} frames, {pub['published_bytes']}"
-                f" bytes published; pump ms a tick "
-                f"{[round(x, 1) for x in fe['pump_ms']]}; K2 under every "
-                f"fanout {st['launches']}; card {card}")
-        out[key] = st
+    return {"stream_parity": sp}
+
+
+def _stream_pair_phase(torch, card, scoped, ticks):
+    t0 = time.perf_counter()
+    st = asyncio.run(_stream_lane(torch, scoped, ticks,
+                                  pooled=not scoped))
+    name = st["label"]
+    say(f"phase {name}: {st['leases']} leases, {st['subscriptions']} "
+        f"subscriptions on {st['shards']} shards (populate "
+        f"{st['populate_s']:.1f}s, establish {st['establish_s']:.1f}s / "
+        f"twin {st['twin_establish_s']:.1f}s); {len(st['per_tick'])} "
+        f"ticks ({st['solve_modes']}): every subscription's pushes "
+        f"byte-identical to the check-all twin's, device pairs == host "
+        f"mirror, stores byte-identical after the flush, no fanout "
+        f"error; filtered launches {st['launches']}; tick wall p50 / p95 "
+        f"filtered {st['filtered']['tick_p50_ms']:.2f} / "
+        f"{st['filtered']['tick_p95_ms']:.2f} ms, check-all "
+        f"{st['check-all']['tick_p50_ms']:.2f} / "
+        f"{st['check-all']['tick_p95_ms']:.2f} ms; card {card} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    for row in st["per_tick"]:
+        f, c = row["filtered"], row["check-all"]
+        lap = row.get("matcher_ms")
+        dev = row.get("match_device_ms")
+        say(f"phase {name}: tick {row['tick']} ({row['kind']}): changed "
+            f"rows {row['changed_rows']}, matched pairs "
+            f"{row['match_pairs']}"
+            + (f" (device time of the match {dev:.4f} ms)" if dev else "")
+            + f", walked {f['walked']} (twin {c['walked']}), pushed "
+            f"{f['messages']} messages {f['bytes']} bytes to "
+            f"{row['pushed_subs']} subscriptions; fanout ms "
+            f"{f['fanout_ms']:.2f} (twin {c['fanout_ms']:.2f}); matcher ms "
+            + (", ".join(f"{k} {v:.3f}" for k, v in lap.items())
+               if lap else "none (check-all)")
+            + f"; tick wall ms {f['wall_ms']:.2f} (twin "
+            f"{c['wall_ms']:.2f})")
+    fe = st["frontend"]
+    if fe is not None:
+        pub = fe["publisher"]
+        say(f"phase frontend-parity: the {name} phase's filtered server "
+            f"pooled over {fe['workers']} workers' "
+            f"{fe['ring_bytes'] >> 20} MiB rings: every one of its "
+            f"{st['subscriptions']} streams' frames, pumped from its "
+            f"worker's ring, equal the check-all twin's pushes byte for "
+            f"byte on all {len(st['per_tick'])} ticks (and the "
+            f"establishment snapshots); 0 ring laps; "
+            f"{pub['published_frames']} frames, {pub['published_bytes']}"
+            f" bytes published; pump ms a tick "
+            f"{[round(x, 1) for x in fe['pump_ms']]}; K2 under every "
+            f"fanout {st['launches']}; card {card}")
+    return st
+
+
+def _fanout_tiers_phase(torch, np):
     tiers = []
     for n in FT_TIERS:
         t0 = time.perf_counter()
@@ -3666,8 +3720,7 @@ def phase_streams(torch, card):
     say(f"phase stream-fanout-tiers: log-log exponent of the churn fanout "
         f"time against subscribers {exponent:.3f} (reported; the reference's "
         f"floor is 1.0)")
-    out["fanout_tiers"] = dict(tiers=tiers, exponent=exponent)
-    return out
+    return dict(tiers=tiers, exponent=exponent)
 
 
 # -- the kernels' JSON line --------------------------------------------------
@@ -6019,22 +6072,25 @@ def _fed_root_yaml():
     return "\n".join(lines) + "\n"
 
 
-def _fed_populate(server, shard, clock):
+def _fed_populate(server, shard, clock, names=None):
     """bench.py build_shard's workload on a shard root's native engine
     (its rng order: kinds, capacities, wants, then the churn stream),
-    then the straddling resources' 100 clients."""
+    then the straddling resources' 100 clients. `names` are the
+    resource ids (bench.py's `s<shard>-res<r>` by default)."""
     import numpy as np
 
     from doorman_tpu_torch.proto import doorman_pb2 as pb
 
     R, C = FED_R, FED_C
+    if names is None:
+        names = [f"s{shard}-res{r}" for r in range(R)]
     rng = np.random.default_rng(1100 + shard)
     kinds = rng.choice(np.array([0, 1, 2, 3], np.int64), size=R,
                        p=[0.05, 0.05, 0.65, 0.25])
     capacity = rng.integers(100, 100_000, R).astype(np.float64)
     resources = []
     for r in range(R):
-        res = server.get_or_create_resource(f"s{shard}-res{r}")
+        res = server.get_or_create_resource(names[r])
         res.load_config(pb.ResourceTemplate(
             identifier_glob=res.id, capacity=float(capacity[r]),
             algorithm=pb.Algorithm(
@@ -6069,7 +6125,7 @@ def _fed_populate(server, shard, clock):
                            np.ones(C, np.int32))
         strad[rid] = (s_rids, s_cids)
     return dict(server=server, resources=resources, rids=rids.reshape(R, C),
-                cids=cids.reshape(R, C), churn_rows=churn_rows,
+                cids=cids.reshape(R, C), names=names, churn_rows=churn_rows,
                 churn_wants=churn_wants, capacity=capacity, kinds=kinds,
                 strad=strad, srng=srng, walls=[], modes=[],
                 k1=0, k2=0, k3=0)
@@ -6611,7 +6667,7 @@ def phase_takeover(torch, card):
 # pipeline depth 3 the first tick applies on the fourth, and until then
 # every refresh is a first-response decide (a full upload, which the
 # fused tick packs afresh), so the cache serves from the first churn tick.
-AF_TICKS = (4, 6, 4)
+AF_TICKS = (4, 3, 4)  # churn cut 6 -> 3 for the fleet and TLS phases' time
 AF_WINDOW = 0.005  # the coalescer's window (cmd/server.py's default)
 AF_CHUNK = 5_000  # refreshes submitted together: a window each
 AF_WINDOW_BUDGET_S = 3.0  # the windows' time a tick worth writing down
@@ -6648,8 +6704,8 @@ FP_CORES_NEEDED = FE_WORKERS + 2
 FP_EST_SECONDS = 5.0
 FP_EST_FLOOR = 50_000.0  # establishments/s (bench.py FRONTEND_EST_FLOOR)
 FP_HELD_TARGET = 100_000
-FP_HOLD_SECONDS = 24.0
-FP_PUSH_TICKS = 10
+FP_HOLD_SECONDS = 12.0  # cut 24 -> 12 for the fleet and TLS phases' time
+FP_PUSH_TICKS = 6  # cut 10 -> 6, likewise
 FP_TICK_INTERVAL = 1.0
 FP_READY_SECONDS = 60.0
 FP_SUBS_PER_RESOURCE = 50  # bench.py FANOUT_SUBS_PER_RESOURCE
@@ -7124,10 +7180,13 @@ def _storm(kind, addr, *, procs, workers, duration, bands, seed, **kw):
     parts, deadline = [], started + duration + 120.0
     try:
         while len(parts) < len(children):
+            # Liveness is read before the wait: a child that puts its
+            # result and exits between the wait's timeout and the read is
+            # still alive here, and its result is read on the next turn.
+            alive = any(proc.is_alive() for proc in children)
             try:
                 parts.append(out_q.get(timeout=1.0))
             except queue.Empty:
-                alive = any(proc.is_alive() for proc in children)
                 check(alive and time.monotonic() < deadline,
                       f"storm: {len(children) - len(parts)} of "
                       f"{len(children)} processes gave no result in "
@@ -7560,6 +7619,1050 @@ def phase_frontend(torch, card):
     return dict(pool=pool)
 
 
+# -- the fleet (fleet/, cmd/fleet.py) and TLS on every hop ------------------
+
+# fleet-reshard: three shard roots of bench.py's build_shard shape
+# (_fed_server / _fed_populate: 10,000 resources x 100 clients a shard, the
+# five FED_STRADDLE straddlers at 4,000 on every active shard). The
+# resources are hash-routed (`fl-r<i>`, each shard populated with the
+# first 10,000 the 2-shard router gives it); FL_WARMUP + FL_ROUNDS rounds
+# at 2 shards, then reshard(3) and FL_ROUNDS rounds at 3, 5% churn a
+# round (the demand of a moved resource follows it to its new owner).
+FL_WARMUP = 3
+FL_ROUNDS = 6
+# Ticks with no beat after the last round: the first is full (the last
+# beat's epoch), the rest scoped (K1), as fed-roots' FED_SETTLE.
+FL_SETTLE = 3
+FL_STALE = 1_000  # stale-router refreshes sent to the old owners
+FL_STALE_CONC = 50
+FL_SMOKE_TIMEOUT = 300.0  # cmd.fleet --smoke's own budget (s)
+FL_SMOKE_ROUNDS = 4  # beat rounds before and after its reshard (CLI: 8)
+
+
+def _fleet_names(n_per_shard, n_shards=2):
+    """{shard: the first `n_per_shard` ids `fl-r<i>` the n-shard router
+    gives it}."""
+    from doorman_tpu_torch.federation import stable_shard
+
+    out = {s: [] for s in range(n_shards)}
+    i = 0
+    while min(len(v) for v in out.values()) < n_per_shard:
+        rid = f"fl-r{i}"
+        s = stable_shard(rid, n_shards)
+        if len(out[s]) < n_per_shard:
+            out[s].append(rid)
+        i += 1
+    return out
+
+
+def _fleet_strad(server, shard, clock, srng):
+    """The straddling resources' 100 clients on a shard that joins the
+    fleet (what _fed_populate gives the shards it populates)."""
+    import numpy as np
+
+    engine = server._store_engine
+    strad = {}
+    for rid, _kind, _variant in FED_STRADDLE:
+        res = server.get_or_create_resource(rid)
+        s_cids = np.array([engine.client_handle(f"{rid}.s{shard}.c{i}")
+                           for i in range(FED_C)], np.int64)
+        s_rids = np.full(FED_C, res.store._rid, np.int32)
+        engine.bulk_assign(s_rids, s_cids, np.full(FED_C, clock() + 600.0),
+                           np.full(FED_C, float(FED_REFRESH)),
+                           np.zeros(FED_C),
+                           srng.integers(1, 100, FED_C).astype(np.float64),
+                           np.ones(FED_C, np.int32))
+        strad[rid] = (s_rids, s_cids)
+    return strad
+
+
+def _device_rows(torch, server, resources):
+    """The resident solver's device grant rows of `resources` (the first
+    FED_C lanes), on the host."""
+    solver = server._resident
+    rows = [solver._row_lut[res.store._rid] for res in resources]
+    idx = torch.as_tensor(rows, dtype=torch.long, device=solver._has.device)
+    return solver._has[idx, :FED_C].cpu()
+
+
+def _carry(servers, moved):
+    """The moved resources' client rows from their old owners to their
+    new ones, `has` included (what each client reports on its first
+    refresh there), under the same templates; ({new owner: its carried
+    resources}, rows carried)."""
+    import numpy as np
+
+    from doorman_tpu_torch.proto import doorman_pb2 as pb
+
+    carried, n_rows = {}, 0
+    for new in sorted({n for _r, _o, n in moved}):
+        dst = servers[new]
+        engine = dst._store_engine
+        cols = [[] for _ in range(7)]
+        carried[new] = []
+        for rid, old, _n in (m for m in moved if m[2] == new):
+            res = servers[old].resources[rid]
+            tpl = pb.ResourceTemplate()
+            tpl.CopyFrom(res.template)
+            new_res = dst.get_or_create_resource(rid)
+            new_res.load_config(tpl, None)
+            rows = res.store.dump_rows()
+            cols[0].append(np.full(len(rows), new_res.store._rid, np.int32))
+            cols[1].append(np.fromiter(
+                (engine.client_handle(r[0]) for r in rows), np.int64,
+                count=len(rows)))
+            for k in range(1, 6):
+                cols[k + 1].append(np.fromiter(
+                    (r[k] for r in rows), np.float64, count=len(rows)))
+            carried[new].append(new_res)
+        dst._config_epoch += 1  # templates moved outside load_config
+        rids, cids, exp, ref, has, wants, sub = (np.concatenate(c)
+                                                 for c in cols)
+        engine.bulk_assign(rids, cids, exp, ref, has, wants,
+                           sub.astype(np.int32), np.ones(len(rids), np.int32))
+        n_rows += len(rids)
+    return carried, n_rows
+
+
+def _moved_oracle_err(torch, server, resources, inputs):
+    """The new owner's device grants of the moved resources after their
+    first tick there against the f64 oracle on the rows they were
+    solved from: max |grant - oracle| / max(capacity, max wants)."""
+    import numpy as np
+
+    from doorman_tpu_torch.algorithms.tick import oracle_row
+
+    solver = server._resident
+    cfg = solver._config
+    grants = _device_rows(torch, server, resources).double().numpy()
+    statc = cfg.statc_d.double().cpu().numpy()
+    worst = 0.0
+    for i, res in enumerate(resources):
+        row = solver._row_lut[res.store._rid]
+        has, wants, sub = inputs[res.id]
+        want = oracle_row(int(cfg.kind_h[row]), float(cfg.cap_h[row]),
+                          float(statc[row]), wants, has, sub)
+        scale = max(float(cfg.cap_h[row]), float(wants.max()), 1e-30)
+        worst = max(worst, float(np.abs(grants[i, :len(wants)] - want).max())
+                    / scale)
+    return worst
+
+
+async def _stale_refreshes(servers, addrs, moved, names):
+    """FL_STALE refreshes of moved resources sent, with the 2-shard
+    router, to their old owners over loopback gRPC (FL_STALE_CONC at a
+    time): every answer a redirect to the new owner's address and no
+    grant; returns (sent per old owner, ms per refresh)."""
+    import grpc
+
+    from doorman_tpu_torch.proto import doorman_pb2 as pb
+    from doorman_tpu_torch.proto.grpc_api import CapacityStub
+
+    chans = {s: grpc.aio.insecure_channel(addrs[s]) for s in (0, 1)}
+    stubs = {s: CapacityStub(ch) for s, ch in chans.items()}
+    sent = {0: 0, 1: 0}
+    lat = []
+    sem = asyncio.Semaphore(FL_STALE_CONC)
+    bad = []
+
+    async def one(k):
+        rid, old, new = moved[k % len(moved)]
+        req = pb.GetCapacityRequest(client_id=names[rid][k % FED_C])
+        rr = req.resource.add()
+        rr.resource_id, rr.wants = rid, 10.0
+        async with sem:
+            t = time.perf_counter()
+            resp = await stubs[old].GetCapacity(req, timeout=30)
+            lat.append((time.perf_counter() - t) * 1e3)
+        sent[old] += 1
+        if (resp.mastership.master_address != addrs[new]
+                or len(resp.response)):
+            bad.append((rid, resp.mastership.master_address))
+
+    try:
+        await asyncio.gather(*(one(k) for k in range(FL_STALE)))
+    finally:
+        for ch in chans.values():
+            await ch.close()
+    check(not bad, f"fleet-reshard: {len(bad)} stale refreshes not "
+          f"redirected to the new owner, e.g. {bad[:3]}")
+    return sent, lat
+
+
+async def _fleet_reshard(torch, card):
+    import numpy as np
+
+    from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
+    from doorman_tpu_torch.fleet import FleetController
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.solver import dense_cuda
+
+    clock = _FakeClock(time.time())
+    cfg = parse_yaml_config(_fed_root_yaml())
+    names = _fleet_names(FED_R)
+    servers, addrs, live = {}, {}, []
+    shards = {}
+    t = time.perf_counter()
+    try:
+        for s in (0, 1, 2):
+            server = _fed_server(f"fleet-shard{s}", clock, s)
+            live.append(server)
+            await server.start(0, host="127.0.0.1", tick_loop=False)
+            addrs[s] = f"127.0.0.1:{server.port}"
+            server.current_master = addrs[s]
+            await server.load_config(cfg)
+            servers[s] = server
+        for s in (0, 1):
+            shards[s] = _fed_populate(servers[s], s, clock, names[s])
+        populate_s = time.perf_counter() - t
+        fleet = FleetController(
+            servers, straddle=[rid for rid, *_ in FED_STRADDLE], active=2,
+            addrs=addrs, clock=clock)
+        fleet.note_resources(names[0] + names[1])
+        say(f"phase fleet-reshard[f32]: 3 shard roots provisioned, 2 "
+            f"active with "
+            f"{sum(servers[s]._store_engine.total_leases for s in (0, 1))} "
+            f"leases on the card, populated in {populate_s:.1f}s; card "
+            f"{card}")
+        walls = {s: {"pre": [], "post": [], "settle": []} for s in (0, 1, 2)}
+        modes = {s: {"pre": [], "post": [], "settle": []} for s in (0, 1, 2)}
+        beat_ms, worst_share = [], 0.0
+        srng2 = np.random.default_rng(1202)
+        strad2 = None
+        moved_idx = {0: np.zeros(FED_R, bool), 1: np.zeros(FED_R, bool)}
+        new_handles = {}  # (old owner, row) -> (rid handles, cid handles)
+        handoff = FL_WARMUP + FL_ROUNDS
+        # The resources each shard keeps at 3 shards, and the rounds each
+        # of their rows was churned in.
+        from doorman_tpu_torch.federation import stable_shard
+
+        stay = {s: [(r, res) for r, res in enumerate(shards[s]["resources"])
+                    if stable_shard(res.id, 3) == s] for s in (0, 1)}
+        churned = {s: {} for s in (0, 1)}
+        rest = {}
+        out = {}
+        fleet.reconcile_once()  # the bootstrap split, before any tick
+        dense_cuda.reset_launches()  # the fleet-reshard path starts here
+        for rnd in range(handoff + FL_ROUNDS):
+            phase = "pre" if rnd < handoff else "post"
+            if rnd == handoff:
+                t = time.perf_counter()
+                change = fleet.reshard(3)
+                install_ms = (time.perf_counter() - t) * 1e3
+                moved = change.moved
+                check(change.added == (2,) and moved,
+                      f"fleet-reshard: change {change.as_log()['added']}")
+                for s in (0, 1):
+                    table = servers[s]._fleet_routing
+                    held = set(names[s])
+                    got = {rid: a for rid, a in table.items() if rid in held}
+                    want = {rid: addrs[new] for rid, old, new in moved
+                            if old == s}
+                    check(got == want, f"fleet-reshard: shard {s}'s routing "
+                          f"table over its resources holds {len(got)} "
+                          f"entries, the moved set {len(want)}")
+                    check(servers[s]._fleet_epoch == 1,
+                          f"fleet-reshard: shard {s} at epoch "
+                          f"{servers[s]._fleet_epoch}")
+                check(not any(rid in servers[new]._fleet_routing
+                              for rid, _o, new in moved),
+                      "fleet-reshard: a new owner redirects a moved "
+                      "resource")
+                t = time.perf_counter()
+                carried, carried_rows = _carry(servers, moved)
+                carry_ms = (time.perf_counter() - t) * 1e3
+                strad2 = _fleet_strad(servers[2], 2, clock, srng2)
+                index = {rid: r for s in (0, 1)
+                         for r, rid in enumerate(names[s])}
+                engine2 = servers[2]._store_engine
+                for rid, old, new in moved:
+                    r = index[rid]
+                    moved_idx[old][r] = True
+                    dst = servers[new]
+                    new_handles[(old, r)] = (
+                        dst._store_engine,
+                        np.full(FED_C, dst.resources[rid].store._rid,
+                                np.int32),
+                        np.fromiter(
+                            (dst._store_engine.client_handle(
+                                f"s{old}-c{r * FED_C + c}")
+                             for c in range(FED_C)), np.int64, count=FED_C))
+            for s in (0, 1):
+                sd = shards[s]
+                engine = servers[s]._store_engine
+                sel = sd["churn_rows"][rnd]
+                cw = sd["churn_wants"][rnd].reshape(len(sel), FED_C)
+                keep = ~moved_idx[s][sel]
+                for r in sel[keep]:
+                    churned[s].setdefault(int(r), set()).add(rnd)
+                if keep.any():
+                    ks = sel[keep]
+                    engine.bulk_refresh(
+                        sd["rids"][ks].ravel(), sd["cids"][ks].ravel(),
+                        np.full(ks.size * FED_C, clock() + 600.0),
+                        np.full(ks.size * FED_C, float(FED_REFRESH)),
+                        cw[keep].ravel())
+                for j in np.flatnonzero(~keep):
+                    eng, r_h, c_h = new_handles[(s, int(sel[j]))]
+                    eng.bulk_refresh(
+                        r_h, c_h, np.full(FED_C, clock() + 600.0),
+                        np.full(FED_C, float(FED_REFRESH)), cw[j])
+                for rid, (s_rids, s_cids) in sd["strad"].items():
+                    if sd["srng"].random() < 0.5:
+                        engine.bulk_refresh(
+                            s_rids, s_cids, np.full(FED_C, clock() + 600.0),
+                            np.full(FED_C, float(FED_REFRESH)),
+                            sd["srng"].integers(1, 100, FED_C).astype(
+                                np.float64))
+            if strad2 is not None:
+                for rid, (s_rids, s_cids) in strad2.items():
+                    if srng2.random() < 0.5:
+                        engine2.bulk_refresh(
+                            s_rids, s_cids, np.full(FED_C, clock() + 600.0),
+                            np.full(FED_C, float(FED_REFRESH)),
+                            srng2.integers(1, 100, FED_C).astype(np.float64))
+            if rnd == handoff:
+                # The moved rows as their new owners' first tick solves
+                # them.
+                inputs = {}
+                for res in (r for rs in carried.values() for r in rs):
+                    rows = res.store.dump_rows()
+                    inputs[res.id] = tuple(
+                        np.array([r[k] for r in rows], np.float64)
+                        for k in (3, 4, 5))
+            for s in range(fleet.active):
+                server = servers[s]
+                t = time.perf_counter()
+                await server.tick_once()
+                wall = time.perf_counter() - t
+                torch.cuda.synchronize()
+                if rnd >= FL_WARMUP:
+                    mode = server._resident.last_solve_mode
+                    reason = server._resident.last_full_reason
+                    walls[s][phase].append(wall)
+                    modes[s][phase].append(f"full:{reason}" if mode == "full"
+                                           and reason else mode)
+            if rnd in (handoff - 2, handoff - 1):
+                # The stayed resources' device grants after the last two
+                # ticks before the install.
+                for s in (0, 1):
+                    rest.setdefault(s, []).append(_device_rows(
+                        torch, servers[s], [res for _r, res in stay[s]]))
+            if rnd == handoff:
+                # Rows at rest before the install (their grants did not
+                # move over the last tick) whose demand did not change in
+                # the last round or the handoff round must come through
+                # the install and the full tick after it unchanged.
+                same, compared = 0, 0
+                for s in (0, 1):
+                    a, b = rest[s]
+                    after = _device_rows(torch, servers[s],
+                                         [res for _r, res in stay[s]])
+                    for i, (r, _res) in enumerate(stay[s]):
+                        quiet = not churned[s].get(r, set()) & {
+                            handoff - 1, handoff}
+                        if quiet and torch.equal(a[i], b[i]):
+                            compared += 1
+                            same += bool(torch.equal(b[i], after[i]))
+                check(compared > 0 and same == compared,
+                      f"fleet-reshard: {compared - same} of {compared} "
+                      "stayed resources at rest changed grants across the "
+                      "install")
+                moved_err = max(
+                    _moved_oracle_err(torch, servers[new], rs, inputs)
+                    for new, rs in carried.items())
+                check(moved_err <= F32_PARITY_REL_BOUND,
+                      f"fleet-reshard: moved rows vs the f64 oracle "
+                      f"{moved_err:.3g} > {F32_PARITY_REL_BOUND:g}")
+                before = {s: servers[s].fed_stats["fleet_redirects"]
+                          for s in (0, 1)}
+                sent, stale_ms = await _stale_refreshes(
+                    servers, addrs, moved,
+                    {rid: [f"s{old}-c{index[rid] * FED_C + c}"
+                           for c in range(FED_C)] for rid, old, _n in moved})
+                for s in (0, 1):
+                    got = servers[s].fed_stats["fleet_redirects"] - before[s]
+                    check(got == sent[s],
+                          f"fleet-reshard: shard {s} counted {got} "
+                          f"redirects of {sent[s]} stale refreshes")
+            t = time.perf_counter()
+            fleet.reconcile_once()
+            beat_ms.append((time.perf_counter() - t) * 1e3)
+            for rid, _k, _v in FED_STRADDLE:
+                total = sum(sv._straddle_shares.get(rid, 0.0)
+                            for sv in servers.values())
+                check(total <= FED_STRADDLE_CAP * (1 + FED_SHARE_REL),
+                      f"fleet-reshard: Σ shares of {rid} {total!r} at beat "
+                      f"{rnd}")
+                worst_share = max(worst_share, total / FED_STRADDLE_CAP)
+            clock.t += 1.0
+        for _ in range(FL_SETTLE):
+            for s, server in servers.items():
+                t = time.perf_counter()
+                await server.tick_once()
+                wall = time.perf_counter() - t
+                torch.cuda.synchronize()
+                mode = server._resident.last_solve_mode
+                reason = server._resident.last_full_reason
+                walls[s]["settle"].append(wall)
+                modes[s]["settle"].append(f"full:{reason}" if mode == "full"
+                                          and reason else mode)
+            clock.t += 1.0
+        torch.cuda.synchronize()
+        launches = dict(dense_cuda.LAUNCHES)  # read just after
+        check(launches["k1"] > 0 and launches["k2"] > 0,
+              f"fleet-reshard: K1 and K2 must both launch: {launches}")
+        out = dict(launches=launches, install_ms=install_ms,
+                   carry_ms=carry_ms, moved=len(moved),
+                   moved_rows=carried_rows, beat_ms=beat_ms,
+                   share_of_capacity=worst_share, rest_compared=compared,
+                   moved_oracle_err=moved_err, stale=sum(sent.values()),
+                   stale_p50_ms=_pcts([x / 1e3 for x in stale_ms])[0],
+                   populate_s=populate_s, shards={})
+        for s in (0, 1, 2):
+            entry = {}
+            for phase in ("pre", "post", "settle"):
+                if walls[s][phase]:
+                    p50, p95 = _pcts(walls[s][phase])
+                    entry[phase] = dict(p50=p50, p95=p95,
+                                        modes=sorted(set(modes[s][phase])))
+            out["shards"][s] = entry
+            say(f"phase fleet-reshard[f32] shard {s}: " + "; ".join(
+                f"{ph} tick p50 {v['p50']:.2f} ms p95 {v['p95']:.2f} ms "
+                f"({'held' if v['p95'] <= 100.0 else 'MISSED'}: lane limit "
+                f"100 ms p95) {v['modes']}" for ph, v in entry.items())
+                + f"; card {card}")
+        beat50, beat95 = _pcts([x / 1e3 for x in beat_ms])
+        say(f"phase fleet-reshard[f32]: reshard 2 -> 3 moved {len(moved)} "
+            f"resources ({carried_rows} rows carried with their has in "
+            f"{carry_ms:.1f} ms; the install, epoch + routing tables on 3 "
+            f"shards, {install_ms:.1f} ms); {sum(sent.values())} stale "
+            f"refreshes redirected and counted (p50 "
+            f"{out['stale_p50_ms']:.2f} ms); {compared} stayed resources at "
+            f"rest byte-identical across the install; moved rows vs the f64 "
+            f"oracle {moved_err:.3g}; beat p50 / p95 {beat50:.3f} / "
+            f"{beat95:.3f} ms, Σ shares at most {worst_share:.9f} of "
+            f"capacity; launches {launches}; card {card}")
+        return out
+    finally:
+        for server in live:
+            await server.stop()
+
+
+def _fleet_procs(card):
+    """cmd.fleet --smoke: the fleet head, its RPC beat and three real
+    shard processes (batch mode, native store, --device cuda) through a
+    live 2 -> 3 reshard."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = Path(tmp) / "verdict.json"
+        t = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        out = subprocess.run(
+            [sys.executable, "-m", "doorman_tpu_torch.cmd.fleet", "--smoke",
+             "--mode", "batch", "--native-store", "--device", DEVICE,
+             "--rounds", str(FL_SMOKE_ROUNDS),
+             "--timeout", str(FL_SMOKE_TIMEOUT),
+             "--out", str(out_path), "--log-dir", str(Path(tmp) / "logs")],
+            cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=FL_SMOKE_TIMEOUT + 60)
+        secs = time.perf_counter() - t
+        if out.returncode != 0:
+            say(out.stdout[-2000:] + out.stderr[-4000:])
+        check(out.returncode == 0, f"cmd.fleet --smoke exited {out.returncode}")
+        verdict = json.loads(out_path.read_text())
+    check(verdict["ok"], f"cmd.fleet --smoke: {verdict.get('error')}")
+    cap = 120.0  # cmd.fleet's built-in config
+    rounds = verdict["rounds"]
+    check(rounds and all(r["has_sum"] <= cap + 1e-6 for r in rounds),
+          "fleet-procs: Σ has past capacity in a beat round")
+    check({r["phase"] for r in rounds} == {"pre", "handoff"},
+          "fleet-procs: the smoke did not run through the reshard")
+    logs = verdict["shard_logs"]
+    check(sorted(logs) == ["0", "1", "2"], f"fleet-procs: shards {logs}")
+    for s, v in logs.items():
+        check(str(v["device"]).startswith(DEVICE) and (v["ticks"] or 0) > 0,
+              f"fleet-procs: shard {s} served on {v['device']} with "
+              f"{v['ticks']} ticks")
+    say(f"phase fleet-procs: cmd.fleet --smoke ok in {secs:.1f}s: "
+        f"{len(rounds)} beat rounds through the live 2 -> 3 reshard, Σ has "
+        f"at most {max(r['has_sum'] for r in rounds)} of {cap}; shards "
+        + ", ".join(f"{s} on {v['device']} ({v['ticks']} ticks)"
+                    for s, v in sorted(logs.items()))
+        + f"; shares {verdict['shares']}; card {card}")
+    return dict(seconds=secs, rounds=len(rounds), shard_logs=logs,
+                shares=verdict["shares"])
+
+
+def phase_fleet(torch, card):
+    """fleet-reshard (in process) and fleet-procs (cmd.fleet --smoke)."""
+    reshard = asyncio.run(_fleet_reshard(torch, card))
+    procs = _fleet_procs(card)
+    return dict(reshard=reshard, procs=procs)
+
+
+# tls: a self-signed localhost pair (openssl, as tests/test_tls.py makes
+# it); the server binary in batch mode on the native store with
+# --tls-cert / --tls-key beside a plaintext twin (TLS_CLIENTS port Clients
+# of TLS_RES resources each, at f64: the FAIR_SHARE resources overloaded,
+# the PROPORTIONAL_SHARE ones not, so both twins reach one fixpoint
+# whatever ticks each ran — an overloaded proportional row moves by an
+# ulp a tick); immediate mode's IMM_CONC load over TLS beside plaintext;
+# two pools of TLS_FE_WORKERS real listener workers, one terminating TLS,
+# one plaintext, under TLS_FE_WATCHERS streams; an intermediate dialing a
+# TLS root with --parent-tls-ca.
+TLS_CONFIG = """
+resources:
+- identifier_glob: "t.prop*"
+  capacity: 1000
+  algorithm: {kind: PROPORTIONAL_SHARE, lease_length: 60,
+              refresh_interval: 1, learning_mode_duration: 0}
+- identifier_glob: "*"
+  capacity: 100
+  algorithm: {kind: FAIR_SHARE, lease_length: 60, refresh_interval: 1,
+              learning_mode_duration: 0}
+"""
+TLS_CLIENTS = 20
+TLS_RES = 10
+TLS_ROUNDS = 12  # refresh rounds at most, until two in a row agree
+TLS_TICK = 0.25
+TLS_FE_WORKERS = 2
+TLS_FE_WATCHERS = 8
+TLS_FE_TICKS = 6
+TLS_READY_S = 120.0
+
+
+def _tls_certs(tmp):
+    """A self-signed localhost cert/key pair; fails loudly without
+    openssl."""
+    import shutil
+
+    check(shutil.which("openssl") is not None,
+          "tls: openssl is not on the PATH")
+    key, cert = Path(tmp) / "key.pem", Path(tmp) / "cert.pem"
+    out = subprocess.run(
+        ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-keyout",
+         str(key), "-out", str(cert), "-days", "1", "-nodes", "-subj",
+         "/CN=localhost", "-addext",
+         "subjectAltName=DNS:localhost,IP:127.0.0.1"],
+        capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"tls: openssl failed: {out.stderr[-500:]}")
+    return str(cert), str(key)
+
+
+class _Binary:
+    """One server binary in a process of its own, its log in `tmp`;
+    stopped (SIGTERM: the binary's own shutdown, then its last log line)
+    on exit."""
+
+    def __init__(self, tmp, name, args):
+        import os
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            self.port = sock.getsockname()[1]
+        self.log_path = Path(tmp) / f"{name}.log"
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "doorman_tpu_torch.cmd.server",
+             "--host", "127.0.0.1", "--port", str(self.port),
+             "--debug-port", "-1", *args],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+            stdout=self._log, stderr=subprocess.STDOUT,
+            stdin=subprocess.DEVNULL)
+
+    async def ready(self, creds=None):
+        import grpc
+
+        from doorman_tpu_torch.proto import doorman_pb2 as pb
+        from doorman_tpu_torch.proto.grpc_api import CapacityStub
+
+        deadline = time.monotonic() + TLS_READY_S
+        async with _channel(grpc, self.port, creds) as ch:
+            stub = CapacityStub(ch)
+            while True:
+                if self.proc.poll() is not None or time.monotonic() > deadline:
+                    say(self.log_path.read_text()[-3000:])
+                    check(False, f"tls: {self.log_path.name} did not come up")
+                try:
+                    d = await stub.Discovery(pb.DiscoveryRequest(),
+                                             timeout=2.0)
+                    if d.is_master:
+                        return
+                except grpc.aio.AioRpcError:
+                    pass
+                await asyncio.sleep(0.3)
+
+    def stop(self):
+        """SIGTERM, then the log's (tick device, ticks)."""
+        import re
+
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        self._log.close()
+        text = self.log_path.read_text()
+        dev = re.search(r"tick device (\S+?),", text)
+        ticks = re.search(r"stopped after (\d+) ticks", text)
+        return (dev.group(1) if dev else None,
+                int(ticks.group(1)) if ticks else None)
+
+
+async def _tls_clients_round(clients):
+    for c in clients:
+        check(await asyncio.wait_for(c.refresh_once(), 30),
+              f"tls: client {c.id}'s refresh failed")
+    return {(c.id, rid): res.current_capacity()
+            for c in clients for rid, res in c.resources.items()}
+
+
+async def _tls_server(tmp, cert, key):
+    """The batch-mode, native-store server binary on the card over TLS
+    beside its plaintext twin: the same config, the same port Clients'
+    requests; grants equal once both have converged."""
+    import numpy as np
+
+    from doorman_tpu_torch.client import Client
+
+    cfg = Path(tmp) / "tls.yml"
+    cfg.write_text(TLS_CONFIG)
+    common = ["--config", f"file:{cfg}", "--mode", "batch", "--native-store",
+              "--device", DEVICE, "--solver-dtype", "f64",
+              "--tick-interval", str(TLS_TICK),
+              "--minimum-refresh-interval", "0"]
+    bins = {"tls": _Binary(tmp, "tls-server", common + [
+                "--tls-cert", cert, "--tls-key", key]),
+            "plain": _Binary(tmp, "plain-server", common)}
+    clients = {}
+    try:
+        import grpc
+
+        with open(cert, "rb") as f:
+            creds = grpc.ssl_channel_credentials(root_certificates=f.read())
+        await bins["tls"].ready(creds)
+        await bins["plain"].ready()
+        rng = np.random.default_rng(151)
+        asks = [[(f"t.{'prop' if (i + r) % 2 else 'fair'}{r}",
+                  float(rng.integers(1, 30))) for r in range(TLS_RES)]
+                for i in range(TLS_CLIENTS)]
+        for side, b in bins.items():
+            clients[side] = []
+            host = "localhost" if side == "tls" else "127.0.0.1"
+            for i in range(TLS_CLIENTS):
+                c = Client(f"{host}:{b.port}", f"tls-c{i}",
+                           minimum_refresh_interval=0.0, max_retries=3,
+                           tls_ca=cert if side == "tls" else None)
+                for rid, wants in asks[i]:
+                    await c.resource(rid, wants)
+                clients[side].append(c)
+        last, rounds, lat = None, 0, []
+        for rounds in range(1, TLS_ROUNDS + 1):
+            got = {}
+            for side in bins:
+                t = time.perf_counter()
+                got[side] = await _tls_clients_round(clients[side])
+                lat.append((side, time.perf_counter() - t))
+            await asyncio.sleep(3 * TLS_TICK)
+            if got["tls"] == got["plain"] and got == last:
+                break
+            last = got
+        check(got["tls"] == got["plain"],
+              f"tls: grants over TLS differ from the plaintext twin's after "
+              f"{rounds} rounds")
+        check(any(v > 0 for v in got["tls"].values()),
+              "tls: no grant over TLS")
+    finally:
+        for side in clients:
+            for c in clients[side]:
+                c.RELEASE_TIMEOUT = 2.0
+                await c.close()
+        served = {side: b.stop() for side, b in bins.items()}
+    for side, (dev, ticks) in served.items():
+        check(str(dev).startswith(DEVICE) and (ticks or 0) > 0,
+              f"tls: the {side} binary served on {dev} with {ticks} ticks")
+    return dict(rounds=rounds, grants=len(got["tls"]), served=served)
+
+
+def _imm_binaries(tmp, cert, key):
+    """Immediate mode's server binary (the reference's default flags)
+    over TLS and in the clear, started together."""
+    cfg = Path(tmp) / "imm.yml"
+    cfg.write_text(_imm_yaml())
+    common = ["--config", f"file:{cfg}", "--device", DEVICE,
+              "--log-level", "warning"]
+    return {"tls": _Binary(tmp, "imm-tls", common + [
+                "--tls-cert", cert, "--tls-key", key]),
+            "plain": _Binary(tmp, "imm-plain", common)}
+
+
+async def _tls_latency(bins, cert, ids):
+    """Phase immediate's IMM_CONC load on the two immediate-mode
+    binaries in turns (plaintext, TLS, TLS, plaintext)."""
+    import grpc
+    import numpy as np
+
+    with open(cert, "rb") as f:
+        creds = {"tls": grpc.ssl_channel_credentials(
+            root_certificates=f.read()), "plain": None}
+    lat = {"plain": [], "tls": []}
+    secs = {"plain": 0.0, "tls": 0.0}
+    try:
+        for side, b in bins.items():
+            await b.ready(creds[side])
+        for side in ("plain", "tls", "tls", "plain"):
+            got, s = await _load(bins[side].port, ids, creds[side])
+            check(bins[side].proc.poll() is None,
+                  f"tls-latency: the {side} binary exited")
+            lat[side] += got
+            secs[side] += s
+    finally:
+        for b in bins.values():
+            b.stop()
+    out = {}
+    for side, xs in lat.items():
+        xs = np.asarray(xs) * 1e3
+        out[side] = dict(p50_ms=float(np.percentile(xs, 50)),
+                         p99_ms=float(np.percentile(xs, 99)),
+                         requests_per_s=len(xs) / secs[side])
+    return out
+
+
+async def _tls_frontend(torch, cert, key):
+    """Two batch-mode stream servers on one fake clock, each behind a pool
+    of TLS_FE_WORKERS real listener workers, one pool terminating TLS:
+    TLS_FE_WATCHERS WatchCapacity streams through each public port, the
+    same churn, every frame byte-equal across the two."""
+    import socket
+
+    import grpc
+
+    from doorman_tpu_torch.algorithms import Request
+    from doorman_tpu_torch.proto import doorman_stream_pb2 as spb
+    from doorman_tpu_torch.proto.grpc_api import SERVICE_NAME
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer
+    from doorman_tpu_torch.solver import dense_cuda
+
+    now = [time.time()]
+    clock = lambda: now[0]  # noqa: E731
+    with open(cert, "rb") as f:
+        creds = grpc.ssl_channel_credentials(root_certificates=f.read())
+    sides = {}
+    try:
+        for side in ("tls", "plain"):
+            server = CapacityServer(
+                f"fe-{side}", TrivialElection(), mode="batch",
+                native_store=True, solver_dtype="f32", tick_interval=1.0,
+                minimum_refresh_interval=0.0, stream_push=True,
+                stream_shards=4, flightrec_capacity=0, clock=clock,
+                device=DEVICE)
+            tls = dict(tls_cert=cert, tls_key=key) if side == "tls" else {}
+            pool = server.attach_frontend(TLS_FE_WORKERS, ring_bytes=1 << 20,
+                                          inline=False, **tls)
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            sides[side] = dict(server=server, pool=pool, port=port)
+            backend = await server.start(0, host="127.0.0.1", tick_loop=False)
+            await server.load_config(parse_yaml_config(TLS_CONFIG))
+            server.current_master = f"127.0.0.1:{port}"
+            await pool.start(f"127.0.0.1:{port}", f"127.0.0.1:{backend}")
+        deadline = time.monotonic() + TLS_READY_S
+        for side, d in sides.items():
+            while len(d["pool"].control.status()["worker_held"]) < \
+                    TLS_FE_WORKERS:
+                check(time.monotonic() < deadline,
+                      f"tls-frontend: the {side} workers never heartbeat")
+                await asyncio.sleep(0.2)
+        dense_cuda.reset_launches()  # the tls-frontend path starts here
+        for side, d in sides.items():
+            d["chan"] = _channel(grpc, d["port"],
+                                 creds if side == "tls" else None)
+            d["watch"] = d["chan"].unary_stream(
+                f"/{SERVICE_NAME}/WatchCapacity",
+                request_serializer=spb.WatchCapacityRequest.SerializeToString,
+                response_deserializer=None)
+            d["calls"], d["frames"], d["readers"] = [], [], []
+
+        async def reader(call, frames):
+            async for msg in call:
+                frames.append(msg)
+
+        def total():
+            return sum(len(f) for d in sides.values() for f in d["frames"])
+
+        async def settle(quiet=0.3, limit=10.0):
+            """Until no frame has arrived on any stream for `quiet` s."""
+            deadline = time.monotonic() + limit
+            seen = -1
+            while total() != seen and time.monotonic() < deadline:
+                seen = total()
+                await asyncio.sleep(quiet)
+
+        async def tick_both():
+            for d in sides.values():
+                await d["server"].tick_once()
+            now[0] += 1.0
+
+        for w in range(TLS_FE_WATCHERS):
+            req = spb.WatchCapacityRequest(client_id=f"fe-w{w}")
+            for r in range(2):
+                rr = req.resource.add()
+                rr.resource_id = f"t.{'prop' if r else 'fair'}{w % 3}"
+                rr.wants, rr.priority = 10.0 + w, 1
+            for d in sides.values():
+                call = d["watch"](req)
+                d["calls"].append(call)
+                d["frames"].append([])
+                d["readers"].append(asyncio.ensure_future(
+                    reader(call, d["frames"][-1])))
+                deadline = time.monotonic() + 30
+                while not d["frames"][-1]:
+                    check(time.monotonic() < deadline
+                          and not d["readers"][-1].done(),
+                          "tls-frontend: no establishment snapshot")
+                    await asyncio.sleep(0.02)
+        for tick in range(TLS_FE_TICKS):
+            for k in range(4):
+                for d in sides.values():
+                    d["server"]._decide(
+                        f"t.{'prop' if k % 2 else 'fair'}{(tick + k) % 3}",
+                        Request(f"churn{k}", 0.0, 20.0 + 7 * tick + k, 1,
+                                priority=1))
+            await tick_both()
+            await settle()
+        ended = [t for d in sides.values() for t in d["readers"] if t.done()]
+        check(not ended, f"tls-frontend: {len(ended)} streams ended")
+        torch.cuda.synchronize()
+        launches = dict(dense_cuda.LAUNCHES)  # read just after
+        got, want = sides["tls"]["frames"], sides["plain"]["frames"]
+        pushes = sum(len(f) for f in got)
+        check(got == want, "tls-frontend: the TLS pool's frames differ from "
+              "the plaintext pool's")
+        check(pushes > TLS_FE_WATCHERS,
+              f"tls-frontend: {pushes} frames, no push after establishment")
+        check(launches["k1"] + launches["k2"] > 0,
+              f"tls-frontend: the stream servers' ticks launched {launches}")
+        return dict(watchers=TLS_FE_WATCHERS, frames=pushes,
+                    bytes=sum(len(m) for f in got for m in f),
+                    launches=launches)
+    finally:
+        for d in sides.values():
+            for call in d.get("calls", ()):
+                call.cancel()
+            for t in d.get("readers", ()):
+                t.cancel()
+            if "chan" in d:
+                await d["chan"].close()
+            await asyncio.wait_for(d["server"].stop(), 60)
+
+
+async def _tls_parent(torch, cert, key):
+    """A batch-mode root on the card serving TLS and an intermediate
+    dialing it with parent_tls_ca: the intermediate's capacities converge
+    to the root's grants, as its plaintext twin's do."""
+    from doorman_tpu_torch.algorithms import Request
+    from doorman_tpu_torch.proto import doorman_pb2 as pb
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import (
+        CapacityServer,
+        default_resource_template,
+    )
+
+    out = {}
+    for side in ("tls", "plain"):
+        root = CapacityServer(
+            f"root-{side}", TrivialElection(), mode="batch",
+            native_store=True, solver_dtype="f32",
+            minimum_refresh_interval=0.0, flightrec_capacity=0,
+            device=DEVICE)
+        inter = CapacityServer(
+            f"inter-{side}", TrivialElection(), flightrec_capacity=0,
+            minimum_refresh_interval=0.0, device=DEVICE,
+            parent_tls_ca=cert if side == "tls" else None)
+        try:
+            tls = dict(tls_cert=cert, tls_key=key) if side == "tls" else {}
+            port = await root.start(0, host="127.0.0.1", tick_loop=False,
+                                    **tls)
+            await root.load_config(parse_yaml_config(TLS_CONFIG))
+            # Started as a root: the exchanges are driven by hand.
+            await inter.start(0, host="127.0.0.1")
+            inter.parent_addr = f"localhost:{port}"
+            await inter.load_config(pb.ResourceRepository(
+                resources=[default_resource_template()]), {})
+            for i, (rid, wants) in enumerate((("t.prop0", 70.0),
+                                              ("t.fair1", 45.0),
+                                              ("t.prop2", 130.0))):
+                inter._decide(rid, Request(f"ic{i}", 0.0, wants, 1))
+            rounds = []
+            for _ in range(3):
+                got = await asyncio.wait_for(
+                    inter._perform_parent_requests(0), 30)
+                check(got[1] == 0, f"tls-parent: the {side} exchange failed")
+                await root.tick_once()
+                rounds.append({rid: res.capacity for rid, res in
+                               sorted(inter.resources.items())})
+            out[side] = rounds
+        finally:
+            await inter.stop()
+            await root.stop()
+    check(out["tls"] == out["plain"],
+          f"tls-parent: {out['tls'][-1]} over TLS, {out['plain'][-1]} in "
+          "the clear")
+    check(out["tls"][-1] == {"t.fair1": 45.0, "t.prop0": 70.0,
+                             "t.prop2": 130.0},
+          f"tls-parent: the intermediate did not converge: {out['tls'][-1]}")
+    return dict(capacities=out["tls"][-1], exchanges=len(out["tls"]))
+
+
+def phase_tls(torch, card):
+    """tls: the server binary over TLS beside its plaintext twin, request
+    latency over TLS beside plaintext, frontend workers terminating TLS
+    beside a plaintext pool, and an intermediate dialing a TLS root."""
+    import tempfile
+
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cert, key = _tls_certs(tmp)
+        # The latency leg's binaries come up while the grants are held.
+        imm = _imm_binaries(tmp, cert, key)
+        try:
+            server = asyncio.run(_tls_server(tmp, cert, key))
+        except BaseException:
+            for b in imm.values():
+                b.stop()
+            raise
+        say(f"phase tls-server: the batch-mode native-store binary over TLS "
+            f"and its plaintext twin, {TLS_CLIENTS} port Clients x {TLS_RES} "
+            f"resources: {server['grants']} grants equal after "
+            f"{server['rounds']} rounds; served on {server['served']}; card "
+            f"{card}")
+        ids = _resource_ids(np.random.default_rng(71), IMM_RES)
+        lat = asyncio.run(_tls_latency(imm, cert, ids))
+        say(f"phase tls-latency: immediate mode, {IMM_CONC[0]} concurrent "
+            f"clients x {IMM_CONC[1]} requests, twice each in turns: TLS p50 "
+            f"{lat['tls']['p50_ms']:.3f} ms p99 {lat['tls']['p99_ms']:.3f} ms "
+            f"({lat['tls']['requests_per_s']:.0f}/s), plaintext p50 "
+            f"{lat['plain']['p50_ms']:.3f} ms p99 "
+            f"{lat['plain']['p99_ms']:.3f} ms "
+            f"({lat['plain']['requests_per_s']:.0f}/s); card {card}")
+        fe = asyncio.run(_tls_frontend(torch, cert, key))
+        say(f"phase tls-frontend: {TLS_FE_WORKERS} listener workers "
+            f"terminating TLS beside a plaintext pool, {fe['watchers']} "
+            f"streams each: {fe['frames']} frames ({fe['bytes']} bytes) "
+            f"byte-equal over {TLS_FE_TICKS} churn ticks; launches "
+            f"{fe['launches']}; card {card}")
+        parent = asyncio.run(_tls_parent(torch, cert, key))
+        say(f"phase tls-parent: an intermediate with parent_tls_ca against a "
+            f"TLS root converged to {parent['capacities']} in "
+            f"{parent['exchanges']} exchanges, as its plaintext twin; card "
+            f"{card}")
+    return dict(server=server, latency=lat, frontend=fe, parent=parent)
+
+
+# -- phases beside the main sequence ----------------------------------------
+
+# Host-bound phases that share no state with the main sequence run in
+# processes of their own beside it: each builds its servers from its own
+# seeds, zeroes and reads its own launch counts around its paths, and
+# hands back its result as JSON. They start once the kernels' timings are
+# taken (another process's launches would share the card's time with
+# them) and are joined before the phases that load every core (the
+# admission storm, the frontend pool, the fleet's shard processes, TLS).
+# Each one's lines are printed when it is joined.
+BESIDE = {
+    "streams": lambda torch, card: phase_streams(torch, card, "main"),
+    "streams-scoped": lambda torch, card: phase_streams(torch, card, "scoped"),
+    "takeover": phase_takeover,
+}
+BESIDE_JOIN_S = 900.0  # script time by which every one must have ended
+BESIDE_THREADS = 2  # torch threads in each: four processes share 8 cores
+
+
+class _Beside:
+    """A BESIDE group running as `chip_smoke.py --beside GROUP CARD OUT`,
+    in a session of its own so that it and every process it starts are
+    stopped together."""
+
+    def __init__(self, group, card, tmp, t0):
+        self.group, self.t0 = group, t0
+        self.out = Path(tmp) / f"{group}.json"
+        self.log = Path(tmp) / f"{group}.log"
+        self.start = time.perf_counter() - t0
+        with open(self.log, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--beside",
+                 group, card, str(self.out)],
+                stdout=log, cwd=str(ROOT), start_new_session=True)
+
+    def join(self):
+        left = BESIDE_JOIN_S - (time.perf_counter() - self.t0)
+        try:
+            rc = self.proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            rc = None
+        self.stop()
+        for line in self.log.read_text().splitlines():
+            say(line)
+        end = time.perf_counter() - self.t0
+        say(f"phase beside[{self.group}]: started at {self.start:.1f}s of "
+            f"the script, joined at {end:.1f}s, rc {rc}")
+        check(rc is not None, f"{self.group}: still running at "
+              f"{BESIDE_JOIN_S:.0f}s of the script; stopped")
+        check(rc == 0, f"{self.group} failed in its own process (rc {rc})")
+        return json.loads(self.out.read_text())
+
+    def stop(self):
+        """Stops the group's session: its process and what it started."""
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
+
+
+def _beside_main(group, card, out) -> int:
+    """One BESIDE group in this process; its result is written to `out`.
+    Ends the group's session if the script that started it is gone."""
+    t0 = time.perf_counter()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    parent = os.getppid()
+
+    def orphaned():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os.killpg(0, signal.SIGKILL)
+
+    threading.Thread(target=orphaned, daemon=True).start()
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(BESIDE_THREADS)
+    try:
+        result = BESIDE[group](torch, card)
+    except PhaseFailed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    Path(out).write_text(json.dumps(result))
+    say(f"phase beside[{group}]: done in {time.perf_counter() - t0:.1f}s "
+        "in its own process (importing torch included)")
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -7577,6 +8680,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    beside, tmp = [], tempfile.mkdtemp(prefix="chip-smoke-")
     try:
         name, card = phase_device(torch)
         registers = phase_build()
@@ -7629,14 +8733,26 @@ def main() -> int:
         line["wide"]["largest_churn_tick"] = {
             k: v["spike"] for k, v in wide.items()}
         line["kernels"][0]["batch_dense_lanes"] = batch_lanes
+        # The phases beside the main sequence start here, after the
+        # kernels' timings (BESIDE).
+        beside.extend(_Beside(g, card, tmp, t0) for g in BESIDE)
         rt = phase_round_trip(torch, card)
         say(f"elapsed {time.perf_counter() - t0:.1f}s after round_trip")
         py = phase_python_store(torch, card)
         say(f"elapsed {time.perf_counter() - t0:.1f}s after python_store")
         imm = phase_immediate(torch, card)
         say(f"elapsed {time.perf_counter() - t0:.1f}s after immediate")
-        streams = phase_streams(torch, card)
-        say(f"elapsed {time.perf_counter() - t0:.1f}s after streams")
+        tree = phase_tree(torch, card)
+        say(f"elapsed {time.perf_counter() - t0:.1f}s after tree")
+        obs = phase_obs(torch, card, servers, prio)
+        say(f"elapsed {time.perf_counter() - t0:.1f}s after obs")
+        fed = phase_federation(torch, card)
+        say(f"elapsed {time.perf_counter() - t0:.1f}s after federation")
+        done = {b.group: b.join() for b in beside}
+        say(f"elapsed {time.perf_counter() - t0:.1f}s after the phases "
+            "beside")
+        streams = {**done["streams"], **done["streams-scoped"]}
+        tk = done["takeover"]
         # The round-trip server's K1 launches and the Python-store
         # server's K3 launches (f32) join the main path's counts; every
         # path's count stands beside them.
@@ -7679,8 +8795,6 @@ def main() -> int:
         line["streams"] = streams
         # The capacity tree: each kernel's launches on the tree's three
         # servers and on the root at scale.
-        tree = phase_tree(torch, card)
-        say(f"elapsed {time.perf_counter() - t0:.1f}s after tree")
         tree_by = {"tree": tree["tree"]["launches"], **{
             f"tree-root {d}": v["launches"]
             for d, v in tree["tree_root"].items()}}
@@ -7692,7 +8806,6 @@ def main() -> int:
         # Observability: each kernel's launches on the obs lane and
         # priority runs, and its profiler times beside its CUDA-event
         # times.
-        obs = phase_obs(torch, card, servers, prio)
         obs_by = {"obs lane f64": obs["lane_on"]["launches"],
                   "obs priority f32": obs["prio_launches"]}
         for key, entry in (("k1", k1), ("k2", k2), ("k3", k3)):
@@ -7706,11 +8819,9 @@ def main() -> int:
                 "priority_capture": obs["prio_trace"]["kernels"].get(label),
             }
         line["obs"] = {k: v for k, v in obs.items() if k != "kernels"}
-        say(f"elapsed {time.perf_counter() - t0:.1f}s before takeover")
         # Persistence and warm master takeover: each kernel's launches on
         # the takeover paths (the server binaries' launches are in their
         # own processes: their flight records carry the dispatches).
-        tk = phase_takeover(torch, card)
         tk_by = {
             "takeover A+twin f32": tk["lane"]["launches"]["a"],
             "takeover B f32": tk["lane"]["launches"]["b"],
@@ -7722,11 +8833,9 @@ def main() -> int:
             entry["launches_by_path"].update(adds)
             entry["launches"] += sum(adds.values())
         line["takeover"] = tk
-        say(f"elapsed {time.perf_counter() - t0:.1f}s before federation")
         # Federation: each kernel's launches on the federation paths
         # (fed-parity, fed-roots, fed-intermediate; by path in
         # line["federation"]["launches"]).
-        fed = phase_federation(torch, card)
         for key, entry in (("k1", k1), ("k2", k2), ("k3", k3)):
             entry["launches_by_path"]["federation"] = fed["total"][key]
             entry["launches"] += fed["total"][key]
@@ -7750,9 +8859,32 @@ def main() -> int:
             entry["launches"] += sum(adds.values())
         line["admission"] = adm
         line["frontend"] = fe
+        say(f"elapsed {time.perf_counter() - t0:.1f}s before fleet")
+        # The fleet and TLS: K1/K2 on the fleet-reshard shard roots and
+        # the TLS frontend's stream servers (no PRIORITY_BANDS resource
+        # on these paths: no K3; the fleet-procs shards and the TLS
+        # binaries tick in their own processes: their logs carry the
+        # tick device and the ticks).
+        fleet = phase_fleet(torch, card)
+        say(f"elapsed {time.perf_counter() - t0:.1f}s before tls")
+        tls = phase_tls(torch, card)
+        fl_by = {
+            "fleet-reshard f32": fleet["reshard"]["launches"],
+            "tls-frontend f32": tls["frontend"]["launches"],
+        }
+        for key, entry in (("k1", k1), ("k2", k2), ("k3", k3)):
+            adds = {path: n[key] for path, n in fl_by.items()}
+            entry["launches_by_path"].update(adds)
+            entry["launches"] += sum(adds.values())
+        line["fleet"] = fleet
+        line["tls"] = tls
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        for b in beside:
+            b.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
     say(f"summary: f32 tick wall p50 {servers['f32']['p50']:.2f} ms p95 "
         f"{servers['f32']['p95']:.2f} ms, f64 p50 {servers['f64']['p50']:.2f}"
         f" ms p95 {servers['f64']['p95']:.2f} ms at {N_RES * N_CLIENTS} "
@@ -7819,6 +8951,18 @@ def main() -> int:
         f"{fe['pool']['est_rate']:.1f} establishments/s, held "
         f"{fe['pool']['held_max']}, push p99 "
         f"{fe['pool']['push_p99_ms']:.2f} ms"
+        f"; fleet-reshard shard tick p50 / p95 " + ", ".join(
+            f"{s} {ph} {v['p50']:.2f} / {v['p95']:.2f} ms"
+            for s, e in fleet["reshard"]["shards"].items()
+            for ph, v in e.items())
+        + f", install {fleet['reshard']['install_ms']:.1f} ms, carry "
+        f"{fleet['reshard']['carry_ms']:.1f} ms, beat p50 "
+        f"{_pcts([x / 1e3 for x in fleet['reshard']['beat_ms']])[0]:.3f} ms"
+        f"; fleet-procs {fleet['procs']['seconds']:.1f}s; TLS request p50 / "
+        f"p99 {tls['latency']['tls']['p50_ms']:.3f} / "
+        f"{tls['latency']['tls']['p99_ms']:.3f} ms (plaintext "
+        f"{tls['latency']['plain']['p50_ms']:.3f} / "
+        f"{tls['latency']['plain']['p99_ms']:.3f})"
         f"; total {time.perf_counter() - t0:.1f}s")
     say(card)
     say(json.dumps(line))
@@ -7829,4 +8973,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--beside"]:
+        sys.exit(_beside_main(*sys.argv[2:5]))
     sys.exit(main())

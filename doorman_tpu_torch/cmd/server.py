@@ -9,8 +9,12 @@
         [--stream-push [--max-streams-per-band N] [--stream-shards N]] \\
         [--admission [--coalesce-window S] [--admission-max-rps R] \\
          [--fuse-admission]] \\
-        [--frontend-workers N [--frontend-ring-bytes B]] \\
+        [--frontend-workers N [--frontend-ring-bytes B] \\
+         [--frontend-tls-cert F --frontend-tls-key F]] \\
+        [--tls-cert F --tls-key F] [--parent-tls] [--parent-tls-ca F] \\
         [--minimum-refresh-interval S] [--debug-port N] [--shard i/N] \\
+        [--fleet-beat H:P --fleet-straddle R,... \\
+         [--fleet-report-interval S]] \\
         [--profile-dir DIR [--profile-ticks N]] [--trace [--trace-buffer N]] \\
         [--flightrec-buffer N] [--flightrec-dir DIR] \\
         [--history-dir DIR [--history-buffer N]] [--audit-sample K] [--detect]
@@ -47,14 +51,22 @@ resident tick's staging. `--frontend-workers N` (with --stream-push)
 serves the public port from N SO_REUSEPORT listener worker processes
 over per-worker push rings of `--frontend-ring-bytes`, the tick process
 moving to a loopback backend port.
+`--tls-cert` / `--tls-key` serve the gRPC port with TLS (both or
+neither); with `--frontend-workers` the workers terminate TLS on the
+public port with `--frontend-tls-cert` / `--frontend-tls-key`, which
+fall back to `--tls-cert` / `--tls-key`, and the loopback backend hop
+stays plaintext. `--parent-tls` dials the parent with TLS on the system
+roots, `--parent-tls-ca` pins a PEM root (and implies TLS).
+`--fleet-beat` (with `--shard i/N` and `--fleet-straddle`) runs the
+fleet's reconcile-beat reporter: every `--fleet-report-interval` seconds
+the shard reports its straddling resources' demand summaries to the
+fleet head as one GetServerCapacity and installs the returned shares
+(`python -m doorman_tpu_torch.cmd.fleet` is the head).
 The debug pages (/debug/status, /metrics, /debug/traces, /debug/flightrec,
 ...) listen on `--debug-port` (15050; 0 picks one, -1 disables);
 `--profile-dir` writes a torch.profiler Chrome trace of the first
 `--profile-ticks` batch ticks; the other observability flags are the
-reference's. Flags not listed here — the fleet (--fleet-beat,
---fleet-straddle, --fleet-report-interval), TLS (the server's own,
---frontend-tls-cert / --frontend-tls-key and --parent-tls /
---parent-tls-ca) — are not ported yet.
+reference's.
 """
 
 from __future__ import annotations
@@ -62,6 +74,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import signal
 import sys
 
 from doorman_tpu_torch.obs.debug import DebugServer, add_status_part
@@ -213,9 +226,42 @@ def make_parser() -> argparse.ArgumentParser:
                         "to hold a few ticks of push traffic — a "
                         "worker that falls a full ring behind laps and "
                         "resets its streams loudly")
+    p.add_argument("--frontend-tls-cert", default="",
+                   help="TLS certificate file for the frontend worker "
+                        "pool: each SO_REUSEPORT worker terminates TLS "
+                        "on the public port (the loopback backend hop "
+                        "stays plaintext). Defaults to --tls-cert when "
+                        "--frontend-workers is set")
+    p.add_argument("--frontend-tls-key", default="",
+                   help="TLS key file for the frontend worker pool "
+                        "(see --frontend-tls-cert); defaults to "
+                        "--tls-key when --frontend-workers is set")
+    p.add_argument("--fleet-beat", default="",
+                   help="fleet head address: run the straddle-share "
+                        "reporter — each interval this shard sweeps "
+                        "its straddling resources, reports the compact "
+                        "demand summaries as one GetServerCapacity "
+                        "(server_id 'fleet-shard-<k>') and installs "
+                        "the response leases as its shares. Needs "
+                        "--shard (the k) and --fleet-straddle")
+    p.add_argument("--fleet-straddle", default="",
+                   help="comma-separated resource ids whose capacity "
+                        "straddles every fleet shard (must match the "
+                        "head's list and the clients' router)")
+    p.add_argument("--fleet-report-interval", type=float, default=2.0,
+                   help="seconds between beat reports; the head's "
+                        "share ttl should be a small multiple of this "
+                        "or healthy shards flap to zero between "
+                        "renewals")
     p.add_argument("--minimum-refresh-interval", type=float, default=5.0,
                    help="floor for client refresh intervals (the "
                         "streams' silent-refresh cadence)")
+    p.add_argument("--tls-cert", default="", help="TLS certificate file")
+    p.add_argument("--tls-key", default="", help="TLS key file")
+    p.add_argument("--parent-tls", action="store_true",
+                   help="dial the parent with TLS (system roots)")
+    p.add_argument("--parent-tls-ca", default="",
+                   help="PEM root certificate for the parent (implies TLS)")
     p.add_argument("--profile-dir", default="",
                    help="batch mode: write a torch.profiler Chrome trace "
                         "(CPU ops, CUDA kernels and copies) of the first "
@@ -388,11 +434,34 @@ async def serve(args: argparse.Namespace, on_started=None) -> None:
         log.error("--frontend-workers needs --stream-push (the "
                   "workers exist to hold WatchCapacity streams)")
         raise SystemExit(2)
+    # TLS terminates at the workers: the dedicated flag pair wins,
+    # falling back to --tls-cert/--tls-key so a single-process
+    # deployment's flags keep working when the pool is turned on.
+    fe_cert = args.frontend_tls_cert or args.tls_cert
+    fe_key = args.frontend_tls_key or args.tls_key
+    if args.frontend_workers > 0 and bool(fe_cert) != bool(fe_key):
+        log.error("--frontend-tls-cert and --frontend-tls-key "
+                  "must both be set")
+        raise SystemExit(2)
+    straddle = [
+        r.strip() for r in args.fleet_straddle.split(",") if r.strip()
+    ]
+    if args.fleet_beat:
+        if shard is None:
+            log.error("--fleet-beat needs --shard (the reporter's "
+                      "fleet-shard-<k> identity)")
+            raise SystemExit(2)
+        if not straddle:
+            log.error("--fleet-beat needs --fleet-straddle (which "
+                      "resources the beat reconciles)")
+            raise SystemExit(2)
 
     server = CapacityServer(
         args.server_id or f"{args.host}:{args.port}",
         election,
         parent_addr=args.parent,
+        parent_tls=args.parent_tls,
+        parent_tls_ca=args.parent_tls_ca or None,
         mode=args.mode,
         tick_interval=args.tick_interval,
         native_store=args.native_store,
@@ -434,6 +503,8 @@ async def serve(args: argparse.Namespace, on_started=None) -> None:
             ring_bytes=args.frontend_ring_bytes,
             inline=False,
             ramp_window=args.coalesce_window if args.admission else 0.0,
+            tls_cert=fe_cert or None,
+            tls_key=fe_key or None,
         )
         # The tick process retreats to an ephemeral loopback backend;
         # the workers own the public port via SO_REUSEPORT.
@@ -445,11 +516,16 @@ async def serve(args: argparse.Namespace, on_started=None) -> None:
                  "(backend 127.0.0.1:%d)", args.host, args.port,
                  args.frontend_workers, backend_port)
     else:
-        port = await server.start(args.port, host=args.host)
+        port = await server.start(
+            args.port,
+            host=args.host,
+            tls_cert=args.tls_cert or None,
+            tls_key=args.tls_key or None,
+        )
         log.info("serving gRPC on %s:%d (%s mode, %s store, tick device "
-                 "%s)", args.host, port, server.mode,
+                 "%s, tls %s)", args.host, port, server.mode,
                  "native" if args.native_store else "Python",
-                 server.device)
+                 server.device, bool(args.tls_cert))
     if args.trace:
         default_tracer().enable(capacity=args.trace_buffer)
         log.info("span tracer enabled (ring %d); see /debug/traces",
@@ -493,18 +569,52 @@ async def serve(args: argparse.Namespace, on_started=None) -> None:
     else:
         log.info("intermediate of %s: configured from its grants",
                  args.parent)
+    reporter = None
+    reporter_task = None
     try:
         await server.wait_until_configured()
         log.info("configured; serving")
+        if args.fleet_beat:
+            from doorman_tpu_torch.fleet.rpc import ShardReporter
+
+            reporter = ShardReporter(
+                server, shard, args.fleet_beat, straddle,
+                interval=args.fleet_report_interval,
+            )
+            # Bootstrap: one report BEFORE serving traffic installs the
+            # even zero-demand split, so this shard never serves a
+            # straddling resource against the full template capacity.
+            # Best-effort — a head that is not up yet just means the
+            # loop's first landing report bootstraps.
+            await reporter.step()
+            reporter_task = asyncio.create_task(reporter.run())
+            log.info("fleet beat reporter: shard %d -> %s every %.1fs "
+                     "(%d straddling resources)", shard, args.fleet_beat,
+                     args.fleet_report_interval, len(straddle))
         if on_started is not None:
             on_started(server, debug)
         await asyncio.Event().wait()
     finally:
+        if reporter_task is not None:
+            reporter_task.cancel()
+        if reporter is not None:
+            await reporter.close()
         if config_task is not None:
             config_task.cancel()
         if debug is not None:
             debug.stop()
         await server.stop()
+        log.info("stopped after %d ticks (tick device %s)",
+                 server._ticks_done, server.device)
+
+
+async def _serve_until_sigterm(args) -> None:
+    """serve(), with SIGTERM cancelling it: a supervisor's stop runs the
+    server's own shutdown (the reporter, the frontend pool, the final
+    log line) instead of killing the process mid-tick."""
+    task = asyncio.current_task()
+    asyncio.get_running_loop().add_signal_handler(signal.SIGTERM, task.cancel)
+    await serve(args)
 
 
 def main(argv=None) -> None:
@@ -514,8 +624,8 @@ def main(argv=None) -> None:
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
     try:
-        asyncio.run(serve(args))
-    except KeyboardInterrupt:
+        asyncio.run(_serve_until_sigterm(args))
+    except (KeyboardInterrupt, asyncio.CancelledError):
         pass
 
 

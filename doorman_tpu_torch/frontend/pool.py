@@ -20,12 +20,15 @@ fork: a forked child of a CUDA process cannot use it, and unlike a
 multiprocessing spawn child it does not re-import the parent's main
 module, which for the server binary imports torch. So the workers never
 import torch nor touch the card. (The reference spawns them with
-multiprocessing's spawn context; its workers' TLS waits with TLS.)
+multiprocessing's spawn context.) A cert/key pair rides each worker's
+command line as file paths, and the worker reads them itself, so a
+respawn after a cert rotation picks the new pair up.
 """
 
 from __future__ import annotations
 
 import asyncio
+import itertools
 import logging
 import os
 import subprocess
@@ -50,6 +53,9 @@ _WORKER_MAIN = (
 )
 # The directory holding the package, for the workers' import path.
 _PACKAGE_ROOT = str(Path(__file__).resolve().parents[2])
+# Numbers the real pools of a process, so two of them (a TLS pool beside
+# a plaintext one) never share a ring name.
+_POOL_SEQ = itertools.count()
 
 
 class _WorkerProcess:
@@ -250,17 +256,26 @@ class FrontendPool:
 
     def __init__(self, server, workers: int, *,
                  ring_bytes: int = 1 << 22,
-                 tick_interval: float = 1.0):
+                 tick_interval: float = 1.0,
+                 tls_cert: Optional[str] = None,
+                 tls_key: Optional[str] = None):
+        if bool(tls_cert) != bool(tls_key):
+            raise ValueError("tls_cert and tls_key must both be set")
         self.server = server
         self.workers = int(workers)
         self.ring_bytes = int(ring_bytes)
         self.tick_interval = float(tick_interval)
+        # TLS terminates at the workers (the listener edge).
+        self.tls_cert = tls_cert
+        self.tls_key = tls_key
         registry = server._streams
         if registry is None:
             raise ValueError("frontend pool needs stream push enabled")
         self._registry = registry
+        pool = next(_POOL_SEQ)
         self._ring_names = [
-            f"doorman-fe-{os.getpid()}-{w}" for w in range(self.workers)
+            f"doorman-fe-{os.getpid()}-{pool}-{w}"
+            for w in range(self.workers)
         ]
         self.rings: List[Ring] = [
             Ring.shared(name, self.ring_bytes, create=True)
@@ -305,7 +320,9 @@ class FrontendPool:
              "--backend", self.backend_addr,
              "--ring", self._ring_names[w],
              "--ring-bytes", str(self.ring_bytes),
-             "--tick-interval", repr(self.tick_interval)],
+             "--tick-interval", repr(self.tick_interval),
+             *(["--tls-cert", self.tls_cert, "--tls-key", self.tls_key]
+               if self.tls_cert else [])],
             env=env, stdin=subprocess.DEVNULL,
         )
         self._procs[w] = _WorkerProcess(popen)

@@ -297,33 +297,36 @@ def run_worker(
     tick_interval: float = 1.0,
     poll_interval: float = 0.05,
     heartbeat_interval: float = 1.0,
+    tls_cert: "str | None" = None,
+    tls_key: "str | None" = None,
 ) -> None:
     """Body of one listener worker PROCESS (a fresh interpreter that
     FrontendPool starts with `main`'s command line: workers never import
     torch, nor a module of this package that does, and never touch the
     card). Serves the public port with SO_REUSEPORT, pumps the shared
-    ring, forwards unary RPCs and establishment to `backend_addr`. The
-    public port is served in the clear (the reference's worker TLS
-    waits with TLS); the backend forward is loopback-plaintext by
-    design."""
+    ring, forwards unary RPCs and establishment to `backend_addr`.
+    A `tls_cert`/`tls_key` file pair terminates TLS at the worker; the
+    backend forward stays loopback-plaintext by design."""
     logging.basicConfig(
         level=logging.INFO,
         format=f"%(asctime)s %(levelname).1s frontend-w{index}: "
                "%(message)s",
     )
     uv = _install_uvloop()
-    log.info("worker %d: uvloop=%s public=%s backend=%s",
-             index, uv, public_addr, backend_addr)
+    log.info("worker %d: uvloop=%s public=%s backend=%s tls=%s",
+             index, uv, public_addr, backend_addr, bool(tls_cert))
     asyncio.run(_worker_serve(
         index, public_addr, backend_addr, ring_name, ring_capacity,
         tick_interval=tick_interval, poll_interval=poll_interval,
         heartbeat_interval=heartbeat_interval,
+        tls_cert=tls_cert, tls_key=tls_key,
     ))
 
 
 def main(argv=None) -> int:
     """A worker process's command line (FrontendPool._spawn):
-    --index --public --backend --ring --ring-bytes [--tick-interval]."""
+    --index --public --backend --ring --ring-bytes [--tick-interval]
+    [--tls-cert --tls-key]."""
     p = argparse.ArgumentParser(prog="doorman-frontend-worker")
     p.add_argument("--index", type=int, required=True)
     p.add_argument("--public", required=True)
@@ -331,9 +334,13 @@ def main(argv=None) -> int:
     p.add_argument("--ring", required=True)
     p.add_argument("--ring-bytes", type=int, required=True)
     p.add_argument("--tick-interval", type=float, default=1.0)
+    p.add_argument("--tls-cert", default="")
+    p.add_argument("--tls-key", default="")
     args = p.parse_args(argv)
     run_worker(args.index, args.public, args.backend, args.ring,
-               args.ring_bytes, tick_interval=args.tick_interval)
+               args.ring_bytes, tick_interval=args.tick_interval,
+               tls_cert=args.tls_cert or None,
+               tls_key=args.tls_key or None)
     return 0
 
 
@@ -347,6 +354,8 @@ async def _worker_serve(
     tick_interval: float,
     poll_interval: float,
     heartbeat_interval: float,
+    tls_cert: "str | None" = None,
+    tls_key: "str | None" = None,
 ) -> None:
     import signal
     import time
@@ -502,9 +511,23 @@ async def _worker_serve(
             CAPACITY_SERVICE, handlers
         ),
     ))
-    server.add_insecure_port(public_addr)
+    if tls_cert and tls_key:
+        # TLS terminates HERE, at the listener edge: every worker
+        # serves the same cert pair on the shared SO_REUSEPORT socket,
+        # and only the loopback backend hop stays plaintext. Files are
+        # read in-process so a cert rotation needs only a worker
+        # respawn, not a pool rebuild.
+        with open(tls_key, "rb") as f:
+            key_bytes = f.read()
+        with open(tls_cert, "rb") as f:
+            cert_bytes = f.read()
+        creds = grpc.ssl_server_credentials([(key_bytes, cert_bytes)])
+        server.add_secure_port(public_addr, creds)
+    else:
+        server.add_insecure_port(public_addr)
     await server.start()
-    log.info("worker %d serving %s", index, public_addr)
+    log.info("worker %d serving %s (tls=%s)", index, public_addr,
+             bool(tls_cert))
 
     # Graceful drain: SIGTERM stops accepting, ends held streams (the
     # _CLOSE fan-out below), and lets in-flight unary forwards finish

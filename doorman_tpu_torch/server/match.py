@@ -39,6 +39,7 @@ import torch
 from doorman_tpu_torch.obs.phases import PhaseRecorder
 from doorman_tpu_torch.solver.engine import PHASES, ceil_to, place
 from doorman_tpu_torch.utils import dispatch as dispatch_mod
+from doorman_tpu_torch.utils.backend import resolve_device
 
 __all__ = ["SubscriptionMatcher"]
 
@@ -69,8 +70,10 @@ class SubscriptionMatcher:
 
     component = "stream"
 
-    def __init__(self, *, device="cpu", use_device: bool = True):
-        self._device = torch.device(device)
+    def __init__(self, *, device="cuda", use_device: bool = True):
+        # "cuda" by default, as every device class of the port: without
+        # a GPU the caller must ask for "cpu".
+        self._device = resolve_device(device)
         self._use_device = use_device
         # slot allocation
         self._free: List[int] = []

@@ -65,9 +65,13 @@ RPC, tick, parent-exchange and fanout trace spans, the request hook and
 request log, the per-tick flight recorder (on by default), the durable
 history, the shadow audit, the anomaly detector, the SLO evaluation, the
 debug pages' status, and a torch.profiler capture of the first
-`profile_ticks` batch ticks (`profile_dir`). Cut seam: the parent is
-dialed without TLS. Unlike the reference, asking for the native store
-where it cannot be built is an error, not a switch to the Python store.
+`profile_ticks` batch ticks (`profile_dir`), the fleet's epoch-aware
+redirect (`set_fleet_routing`), and TLS on every hop: the gRPC port
+(`start(tls_cert=, tls_key=)`), the frontend workers' public port
+(`attach_frontend(tls_cert=, tls_key=)`) and the dial to the parent
+(`parent_tls`, `parent_tls_ca`). Unlike the reference, asking for the
+native store where it cannot be built is an error, not a switch to the
+Python store.
 
 Concurrency model: one asyncio loop owns all state; the tick's dispatch
 and collect run in an executor thread (the native engine is
@@ -182,6 +186,8 @@ class CapacityServer(CapacityServicer):
         election: Election,
         *,
         parent_addr: str = "",
+        parent_tls: bool = False,
+        parent_tls_ca: Optional[str] = None,
         mode: str = "immediate",  # "immediate" | "batch"
         tick_interval: float = 1.0,
         clock: Callable[[], float] = time.time,
@@ -231,9 +237,8 @@ class CapacityServer(CapacityServicer):
         # Federation counters (the reconciler and the federated
         # intermediate's upstream exchange bump these): straddle-share
         # installs, the capacity those shares currently sum to, and
-        # upstream RPCs issued. `fleet_redirects` stays 0 until the
-        # fleet's epoch-aware redirect is ported; it keeps the
-        # reference's keys.
+        # upstream RPCs issued, and the fleet's epoch-aware redirects
+        # (GetCapacity answered with the new owner's address).
         self.fed_stats: Dict[str, float] = {
             "straddle_updates": 0,
             "straddle_capacity": 0.0,
@@ -243,6 +248,13 @@ class CapacityServer(CapacityServicer):
         # resource id -> this shard's currently installed share (feeds
         # fed_stats["straddle_capacity"] as the sum over resources).
         self._straddle_shares: Dict[str, float] = {}
+        # Fleet routing: resources an epoch moved AWAY from this shard,
+        # mapped to the new owner's address ("" when unknown — the
+        # client falls back to discovery). Replaced whole per epoch by
+        # set_fleet_routing, so a resource that moves back simply
+        # drops out of the table.
+        self._fleet_routing: Dict[str, str] = {}
+        self._fleet_epoch = 0
         self.election = election
         self.mode = mode
         self.tick_interval = tick_interval
@@ -289,6 +301,8 @@ class CapacityServer(CapacityServicer):
         self.config: Optional[pb.ResourceRepository] = None
         self.is_configured = asyncio.Event()
         self.parent_addr = parent_addr
+        self.parent_tls = parent_tls
+        self.parent_tls_ca = parent_tls_ca
         # The updater's channel to the parent (created at its first
         # exchange).
         self._parent_conn: Optional[Connection] = None
@@ -448,10 +462,16 @@ class CapacityServer(CapacityServicer):
     # ------------------------------------------------------------------
 
     async def start(self, port: int = 0, host: str = "[::]",
-                    tick_loop: bool = True) -> int:
+                    tick_loop: bool = True,
+                    tls_cert: Optional[str] = None,
+                    tls_key: Optional[str] = None) -> int:
         """Start serving gRPC and, in batch mode (unless `tick_loop` is
         False, for callers that drive tick_once themselves), the tick
-        loop; returns the bound port."""
+        loop; returns the bound port. Passing a cert/key pair serves TLS
+        (reference doorman_server.go:171-177); the frontend control
+        surface rides the same port."""
+        if (tls_cert or tls_key) and not (tls_cert and tls_key):
+            raise ValueError("tls_cert and tls_key must both be set")
         self._loop = asyncio.get_running_loop()
         server = grpc.aio.server()
         add_capacity_servicer(server, self)
@@ -464,7 +484,15 @@ class CapacityServer(CapacityServicer):
             )
 
             add_frontend_control(server, self._frontend_control)
-        self.port = server.add_insecure_port(f"{host}:{port}")
+        if tls_cert:
+            with open(tls_key, "rb") as f:
+                key = f.read()
+            with open(tls_cert, "rb") as f:
+                cert = f.read()
+            creds = grpc.ssl_server_credentials([(key, cert)])
+            self.port = server.add_secure_port(f"{host}:{port}", creds)
+        else:
+            self.port = server.add_insecure_port(f"{host}:{port}")
         await server.start()
         self._grpc_server = server
         if self.parent_addr:
@@ -490,14 +518,18 @@ class CapacityServer(CapacityServicer):
         return self.port
 
     def attach_frontend(self, workers: int, *, ring_bytes: int = 1 << 20,
-                        inline: bool = True, ramp_window: float = 0.0):
+                        inline: bool = True, ramp_window: float = 0.0,
+                        tls_cert: Optional[str] = None,
+                        tls_key: Optional[str] = None):
         """Attach the serving-plane pool (frontend/): N listener
         workers over per-worker push rings, plus the establishment ramp.
         `inline=True` builds the deterministic same-process pool (tests;
         call `pump_all()` after push edges); `inline=False` builds the
         real process pool (construct BEFORE start(); its control surface
-        registers on the backend gRPC server at start). Returns the
-        pool. (The reference's worker TLS waits with TLS.)"""
+        registers on the backend gRPC server at start). A
+        `tls_cert`/`tls_key` pair makes the real pool's workers terminate
+        TLS on the public port; the backend hop stays plaintext. Returns
+        the pool."""
         if self._streams is None:
             raise ValueError(
                 "attach_frontend needs stream push enabled (stream_push)"
@@ -516,6 +548,7 @@ class CapacityServer(CapacityServicer):
             self._frontend = FrontendPool(
                 self, workers, ring_bytes=ring_bytes,
                 tick_interval=self.tick_interval,
+                tls_cert=tls_cert, tls_key=tls_key,
             )
         self._frontend_ramp = EstablishmentRamp(window=ramp_window)
         return self._frontend
@@ -1345,6 +1378,25 @@ class CapacityServer(CapacityServicer):
             sum(self._straddle_shares.values())
         )
 
+    def set_fleet_routing(
+        self, epoch: int, routed_away: Dict[str, str]
+    ) -> None:
+        """Fleet hook: install the epoch's redirect table — every
+        resource this shard no longer owns, mapped to the new owner's
+        dial address. The table REPLACES the previous epoch's (the
+        fleet controller computes it from the full tracked set, so a
+        resource that moved back is simply absent). A stale-epoch
+        client refreshing a moved resource here gets a mastership
+        redirect to the new owner instead of a silently wrong grant;
+        its rows on this shard drain by plain lease expiry."""
+        epoch = int(epoch)
+        if epoch < self._fleet_epoch:
+            # An out-of-order install from a slow controller RPC must
+            # not roll the table back to an older epoch's map.
+            return
+        self._fleet_epoch = epoch
+        self._fleet_routing = dict(routed_away)
+
     def persist_step(self) -> None:
         """One durability beat (journal flush + cadenced snapshot +
         compaction) when persistence is configured and this server is
@@ -1659,6 +1711,23 @@ class CapacityServer(CapacityServicer):
                 if not self.is_master:
                     out.mastership.CopyFrom(self._mastership())
                     return out
+                if self._fleet_routing:
+                    # Epoch-aware redirect: a reshard moved one of the
+                    # requested resources off this shard. Answer with a
+                    # mastership redirect to the new owner (clients
+                    # batch per shard, so a mixed batch is a stale
+                    # router — chasing re-sorts it).
+                    moved = next(
+                        (req.resource_id for req in request.resource
+                         if req.resource_id in self._fleet_routing),
+                        None,
+                    )
+                    if moved is not None:
+                        self.fed_stats["fleet_redirects"] += 1
+                        addr = self._fleet_routing[moved]
+                        if addr:
+                            out.mastership.master_address = addr
+                        return out
                 msg = config_mod.validate_get_capacity_request(request)
                 if msg is not None:
                     err = True
@@ -2154,6 +2223,8 @@ class CapacityServer(CapacityServicer):
             self._parent_conn = Connection(
                 self.parent_addr,
                 minimum_refresh_interval=self.minimum_refresh_interval,
+                tls=self.parent_tls,
+                tls_ca=self.parent_tls_ca,
             )
         request = self._build_server_capacity_request()
         try:

@@ -389,3 +389,108 @@ def test_frontend_workers_flag_needs_stream_push(tmp_path):
     ])
     with pytest.raises(SystemExit):
         asyncio.run(t_cmd.serve(args))
+
+
+# ----------------------------------------------------------------------
+# The fleet and TLS flags
+# ----------------------------------------------------------------------
+
+FLEET_TLS_FLAGS = ("fleet_beat", "fleet_straddle", "fleet_report_interval",
+                   "tls_cert", "tls_key", "parent_tls", "parent_tls_ca",
+                   "frontend_tls_cert", "frontend_tls_key")
+
+
+@pytest.mark.parametrize("dest", FLEET_TLS_FLAGS)
+def test_fleet_and_tls_flags_have_the_reference_defaults(dest):
+    ref, port = j_cmd.make_parser(), t_cmd.make_parser()
+    assert port.get_default(dest) == ref.get_default(dest), dest
+    flag = "--" + dest.replace("_", "-")
+    value = {"parent_tls": [], "fleet_report_interval": ["1.5"]}.get(
+        dest, ["x"])
+    assert getattr(port.parse_args([flag, *value]), dest) == getattr(
+        ref.parse_args([flag, *value]), dest)
+
+
+@pytest.mark.parametrize("argv,error", [
+    (["--fleet-beat", "127.0.0.1:1", "--fleet-straddle", "r0"],
+     "--fleet-beat needs --shard"),
+    (["--fleet-beat", "127.0.0.1:1", "--shard", "0/2"],
+     "--fleet-beat needs --fleet-straddle"),
+    (["--fleet-beat", "127.0.0.1:1", "--shard", "0/2",
+      "--fleet-straddle", " , "],
+     "--fleet-beat needs --fleet-straddle"),
+    (["--stream-push", "--frontend-workers", "1",
+      "--frontend-tls-cert", "c.pem"],
+     "--frontend-tls-cert and --frontend-tls-key must both be set"),
+    (["--stream-push", "--frontend-workers", "1", "--tls-key", "k.pem"],
+     "--frontend-tls-cert and --frontend-tls-key must both be set"),
+])
+def test_fleet_and_frontend_tls_flags_exit_2_with_the_reference_errors(
+    argv, error, tmp_path, caplog
+):
+    """The reference's refusals: --fleet-beat without --shard or
+    --fleet-straddle, and half a worker TLS pair (the --tls-* fallback
+    included), exit with status 2 and the reference's message."""
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(CONFIG)
+    args = t_cmd.make_parser().parse_args([
+        "--config", f"file:{cfg}", "--port", "0", "--host", "127.0.0.1",
+        "--debug-port", "-1", "--device", "cpu", *argv,
+    ])
+    with caplog.at_level("ERROR"), pytest.raises(SystemExit) as exc:
+        asyncio.run(asyncio.wait_for(t_cmd.serve(args), 30))
+    assert exc.value.code == 2
+    assert any(error in r.getMessage() for r in caplog.records)
+
+
+def test_tls_flag_pair_is_both_or_neither(tmp_path):
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(CONFIG)
+    args = t_cmd.make_parser().parse_args([
+        "--config", f"file:{cfg}", "--port", "0", "--host", "127.0.0.1",
+        "--debug-port", "-1", "--device", "cpu", "--tls-cert", "c.pem",
+    ])
+    with pytest.raises(ValueError, match="both be set"):
+        asyncio.run(asyncio.wait_for(t_cmd.serve(args), 30))
+
+
+def test_fleet_beat_flag_runs_the_reporter(tmp_path):
+    """--shard 1/2 --fleet-beat --fleet-straddle: the binary's reporter
+    reports to a fleet head before serving and installs the share the
+    head answers with."""
+    from doorman_tpu_torch.fleet.beat import BeatCore
+    from doorman_tpu_torch.fleet.rpc import serve_beat
+
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(CONFIG)
+
+    async def body():
+        core = BeatCore(lambda rid: (90.0, 3, 60.0), expected=[0, 1],
+                        share_ttl=5.0)
+        head, head_port = await serve_beat(core)
+        task = None
+        try:
+            task, server, _ = await _start_serve([
+                "--config", f"file:{cfg}", "--port", "0", "--host",
+                "127.0.0.1", "--debug-port", "-1", "--device", "cpu",
+                "--shard", "1/2", "--fleet-beat",
+                f"127.0.0.1:{head_port}", "--fleet-straddle", "r0",
+                "--fleet-report-interval", "0.2",
+            ])
+            for _ in range(100):
+                if core.reports >= 2:
+                    break
+                await asyncio.sleep(0.05)
+            assert core.reports >= 2
+            # The share installed is the one the head computed.
+            shares = core.status()["resources"]["r0"]["reconciler"][
+                "shares"]
+            assert server._straddle_shares == {"r0": shares[1]["value"]}
+            assert shares[1]["value"] > 0.0
+            assert server.fed_stats["straddle_updates"] >= 2
+        finally:
+            if task is not None:
+                await _stop(task)
+            await head.stop(grace=1.0)
+
+    asyncio.run(body())

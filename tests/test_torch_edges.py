@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import tests.conftest  # noqa: F401
+import tests._torch_threads  # noqa: F401
 
 from doorman_tpu.core.snapshot import ResourceSpec as JSpec
 from doorman_tpu.core.snapshot import pack_edge_arrays as j_pack

@@ -39,9 +39,9 @@ def _imported_modules(path: Path):
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
-    # The port's 92 modules and chip_smoke.py: a slice that drops one
+    # The port's 100 modules and chip_smoke.py: a slice that drops one
     # is noticed here.
-    assert len(files) >= 93
+    assert len(files) >= 101
     names = {str(f.relative_to(ROOT)) for f in files}
     for mod in ("obs/audit", "obs/debug", "obs/detect", "obs/flightrec",
                 "obs/history", "obs/metrics", "obs/phases", "obs/requests",
@@ -59,7 +59,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 "frontend/__init__", "frontend/control",
                 "frontend/pool", "frontend/publisher", "frontend/ring",
                 "frontend/worker", "workload/__init__",
-                "workload/forecast", "cmd/frontend_smoke"):
+                "workload/forecast", "cmd/frontend_smoke",
+                "fleet/__init__", "fleet/autoscale", "fleet/beat",
+                "fleet/controller", "fleet/epoch", "fleet/rpc",
+                "fleet/supervisor", "cmd/fleet"):
         assert f"doorman_tpu_torch/{mod}.py" in names, mod
     bad = []
     for path in files:
@@ -72,7 +75,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 @pytest.mark.parametrize(
     "entry", ["solver", "server", "cmd", "device", "aggregate",
-              "intermediate", "forecast"]
+              "intermediate", "forecast", "matcher"]
 )
 def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
     entry, tmp_path
@@ -90,6 +93,7 @@ def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
         ShardRouter,
     )
     from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.match import SubscriptionMatcher
     from doorman_tpu_torch.server.server import CapacityServer
     from doorman_tpu_torch.solver.resident import ResidentDenseSolver
     from doorman_tpu_torch.utils.backend import resolve_device
@@ -116,6 +120,7 @@ def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
             discovery=ShardDiscovery({}), **kw,
         ),
         "forecast": lambda **kw: SeasonalForecaster(2, 4, **kw),
+        "matcher": lambda **kw: SubscriptionMatcher(**kw),
         "cmd": lambda **kw: asyncio.run(asyncio.wait_for(cmd_server.serve(
             cmd_server.make_parser().parse_args(
                 ["--config", f"file:{cfg}", "--port", "0",
@@ -133,7 +138,8 @@ def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
             make(device="cpu")
     else:
         got = make(device="cpu")
-        dev = got if entry == "device" else got.device
+        dev = {"device": got, "matcher": getattr(got, "_device", None)}.get(
+            entry, getattr(got, "device", None))
         assert dev == torch.device("cpu")
 
 

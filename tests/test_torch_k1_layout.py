@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import tests.conftest  # noqa: F401
+import tests._torch_threads  # noqa: F401
 
 from doorman_tpu.solver.dense import DenseBatch as JBatch
 from doorman_tpu.solver.dense import solve_dense as j_solve_dense

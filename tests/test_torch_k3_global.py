@@ -27,6 +27,7 @@ import pytest
 import torch
 
 import tests.conftest  # noqa: F401
+import tests._torch_threads  # noqa: F401
 
 from doorman_tpu.solver import priority as jp
 from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import tests.conftest  # noqa: F401
+import tests._torch_threads  # noqa: F401
 
 from doorman_tpu.algorithms import priority as j_oracle
 from doorman_tpu.solver import priority as jp

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 import tests.conftest  # noqa: F401
+import tests._torch_threads  # noqa: F401
 
 from doorman_tpu import native as jnative
 from doorman_tpu.core.resource import Resource as JResource

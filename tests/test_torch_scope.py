@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 import tests.conftest  # noqa: F401
+import tests._torch_threads  # noqa: F401
 
 from doorman_tpu import native as jnative
 from doorman_tpu.server.config import parse_yaml_config as j_parse

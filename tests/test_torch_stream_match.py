@@ -61,7 +61,8 @@ def _wrap_leak(matcher, changed):
 def test_seeded_sequence_matches_the_reference():
     rng = np.random.default_rng(9)
     jh, jd = JMatcher(use_device=False), JMatcher()
-    th, td = TMatcher(use_device=False), TMatcher(device="cpu")
+    th, td = (TMatcher(use_device=False, device="cpu"),
+              TMatcher(device="cpu"))
     matchers = (jh, jd, th, td)
     live = []
     leaked = 0
@@ -126,7 +127,7 @@ def make(request):
     cls = IMPLS[request.param]
 
     def build(**kw):
-        if request.param == "port" and kw.get("use_device", True):
+        if request.param == "port":
             kw.setdefault("device", "cpu")
         return cls(**kw)
 
@@ -265,3 +266,17 @@ def test_match_lands_once_and_reads_nothing_else(monkeypatch):
     assert m.scatters == 1
     caps = [_pow2(len(expected(m, c))) for c in ([3, 21], [3, 21], [3])]
     assert copies == [(cap, 2) for cap in caps]
+
+
+def test_matcher_defaults_to_cuda_and_runs_on_cpu_only_when_asked():
+    """The matcher is an entry point of the port: with no `device` it
+    targets the card, so a construction without a GPU raises unless the
+    caller asks for "cpu"."""
+    if torch.cuda.is_available():
+        assert TMatcher()._device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TMatcher()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TMatcher(use_device=False)
+    assert TMatcher(device="cpu")._device == torch.device("cpu")
