@@ -127,6 +127,20 @@ twin (equal grants), request latency over TLS beside plaintext, two
 listener workers terminating TLS (frames byte-equal to a plaintext
 pool's), and an intermediate dialing a TLS root.
 
+Last, chaos and the load tester (chaos/, loadtest/, cmd/chaos.py): chaos,
+every shipped fault plan through ChaosRunner(plan, device="cuda"), each
+replayed on the card (the same log_sha256) and held to its device="cpu"
+twin (the master timeline, the event kinds less pure push entries, the
+store grants within 1e-12 relative), the audit catching the corrupted
+grant, K1 launched by device_tunnel_outage's resident ticks, then
+`cmd.chaos --plan device_tunnel_outage --device cuda` as a process; and
+loadtest-lane, the lane cell's server on its real 1 s tick loop with 5%
+churn a tick under loadtest.storm.run_storm_procs (48 poll workers in 4
+spawned processes, bands 0/1/2, ~10 s on prop.t0.storm): request p50 /
+p99 by band, the tick wall under the storm beside storm-free ticks, the
+host phase laps and the K1/K2 the storm's ticks launch, then the grants
+against the f64 oracles after quiet ticks.
+
 The streams phase (in two halves) and the takeover phase run in processes
 of their own beside the main sequence (BESIDE), from the end of the
 kernels' timings until the admission phase; each one's lines are printed
@@ -8580,6 +8594,403 @@ def phase_tls(torch, card):
 # them) and are joined before the phases that load every core (the
 # admission storm, the frontend pool, the fleet's shard processes, TLS).
 # Each one's lines are printed when it is joined.
+# -- chaos: every shipped fault plan on the card ------------------------------
+
+CH_REL = 1e-12  # card vs CPU store grants at f64 (the kernels' f64 bound)
+CH_CLI_PLAN = "device_tunnel_outage"
+CH_CLI_TIMEOUT_S = 300.0
+
+
+def _chaos_grants(runner):
+    """{server/resource: [(client, has)]} over every store of the run,
+    and each resource's capacity (the stores stay readable after the
+    runner's teardown)."""
+    # A downstream server is a client of its parent under its own
+    # address, a loopback port that differs from run to run: named here
+    # by the server it is.
+    names = {p.address: n for n, p in runner.proxies.items()}
+    grants, caps = {}, {}
+    for name, server in sorted(runner.servers.items()):
+        for rid, res in sorted(server.resources.items()):
+            key = f"{name}/{rid}"
+            rows = []
+            for row in res.store.dump_rows():
+                head, sep, tail = row[0].partition("\x01")  # band leases
+                rows.append((names.get(head, head) + sep + tail, row[3]))
+            grants[key] = sorted(rows)
+            caps[key] = float(res.capacity)
+    return grants, caps
+
+
+def _chaos_devices(runner):
+    """The devices the batch servers of the run tick on: the server's own
+    and those of the solvers it built."""
+    devs = set()
+    for server in runner.servers.values():
+        if server.mode != "batch":
+            continue
+        devs.add(str(server.device))
+        for solver, attr in ((server._solver, "device"),
+                             (server._resident, "_device"),
+                             (server._resident_wide, "_device")):
+            if solver is not None:
+                devs.add(str(getattr(solver, attr)))
+    return devs
+
+
+def _chaos_run(torch, name, device):
+    """One run of a shipped plan through the port's ChaosRunner: the
+    verdict, seconds, kernel launches (counted from zero just before the
+    run and read just after), store grants and tick devices."""
+    from doorman_tpu_torch.chaos import ChaosRunner, get_plan
+    from doorman_tpu_torch.solver import dense_cuda
+
+    runner = ChaosRunner(get_plan(name), device=device)
+    dense_cuda.reset_launches()
+    t = time.perf_counter()
+    verdict = asyncio.run(runner.run())
+    if device != "cpu":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = dict(dense_cuda.LAUNCHES)
+    grants, caps = _chaos_grants(runner)
+    ticks = {n: s._ticks_done for n, s in sorted(runner.servers.items())
+             if s.mode == "batch"}
+    return dict(verdict=verdict, seconds=secs, launches=launches,
+                grants=grants, caps=caps, devices=_chaos_devices(runner),
+                ticks=ticks)
+
+
+def _masters(verdict):
+    return [(e[0], e[2]) for e in verdict["event_log"] if e[1] == "master"]
+
+
+def _kinds(verdict):
+    """The event log's kinds, less the stream entries that are pushes
+    alone: a push fires when a subscriber's grant moves at all, and on
+    an overloaded proportional row the plain edge-list solve on the CPU
+    moves the grant by an ulp a tick where the card's solve holds still
+    (both within CH_REL of each other). Establishments, redirects,
+    polls and every other kind stay in."""
+    return [e[1] for e in verdict["event_log"]
+            if not (e[1] == "stream" and e[3] == "push")]
+
+
+def _chaos_check_plan(name, card_run, replay, cpu_run):
+    """Every check of one plan's card run: the verdict, the plan's own
+    arc where it has one, the replay, the tick device and the CPU twin."""
+    from doorman_tpu_torch.chaos import get_plan
+
+    plan = get_plan(name)
+    v = card_run["verdict"]
+    check(v["ok"] and not v["violations"],
+          f"chaos {name}: verdict not ok, violations {v['violations'][:3]}")
+    conv = v["converged_after_heal_ticks"]
+    check(conv is not None and conv <= plan.reconverge_ticks,
+          f"chaos {name}: converged after heal {conv} (budget "
+          f"{plan.reconverge_ticks})")
+    if replay["verdict"]["log_sha256"] != v["log_sha256"]:
+        pairs = zip(v["event_log"], replay["verdict"]["event_log"])
+        first = next(((a, b) for a, b in pairs if a != b), None)
+        check(False, f"chaos {name}: the replay on the card gave another "
+              f"log_sha256; first differing events {first}")
+    batch = plan.setup.get("mode") == "batch"
+    if batch:
+        want = "cuda:0" if DEVICE == "cuda" else DEVICE
+        check(card_run["devices"] == {want},
+              f"chaos {name}: batch ticks on {sorted(card_run['devices'])}")
+        check(sum(card_run["ticks"].values()) > 0,
+              f"chaos {name}: no batch tick ran ({card_run['ticks']})")
+    if name == "grant_corruption":
+        audit = v["audit"]["s0"]
+        check(audit["divergences"] == 1,
+              f"chaos {name}: audit divergences {audit['divergences']}")
+        detail = audit["details"][0]
+        factor = plan.events[0].params["factor"]
+        want = detail["expected"][0] * factor
+        check(abs(detail["has"][0] - want) <= 1e-12 * max(abs(want), 1.0),
+              f"chaos {name}: audit has {detail['has'][0]} != expected "
+              f"{detail['expected'][0]} x {factor}")
+    if name == "device_tunnel_outage":
+        check(card_run["launches"]["k1"] + card_run["launches"]["k2"] > 0,
+              f"chaos {name}: no K1 or K2 launch ({card_run['launches']})")
+        errors = [e for e in v["event_log"] if e[1] == "tick_error"]
+        check(len(errors) == 3, f"chaos {name}: {len(errors)} tick errors")
+    c = cpu_run["verdict"]
+    if _kinds(v) != _kinds(c):
+        pairs = zip(_kinds(v), _kinds(c))
+        first = next(((i, a, b) for i, (a, b) in enumerate(pairs)
+                      if a != b), None)
+        check(False, f"chaos {name}: the card's event kinds differ from "
+              f"the CPU's; first difference (index, card, CPU) {first}")
+    pushes = [sum(1 for e in x["event_log"] if e[1] == "stream"
+                  and e[3] == "push") for x in (v, c)]
+    check(_masters(v) == _masters(c),
+          f"chaos {name}: master timeline {_masters(v)} != CPU "
+          f"{_masters(c)}")
+    check(card_run["grants"].keys() == cpu_run["grants"].keys(),
+          f"chaos {name}: the card's stores hold other resources")
+    worst = 0.0
+    for key, rows in card_run["grants"].items():
+        other = cpu_run["grants"][key]
+        check([r[0] for r in rows] == [r[0] for r in other],
+              f"chaos {name}: {key} holds other clients on the card")
+        scale = max(card_run["caps"][key], 1e-300)
+        for (_, a), (_, b) in zip(rows, other):
+            worst = max(worst, abs(a - b) / max(scale, abs(a), abs(b)))
+    check(worst <= CH_REL,
+          f"chaos {name}: store grants card vs CPU {worst:.3g} > {CH_REL:g}")
+    same_sha = v["log_sha256"] == c["log_sha256"]
+    device_solve = batch and sum(card_run["ticks"].values()) > 0
+    check(same_sha or device_solve,
+          f"chaos {name}: log_sha256 differs from the CPU's with no device "
+          "solve in the run")
+    return dict(
+        seconds=card_run["seconds"], replay_seconds=replay["seconds"],
+        cpu_seconds=cpu_run["seconds"], launches=card_run["launches"],
+        batch_ticks=card_run["ticks"], devices=sorted(card_run["devices"]),
+        log_sha256=v["log_sha256"], sha_equal_cpu=same_sha,
+        push_events={"card": pushes[0], "cpu": pushes[1]},
+        grants_rel_err=worst, converged_after_heal_ticks=conv,
+        events=len(v["event_log"]),
+    )
+
+
+def _chaos_cli(card, want_sha):
+    """`python -m doorman_tpu_torch.cmd.chaos --plan device_tunnel_outage
+    --device cuda` in a process of its own: exit 0, the in-process card
+    run's log_sha256, batch ticks on cuda:0."""
+    t = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-m", "doorman_tpu_torch.cmd.chaos",
+         "--plan", CH_CLI_PLAN, "--device", DEVICE],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=CH_CLI_TIMEOUT_S)
+    secs = time.perf_counter() - t
+    if out.returncode != 0:
+        say(out.stdout[-2000:] + out.stderr[-4000:])
+    check(out.returncode == 0, f"cmd.chaos exited {out.returncode}")
+    verdict = json.loads(out.stdout)
+    check(verdict["ok"], "cmd.chaos: verdict not ok")
+    check(verdict["log_sha256"] == want_sha,
+          "cmd.chaos: log_sha256 differs from the in-process card run")
+    line = [ln for ln in out.stderr.splitlines() if "tick device" in ln]
+    dev = DEVICE if DEVICE == "cpu" else "cuda:0"
+    check(line and f"tick device {dev}," in line[-1],
+          f"cmd.chaos: {line[-1:] or 'no tick device line'}")
+    say(f"phase chaos: cmd.chaos --plan {CH_CLI_PLAN} --device {DEVICE} "
+        f"exited 0 in {secs:.1f}s, log_sha256 equal to the in-process "
+        f"run; {line[-1].strip()}; card {card}")
+    return dict(seconds=secs, stderr_line=line[-1].strip())
+
+
+def phase_chaos(torch, card):
+    """Every shipped fault plan through the port's ChaosRunner on the card
+    (twice: the replay pins log_sha256) and once on the CPU (the twin the
+    card's run is held to), then cmd.chaos in a process of its own."""
+    from doorman_tpu_torch.chaos.plans import PLANS
+
+    t0 = time.perf_counter()
+    plans = {}
+    for name in PLANS:
+        card_run = _chaos_run(torch, name, DEVICE)
+        replay = _chaos_run(torch, name, DEVICE)
+        cpu_run = _chaos_run(torch, name, "cpu")
+        res = _chaos_check_plan(name, card_run, replay, cpu_run)
+        plans[name] = res
+        say(f"phase chaos[{name}]: ok in {res['seconds']:.2f}s on the card "
+            f"(replay {res['replay_seconds']:.2f}s, CPU "
+            f"{res['cpu_seconds']:.2f}s), converged "
+            f"{res['converged_after_heal_ticks']} ticks after heal, "
+            f"{res['events']} events, launches {res['launches']}, batch "
+            f"ticks {res['batch_ticks']} on {res['devices'] or 'no batch server'}, "
+            f"log_sha256 {'equal to' if res['sha_equal_cpu'] else 'unlike'} "
+            f"the CPU's, store grants vs CPU {res['grants_rel_err']:.3g}, "
+            f"push events {res['push_events']['card']} (CPU "
+            f"{res['push_events']['cpu']})")
+    cli = _chaos_cli(card, plans[CH_CLI_PLAN]["log_sha256"])
+    secs = time.perf_counter() - t0
+    say(f"phase chaos: {len(plans)} plans held on the card in {secs:.1f}s; "
+        f"card {card}")
+    return dict(plans=plans, cli=cli, seconds=secs)
+
+
+# -- loadtest-lane: an RPC storm on the lane cell's real tick loop -------------
+
+LT_RESOURCE = "prop.t0.storm"  # the lane config's prop.t0.* template
+LT_WORKERS = 48
+LT_PROCS = 4
+LT_BANDS = (0, 1, 2)
+LT_SECONDS = 10.0
+LT_WARM_TICKS = 3
+LT_FREE_TICKS = 8  # storm-free ticks the storm's ticks are set beside
+LT_P99_LIMIT_S = 1.0  # PERF.md §2: the request limit
+
+
+async def _lt_lane(torch):
+    """The f32 lane cell (1M leases, K = 128, native store, depth-3
+    pipeline) on its real `_tick_loop` at 1 s with 5% churn a tick, then
+    run_storm_procs against it."""
+    import functools
+
+    import numpy as np
+
+    from doorman_tpu_torch.loadtest.storm import run_storm_procs
+    from doorman_tpu_torch.server.config import parse_yaml_config
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer
+    from doorman_tpu_torch.solver import dense_cuda
+
+    rng = np.random.default_rng(16)
+    server = CapacityServer(
+        "loadtest-lane", TrivialElection(), mode="batch", native_store=True,
+        solver_dtype="f32", fused_tick=True, scoped_solve=True,
+        tick_pipeline_depth=3, tick_interval=1.0, flightrec_capacity=0,
+        device=DEVICE,
+    )
+    port = await server.start(0, host="127.0.0.1", tick_loop=False)
+    try:
+        await server.load_config(parse_yaml_config(_config_yaml()))
+        t = time.perf_counter()
+        resources, rids, cids = _populate(server, rng)
+        say(f"phase loadtest-lane: {len(resources)} resources, "
+            f"{server._store_engine.total_leases} leases populated in "
+            f"{time.perf_counter() - t:.1f}s")
+        engine = server._store_engine
+        tick_once = server.tick_once
+        ticks = []  # (start, wall s, solve mode)
+
+        async def churned_tick():
+            # 5% of the resources take new demand before each tick of the
+            # loop, as the lane cell's churn does.
+            _churn(engine, rng, rids, cids)
+            start = time.perf_counter()
+            await tick_once()
+            ticks.append((start, time.perf_counter() - start,
+                          server._resident.last_solve_mode))
+
+        server.tick_once = churned_tick
+        loop_task = asyncio.create_task(server._tick_loop())
+        server._tasks.append(loop_task)
+        while len(ticks) < LT_WARM_TICKS + LT_FREE_TICKS:
+            await asyncio.sleep(0.05)
+        free = [w for _s, w, _m in ticks[LT_WARM_TICKS:]]
+        phase0 = dict(server._resident.phase_s)
+        n0 = len(ticks)
+        loop = asyncio.get_running_loop()
+        dense_cuda.reset_launches()  # the storm's path starts here
+        t_call = time.perf_counter()
+        try:
+            out = await loop.run_in_executor(None, functools.partial(
+                run_storm_procs, f"127.0.0.1:{port}", LT_RESOURCE,
+                procs=LT_PROCS, workers=LT_WORKERS, duration=LT_SECONDS,
+                bands=LT_BANDS, seed=16))
+        except RuntimeError as e:
+            raise PhaseFailed(f"loadtest-lane: {e}") from None
+        t_end = time.perf_counter()
+        torch.cuda.synchronize()
+        launches = dict(dense_cuda.LAUNCHES)  # read just after
+        n1 = len(ticks)
+        phases = {k: (v - phase0.get(k, 0.0)) * 1e3 / max(n1 - n0, 1)
+                  for k, v in server._resident.phase_s.items()
+                  if v - phase0.get(k, 0.0) > 0}
+        storm_from = t_end - out["duration_s"]
+        storm = [(w, m) for s, w, m in ticks[n0:n1] if s >= storm_from]
+        # The loop stops; quiet ticks deliver every row after the last
+        # churn, so the store of record can be held to the device.
+        loop_task.cancel()
+        try:
+            await loop_task
+        except asyncio.CancelledError:
+            pass
+        server._tasks.remove(loop_task)
+        for _ in range(QUIET_TICKS):
+            await tick_once()
+        await server.flush_ticks()
+        torch.cuda.synchronize()
+        storm_res = server.resources.get(LT_RESOURCE)
+        check(storm_res is not None, "loadtest-lane: no storm resource")
+        err, oracle_err, settling = _check_server_grants(
+            torch, server, resources)
+        storm_rows = storm_res.store.dump_rows()
+        storm_sum = float(sum(row[3] for row in storm_rows))
+        return dict(out=out, free=free, storm=storm, launches=launches,
+                    phases=phases, call_s=t_end - t_call, err=err,
+                    oracle_err=oracle_err, settling=settling,
+                    storm_sum=storm_sum, storm_cap=float(storm_res.capacity),
+                    storm_clients=len(storm_rows),
+                    storm_in_narrow=LT_RESOURCE not in server._wide_ids)
+    finally:
+        await server.stop()
+
+
+def phase_loadtest_lane(torch, card):
+    """48 closed-loop poll workers in 4 spawned processes, bands 0/1/2,
+    against the lane cell's server on its real tick loop: request
+    latency by band in batch mode, the tick wall under the storm beside
+    the storm-free ticks, and K1/K2 launched by the storm's ticks."""
+    t0 = time.perf_counter()
+    r = asyncio.run(_lt_lane(torch))
+    out = r["out"]
+    check(out["errors"] == 0, f"loadtest-lane: {out['errors']} storm errors")
+    check(out["procs"] == LT_PROCS,
+          f"loadtest-lane: {out['procs']} of {LT_PROCS} processes reported")
+    check(out["ok"] > 0, "loadtest-lane: no request answered")
+    check(out["p99_s"] <= LT_P99_LIMIT_S and all(
+        v <= LT_P99_LIMIT_S for v in out["p99_s_by_band"].values()),
+        f"loadtest-lane: request p99 {out['p99_s']} s, by band "
+        f"{out['p99_s_by_band']} (limit {LT_P99_LIMIT_S} s)")
+    k12 = r["launches"]["k1"] + r["launches"]["k2"]
+    check(k12 > 0, f"loadtest-lane: no K1 or K2 launch ({r['launches']})")
+    check(r["storm_in_narrow"] and r["storm_clients"] <= 128,
+          f"loadtest-lane: the storm row holds {r['storm_clients']} clients "
+          "outside the narrow bucket")
+    check(r["storm_sum"] <= r["storm_cap"] * (1.0 + 1e-6),
+          f"loadtest-lane: Σ grants {r['storm_sum']} on {LT_RESOURCE} past "
+          f"its capacity {r['storm_cap']}")
+    check(len(r["storm"]) > 0, "loadtest-lane: no tick during the storm")
+    free_p50, free_p95 = _pcts(r["free"])
+    storm_p50, storm_p95 = _pcts([w for w, _m in r["storm"]])
+    modes = [m for _w, m in r["storm"]]
+    secs = time.perf_counter() - t0
+    by_band = {b: (out["p50_s_by_band"][b] * 1e3, out["p99_s_by_band"][b] * 1e3)
+               for b in sorted(out["p50_s_by_band"])}
+    say(f"phase loadtest-lane: {out['workers']} poll workers in "
+        f"{out['procs']} processes, bands {list(LT_BANDS)}, "
+        f"{out['duration_s']:.2f}s: {out['ok']} answered "
+        f"({out['goodput_qps']:.1f} ok/s), {out['errors']} errors, "
+        f"{out['redirects']} redirects; request p50 / p99 "
+        f"{out['p50_s'] * 1e3:.3f} / {out['p99_s'] * 1e3:.3f} ms, by band "
+        + ", ".join(f"{b}: {p50:.3f} / {p99:.3f}"
+                    for b, (p50, p99) in by_band.items())
+        + f" ms; card {card}")
+    say(f"phase loadtest-lane: tick wall p50 / p95 {storm_p50:.2f} / "
+        f"{storm_p95:.2f} ms over {len(r['storm'])} storm ticks (modes "
+        f"scoped={modes.count('scoped')} full={modes.count('full')}) "
+        f"against {free_p50:.2f} / {free_p95:.2f} ms over "
+        f"{len(r['free'])} storm-free ticks; launches during the storm "
+        f"{r['launches']}; host phase ms per storm tick: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in r["phases"].items()))
+    say(f"phase loadtest-lane: after {QUIET_TICKS} quiet ticks K1 vs plain "
+        f"{r['err']:.3g}, vs f64 oracle {r['oracle_err']:.3g}, store == "
+        f"device on converged rows; {LT_RESOURCE}: {r['storm_clients']} "
+        f"clients, Σ grants {r['storm_sum']:.6g} of {r['storm_cap']:g}; "
+        f"{secs:.1f}s")
+    return dict(
+        storm={k: v for k, v in out.items()
+               if k not in ("latencies_sorted", "latencies_sorted_by_band")},
+        request_ms_by_band={str(b): {"p50": p50, "p99": p99}
+                            for b, (p50, p99) in by_band.items()},
+        tick_ms={"storm": {"p50": storm_p50, "p95": storm_p95,
+                           "ticks": len(r["storm"])},
+                 "storm_free": {"p50": free_p50, "p95": free_p95,
+                                "ticks": len(r["free"])}},
+        host_phase_ms=r["phases"], launches=r["launches"],
+        storm_sum=r["storm_sum"], storm_cap=r["storm_cap"],
+        oracle_err=r["oracle_err"], seconds=secs)
+
+
 BESIDE = {
     "streams": lambda torch, card: phase_streams(torch, card, "main"),
     "streams-scoped": lambda torch, card: phase_streams(torch, card, "scoped"),
@@ -8878,6 +9289,24 @@ def main() -> int:
             entry["launches"] += sum(adds.values())
         line["fleet"] = fleet
         line["tls"] = tls
+        say(f"elapsed {time.perf_counter() - t0:.1f}s before chaos")
+        # Chaos and the load tester: K1/K2 on the batch plans' ticks (the
+        # first card run of each plan; its replay is not counted) and on
+        # the lane cell's ticks under the storm. No PRIORITY_BANDS
+        # resource on these paths: no K3.
+        chaos = phase_chaos(torch, card)
+        say(f"elapsed {time.perf_counter() - t0:.1f}s before loadtest-lane")
+        lt = phase_loadtest_lane(torch, card)
+        ch_by = {f"chaos {n}": v["launches"]
+                 for n, v in chaos["plans"].items()
+                 if any(v["launches"].values())}
+        ch_by["loadtest-lane f32"] = lt["launches"]
+        for key, entry in (("k1", k1), ("k2", k2), ("k3", k3)):
+            adds = {path: n[key] for path, n in ch_by.items()}
+            entry["launches_by_path"].update(adds)
+            entry["launches"] += sum(adds.values())
+        line["chaos"] = chaos
+        line["loadtest_lane"] = lt
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -8963,6 +9392,16 @@ def main() -> int:
         f"{tls['latency']['tls']['p99_ms']:.3f} ms (plaintext "
         f"{tls['latency']['plain']['p50_ms']:.3f} / "
         f"{tls['latency']['plain']['p99_ms']:.3f})"
+        f"; chaos {len(chaos['plans'])} plans held in "
+        f"{chaos['seconds']:.1f}s, device_tunnel_outage launches "
+        f"{chaos['plans']['device_tunnel_outage']['launches']}; "
+        f"loadtest-lane request p99 by band " + ", ".join(
+            f"{b} {v['p99']:.2f}" for b, v in lt["request_ms_by_band"].items())
+        + f" ms, {lt['storm']['goodput_qps']:.1f} ok/s, tick p50 / p95 "
+        f"{lt['tick_ms']['storm']['p50']:.2f} / "
+        f"{lt['tick_ms']['storm']['p95']:.2f} ms under the storm (free "
+        f"{lt['tick_ms']['storm_free']['p50']:.2f} / "
+        f"{lt['tick_ms']['storm_free']['p95']:.2f})"
         f"; total {time.perf_counter() - t0:.1f}s")
     say(card)
     say(json.dumps(line))

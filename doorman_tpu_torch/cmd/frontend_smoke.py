@@ -47,6 +47,9 @@ import sys
 import time
 
 log = logging.getLogger("doorman.frontend_smoke")
+# The interpreter's start, as near as this module sees it: the first lap
+# (imports) runs from here, before torch is imported.
+_T0 = time.monotonic()
 
 CONFIG = """
 resources:
@@ -98,6 +101,21 @@ async def _watch_until(call, predicate, deadline: float):
             return msg, seen
 
 
+class _Laps:
+    """Seconds per step of the arc, logged as each step ends and
+    returned in the result line, so a run that is slow says where."""
+
+    def __init__(self, start: float):
+        self.steps = {}
+        self._last = start
+
+    def __call__(self, step: str) -> None:
+        now = time.monotonic()
+        self.steps[step] = round(now - self._last, 3)
+        self._last = now
+        log.info("step %s: %.3f s", step, self.steps[step])
+
+
 async def smoke(args: argparse.Namespace) -> int:
     import grpc
 
@@ -108,6 +126,8 @@ async def smoke(args: argparse.Namespace) -> int:
     from doorman_tpu_torch.server.election import TrivialElection
     from doorman_tpu_torch.server.server import CapacityServer
 
+    lap = _Laps(_T0)
+    lap("imports")
     deadline = time.monotonic() + args.timeout
     server = CapacityServer(
         "smoke-root", TrivialElection(),
@@ -127,6 +147,7 @@ async def smoke(args: argparse.Namespace) -> int:
         backend_port = await server.start(0, host="127.0.0.1")
         await server.load_config(parse_yaml_config(CONFIG))
         await pool.start(public_addr, f"127.0.0.1:{backend_port}")
+        lap("server_start")
 
         # Spawned workers take seconds to import grpc and bind; ready
         # means every worker has heartbeat the control surface.
@@ -138,6 +159,7 @@ async def smoke(args: argparse.Namespace) -> int:
         else:
             raise TimeoutError("workers never became ready")
         log.info("pool ready: %d workers heartbeating", args.workers)
+        lap("workers_ready")
 
         async with grpc.aio.insecure_channel(public_addr) as channel:
             stub = CapacityStub(channel)
@@ -157,6 +179,7 @@ async def smoke(args: argparse.Namespace) -> int:
             lease.CopyFrom(snap.response[0].gets)
             log.info("established: seq=%d has=%.1f", last_seq,
                      lease.capacity)
+            lap("establish")
 
             # The registry knows which worker the kernel handed the
             # stream to — that's the one the kill must target.
@@ -196,6 +219,7 @@ async def smoke(args: argparse.Namespace) -> int:
                     if row.resource_id == "r0":
                         lease.CopyFrom(row.gets)
             log.info("push received: seq=%d", last_seq)
+            lap("push")
 
             # 3) kill the owning worker: the stream must END loudly.
             pool.kill_worker(victim)
@@ -215,6 +239,7 @@ async def smoke(args: argparse.Namespace) -> int:
             except grpc.aio.AioRpcError:
                 pass  # UNAVAILABLE from the TCP teardown: also a reset
             log.info("stream reset after worker kill")
+            lap("kill_reset")
 
             # 4) wait for the reaper to sweep + respawn, then resume.
             while time.monotonic() < deadline:
@@ -224,6 +249,7 @@ async def smoke(args: argparse.Namespace) -> int:
             else:
                 raise TimeoutError("reaper never respawned the worker")
             log.info("worker respawned; re-establishing with resume")
+            lap("respawn")
 
             watch_req.resume_seq = last_seq
             rr.has.CopyFrom(lease)
@@ -243,6 +269,7 @@ async def smoke(args: argparse.Namespace) -> int:
             log.info("resumed: seq=%d > %d, no replay", int(msg.seq),
                      last_seq)
             call2.cancel()
+            lap("resume")
 
         status = pool.status()
         print(json.dumps({
@@ -250,6 +277,7 @@ async def smoke(args: argparse.Namespace) -> int:
             "workers": args.workers,
             "victim": victim,
             "resumed_seq": int(msg.seq),
+            "steps_s": dict(lap.steps),
             "control": status["control"],
             "publisher": {
                 k: status["publisher"][k]
@@ -278,6 +306,7 @@ async def smoke(args: argparse.Namespace) -> int:
         return 1
     finally:
         await server.stop()
+        lap("teardown")
 
 
 def main(argv=None) -> int:

@@ -3,8 +3,11 @@
 The ShardRouter is a pure function of (resource id, shard count), so a
 shard-count change is a ROUTING change: every resource whose
 `stable_shard(rid, N) != stable_shard(rid, M)` has a new owner, and
-everything else stays put (that locality is the point of the stable
-hash — an N→N+1 move touches ~1/(N+1) of the space, not all of it).
+everything else stays put. `stable_shard` is a hash mod N, so that
+locality is small: a resource keeps its owner only where h mod N equals
+h mod M, and an N→N+1 move touches ~N/(N+1) of the space (2 → 3 moves
+about two thirds; only ~1/(N+1) stays). A consistent hash would move
+~1/(N+1), but it would change the wire-visible routing.
 The epoch number versions the map: servers stamp their redirect tables
 with it, clients apply it to move exactly the affected routes, and the
 flight recorder logs it so an operator can line a grant wiggle up with

@@ -956,6 +956,23 @@ class CapacityServer(CapacityServicer):
         except Exception:
             log.exception("%s: profiler capture failed", self.id)
 
+    def _resident_step(self, solver, resources: List[Resource],
+                       config_epoch: int) -> None:
+        """One pipelined resident tick (runs in an executor thread):
+        collect the oldest in-flight tick once the pipeline is full,
+        dispatch the next. `solver`, `resources` and `config_epoch` are
+        resolved by the caller on the event loop, so the three stay
+        consistent under a mastership flip. `run_tick` calls this
+        through `self`, so an instance-level wrap (a fault injector)
+        takes effect."""
+        self._resident_pipe.step(solver, resources, config_epoch)
+
+    def _resident_wide_step(self, solver, resources: List[Resource],
+                            config_epoch: int) -> None:
+        """One pipelined wide (chunked) tick; same rules as
+        _resident_step."""
+        self._resident_wide_pipe.step(solver, resources, config_epoch)
+
     async def _tick_body(self) -> None:
         resources = list(self.resources.values())
         loop = asyncio.get_running_loop()
@@ -991,11 +1008,11 @@ class CapacityServer(CapacityServicer):
         def run_tick():
             try:
                 if narrow_res:
-                    pipe.step(resident, narrow_res, epoch)
+                    self._resident_step(resident, narrow_res, epoch)
                 if wide_res:
                     # The wide lane resources: their own device tables;
                     # the two resident solves are independent.
-                    wide_pipe.step(wide, wide_res, epoch)
+                    self._resident_wide_step(wide, wide_res, epoch)
                 if prio_res:
                     # PRIORITY_BANDS resources tick through the
                     # BatchSolver (group caps couple only these rows).

@@ -175,6 +175,24 @@ def test_epoch_router_move_diff_and_noop():
     assert _epoch_arc(tfleet, ids) == _epoch_arc(jfleet, ids)
 
 
+def test_epoch_docstring_states_what_mod_n_hashing_moves():
+    """`stable_shard` is a hash mod N: an N -> N+1 move keeps a resource
+    only where h mod N == h mod N+1, so about N/(N+1) of them move (a
+    third stays at 2 -> 3), in both packages. The module docstring says
+    so."""
+    ids = [f"fl-r{i}" for i in range(20_000)]
+    for n in (2, 3, 4):
+        changes = [
+            mod.EpochRouter(n, resources=ids).advance(n + 1)
+            for mod in (tfleet, jfleet)
+        ]
+        assert changes[0].moved == changes[1].moved
+        share = len(changes[0].moved) / len(ids)
+        assert abs(share - n / (n + 1)) < 0.02, (n, share)
+    doc = tfleet.epoch.__doc__
+    assert "~N/(N+1)" in doc and "~1/(N+1) of the space, not all" not in doc
+
+
 def test_epoch_router_rejects_stranded_override():
     for fleet_mod in (tfleet, jfleet):
         er = fleet_mod.EpochRouter(3, overrides={"pinned": 2})

@@ -39,9 +39,9 @@ def _imported_modules(path: Path):
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
-    # The port's 100 modules and chip_smoke.py: a slice that drops one
+    # The port's 115 modules and chip_smoke.py: a slice that drops one
     # is noticed here.
-    assert len(files) >= 101
+    assert len(files) >= 116
     names = {str(f.relative_to(ROOT)) for f in files}
     for mod in ("obs/audit", "obs/debug", "obs/detect", "obs/flightrec",
                 "obs/history", "obs/metrics", "obs/phases", "obs/requests",
@@ -62,7 +62,13 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 "workload/forecast", "cmd/frontend_smoke",
                 "fleet/__init__", "fleet/autoscale", "fleet/beat",
                 "fleet/controller", "fleet/epoch", "fleet/rpc",
-                "fleet/supervisor", "cmd/fleet"):
+                "fleet/supervisor", "cmd/fleet",
+                "chaos/__init__", "chaos/clock", "chaos/injectors",
+                "chaos/invariants", "chaos/plan", "chaos/plans",
+                "chaos/runner", "chaos/trace_export", "cmd/chaos",
+                "loadtest/__init__", "loadtest/ratecurve",
+                "loadtest/recipe", "loadtest/storm", "loadtest/target",
+                "loadtest/worker"):
         assert f"doorman_tpu_torch/{mod}.py" in names, mod
     bad = []
     for path in files:
@@ -75,7 +81,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 @pytest.mark.parametrize(
     "entry", ["solver", "server", "cmd", "device", "aggregate",
-              "intermediate", "forecast", "matcher"]
+              "intermediate", "forecast", "matcher", "chaos", "cmd_chaos"]
 )
 def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
     entry, tmp_path
@@ -85,6 +91,8 @@ def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
     import numpy as np
 
     from doorman_tpu_torch import native
+    from doorman_tpu_torch.chaos import ChaosRunner, get_plan
+    from doorman_tpu_torch.cmd import chaos as cmd_chaos
     from doorman_tpu_torch.cmd import server as cmd_server
     from doorman_tpu_torch.federation import (
         AggregationTickAdapter,
@@ -121,6 +129,15 @@ def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
         ),
         "forecast": lambda **kw: SeasonalForecaster(2, 4, **kw),
         "matcher": lambda **kw: SubscriptionMatcher(**kw),
+        "chaos": lambda **kw: ChaosRunner(get_plan("grant_corruption"),
+                                          **kw),
+        # The CLI's exit code: 0 once the batch plan has run and held.
+        "cmd_chaos": lambda **kw: asyncio.run(cmd_chaos.run(
+            cmd_chaos.make_parser().parse_args(
+                ["--plan", "grant_corruption"]
+                + (["--device", kw["device"]] if kw else [])
+            )
+        )),
         "cmd": lambda **kw: asyncio.run(asyncio.wait_for(cmd_server.serve(
             cmd_server.make_parser().parse_args(
                 ["--config", f"file:{cfg}", "--port", "0",
@@ -136,6 +153,8 @@ def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
         # Serves until cancelled: the CPU server starting is the pass.
         with pytest.raises(asyncio.TimeoutError):
             make(device="cpu")
+    elif entry == "cmd_chaos":
+        assert make(device="cpu") == 0
     else:
         got = make(device="cpu")
         dev = {"device": got, "matcher": getattr(got, "_device", None)}.get(
@@ -157,6 +176,23 @@ def test_frontend_worker_modules_leave_torch_out(module):
 
     code = (
         f"import sys; import {module}; "
+        "bad = [m for m in sys.modules if m == 'torch' "
+        "or m.startswith('torch.')]; print(len(bad)); "
+        "sys.exit(1 if bad else 0)"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr[-2000:]
+
+
+def test_storm_children_leave_torch_out():
+    """`run_storm_procs` spawns children that import the storm module;
+    it pulls neither torch nor anything that touches the card."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys; import doorman_tpu_torch.loadtest.storm; "
         "bad = [m for m in sys.modules if m == 'torch' "
         "or m.startswith('torch.')]; print(len(bad)); "
         "sys.exit(1 if bad else 0)"
