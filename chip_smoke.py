@@ -141,8 +141,21 @@ p99 by band, the tick wall under the storm beside storm-free ticks, the
 host phase laps and the K1/K2 the storm's ticks launch, then the grants
 against the f64 oracles after quiet ticks.
 
-The streams phase (in two halves) and the takeover phase run in processes
-of their own beside the main sequence (BESIDE), from the end of the
+Beside them, the workload harness (workload/, cmd/workload.py): the ten small
+scenarios through run_scenario(name, device="cuda") at scale 1.0, each
+replayed on the card and run again on the CPU (log_sha256 equal), every
+server and the forecaster on the card; diurnal_million with 1,000,000
+resident clients on the vector engine (peak population, refresh ratio,
+driver tick mean and max); flash_crowd_million at scales 0.001 / 0.003 /
+0.01 (its PRIORITY_BANDS decide is quadratic in the parked population,
+in both packages: the fitted exponent of seconds against clients stands
+in for scale 1.0), each million scenario beside its CPU twin at 0.01;
+and `cmd.workload --scenario flash_crowd_predictive --device cuda` as a
+process. The servers run in immediate mode: no K1/K2/K3 launch.
+
+The streams phase (in two halves), the takeover phase and the workload
+phase run in processes of their own beside the main sequence (BESIDE),
+from the end of the
 kernels' timings until the admission phase; each one's lines are printed
 when it is joined.
 
@@ -8991,10 +9004,432 @@ def phase_loadtest_lane(torch, card):
         oracle_err=r["oracle_err"], seconds=secs)
 
 
+# -- workload: the workload harness's scenarios on the card -------------------
+
+WL_SMALL = (
+    "diurnal", "flash_crowd", "rolling_deploy", "multi_region",
+    "elastic_preempt", "flash_crowd_federated", "diurnal_streaming",
+    "diurnal_streaming_pooled", "flash_crowd_predictive", "reshard_diurnal",
+)
+WL_STREAMING = ("diurnal_streaming", "diurnal_streaming_pooled")
+WL_SEED = 0
+WL_MILLION_SCALE = 1.0  # diurnal_million: never cut
+# flash_crowd_million's decide is quadratic in the parked population in
+# both packages (PRIORITY_BANDS decides one request at a time over every
+# lease of the store): 1.0 would take days, so the phase runs three small
+# scales and fits the exponent of seconds against clients.
+WL_FCM_SCALES = (0.001, 0.003, 0.01)
+WL_TWIN_SCALE = 0.01  # the million scenarios' CPU twins
+WL_PEAK_MIN = 1_000_000
+WL_REFRESH_OK_MIN = 0.95
+WL_TOP_GOODPUT_MIN = 0.9
+WL_CLI_SCENARIO = "flash_crowd_predictive"
+WL_CLI_TIMEOUT_S = 300.0
+
+
+class _WlCapture:
+    """Wraps WorkloadRunner's `_setup`, `_teardown` and the forecaster's
+    `observe` while it is entered: each run's setup seconds, its
+    forecaster's observe walls and, just before teardown stops the
+    servers, what the run built and on which device."""
+
+    def __init__(self):
+        self.runs = []
+
+    def __enter__(self):
+        from doorman_tpu_torch.workload import harness
+        from doorman_tpu_torch.workload.forecast import SeasonalForecaster
+
+        cls = harness.WorkloadRunner
+        self._saved = (cls._setup, cls._teardown, SeasonalForecaster.observe)
+        setup0, teardown0, observe0 = self._saved
+        runs = self.runs
+
+        async def setup(runner):
+            t = time.perf_counter()
+            try:
+                await setup0(runner)
+            finally:
+                runner._wl_setup_s = time.perf_counter() - t
+
+        async def teardown(runner):
+            runs.append(_wl_facts(runner))
+            t = time.perf_counter()
+            try:
+                await teardown0(runner)
+            finally:
+                runs[-1]["teardown_s"] = time.perf_counter() - t
+
+        def observe(fc, x):
+            t = time.perf_counter()
+            out = observe0(fc, x)
+            fc.__dict__.setdefault("_wl_walls", []).append(
+                time.perf_counter() - t)
+            return out
+
+        cls._setup, cls._teardown = setup, teardown
+        SeasonalForecaster.observe = observe
+        return self
+
+    def __exit__(self, *exc):
+        from doorman_tpu_torch.workload import harness
+        from doorman_tpu_torch.workload.forecast import SeasonalForecaster
+
+        cls = harness.WorkloadRunner
+        cls._setup, cls._teardown, SeasonalForecaster.observe = self._saved
+
+
+def _wl_facts(runner):
+    """What one run built, read before its teardown: the servers' and the
+    forecaster's devices, the stream registries and matchers, the vector
+    engine's driver ticks and decide rows."""
+    facts = {
+        "name": runner.spec.name,
+        "setup_s": getattr(runner, "_wl_setup_s", 0.0),
+        "server_devices": sorted({str(s.device)
+                                  for s in runner.servers.values()}),
+        "server_device_types": sorted({s.device.type
+                                       for s in runner.servers.values()}),
+    }
+    streams = {}
+    for name, server in sorted(runner.servers.items()):
+        if server._streams is None:
+            continue
+        st = server._streams.status()
+        matcher = server._stream_matcher
+        streams[name] = {
+            "subscribers": st["subscribers"], "deltas": st["deltas_total"],
+            "messages": st["messages_total"],
+            "matcher": None if matcher is None else {
+                "matched_total": matcher.matched_total,
+                "device": str(matcher._device)},
+        }
+    facts["streams"] = streams
+    fc = runner.forecaster
+    if fc is not None:
+        facts["forecaster"] = {
+            "engine": fc.engine, "device": str(fc.device),
+            "state_devices": sorted({str(getattr(v, "device", "numpy"))
+                                     for v in fc._state}),
+            "observe_walls": list(fc.__dict__.get("_wl_walls", [])),
+            "obj": fc,
+        }
+    vec = runner._vector
+    if vec is not None:
+        walls = vec.step_walls
+        facts["vector"] = {
+            "ticks": len(walls),
+            "tick_mean_ms": 1e3 * sum(walls) / max(len(walls), 1),
+            "tick_max_ms": 1e3 * max(walls, default=0.0),
+            "ticks_s": sum(walls),
+            "fast_rows": vec.fast_rows_total, "seq_rows": vec.seq_rows_total,
+            "seq_ticks": vec.seq_ticks, "population": vec.population(),
+        }
+    return facts
+
+
+def _wl_run(torch, name, device, scale=1.0):
+    """One run of a named scenario through run_scenario on `device`: its
+    verdict, seconds, kernel launches (counted from zero just before the
+    run and read just after) and what each runner of it built."""
+    from doorman_tpu_torch.solver import dense_cuda
+    from doorman_tpu_torch.workload.scenarios import run_scenario
+
+    with _WlCapture() as cap:
+        dense_cuda.reset_launches()
+        t = time.perf_counter()
+        verdict = run_scenario(name, scale=scale, seed=WL_SEED, device=device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = dict(dense_cuda.LAUNCHES)
+    return dict(verdict=verdict, seconds=secs, launches=launches,
+                runs=cap.runs)
+
+
+def _wl_shas(verdict):
+    """The run's log_sha256 and, for the predictive pair, the reactive
+    run's too."""
+    return (verdict["log_sha256"],
+            (verdict.get("reactive") or {}).get("log_sha256"))
+
+
+def _wl_same(name, runs):
+    """Every run's log_sha256 equal; else the first differing event."""
+    (first_label, first), rest = runs[0], runs[1:]
+    for label, other in rest:
+        if _wl_shas(other["verdict"]) == _wl_shas(first["verdict"]):
+            continue
+        pairs = zip(first["verdict"]["event_log"], other["verdict"]["event_log"])
+        diff = next(((i, a, b) for i, (a, b) in enumerate(pairs) if a != b),
+                    None)
+        check(False, f"workload {name}: the {label} run's log_sha256 differs "
+              f"from the {first_label} run's; first difference (index, "
+              f"{first_label}, {label}) {diff}")
+
+
+def _wl_devices(name, run, want):
+    """Every server (and forecaster) of every runner of the run on `want`."""
+    for facts in run["runs"]:
+        check(facts["server_device_types"] == [want],
+              f"workload {name}: servers on {facts['server_devices']}, not "
+              f"{want}")
+        fc = facts.get("forecaster")
+        if fc is not None:
+            check(fc["engine"] == "device" and fc["device"].startswith(want)
+                  and all(d.startswith(want) for d in fc["state_devices"]),
+                  f"workload {name}: forecaster {fc['engine']} on "
+                  f"{fc['device']}, state on {fc['state_devices']}")
+
+
+def _wl_forecast_ms(torch, facts):
+    """The forecaster's step on its own device between CUDA events, the
+    launches queued behind a spin, on a copy of the run's final state."""
+    import numpy as np
+
+    from doorman_tpu_torch.workload.forecast import device_step
+
+    fc = facts["forecaster"]["obj"]
+    state = tuple(v.clone() for v in fc._state)
+    x = torch.from_numpy(np.full(fc.series, 7.5, np.float32)).to(fc.device)
+    return _time_ms(torch, lambda: device_step(
+        state, x, 0, 1 % fc.period, fc.alpha, fc.beta), queued=True)
+
+
+def _wl_small(torch, name):
+    """One small scenario: the card run, its replay and the CPU twin."""
+    card_run = _wl_run(torch, name, DEVICE)
+    replay = _wl_run(torch, name, DEVICE)
+    cpu_run = _wl_run(torch, name, "cpu")
+    v = card_run["verdict"]
+    for label, run in (("card", card_run), ("replay", replay),
+                       ("CPU", cpu_run)):
+        bad = [x["slo"] for x in run["verdict"]["slo"]["verdicts"]
+               if x["status"] == "fail"]
+        check(run["verdict"]["ok"], f"workload {name}: the {label} run's "
+              f"verdict is not ok (failed {bad})")
+    _wl_same(name, [("card", card_run), ("replay", replay),
+                    ("CPU", cpu_run)])
+    want = "cuda" if DEVICE != "cpu" else "cpu"
+    _wl_devices(name, card_run, want)
+    _wl_devices(name, replay, want)
+    _wl_devices(name, cpu_run, "cpu")
+    facts = card_run["runs"][0]
+    pushes = v["summary"]["stream_pushes"]
+    streams = facts["streams"]
+    if name in WL_STREAMING:
+        check(pushes > 0 and streams and all(
+            s["deltas"] > 0 for s in streams.values()),
+            f"workload {name}: no stream push ({pushes}, {streams})")
+    matchers = {n: s["matcher"] for n, s in streams.items()}
+    forecast_ms = observe_us = None
+    if "forecaster" in facts:
+        check(v["summary"]["forecaster"]["ticks_observed"] == v["ticks"],
+              f"workload {name}: the forecaster observed "
+              f"{v['summary']['forecaster']['ticks_observed']} of "
+              f"{v['ticks']} ticks")
+        if DEVICE != "cpu":
+            forecast_ms = _wl_forecast_ms(torch, facts)
+        walls = facts["forecaster"]["observe_walls"][1:]
+        observe_us = 1e6 * sorted(walls)[len(walls) // 2] if walls else None
+    return dict(
+        seconds=card_run["seconds"], replay_seconds=replay["seconds"],
+        cpu_seconds=cpu_run["seconds"], ticks=v["ticks"],
+        peak_population=v["summary"]["peak_population"],
+        stream_pushes=pushes, launches=card_run["launches"],
+        replay_launches=replay["launches"], log_sha256=v["log_sha256"],
+        reactive_sha256=_wl_shas(v)[1], events=len(v["event_log"]),
+        setup_s=facts["setup_s"], servers=facts["server_devices"],
+        streams={n: {k: s[k] for k in ("subscribers", "deltas", "messages")}
+                 for n, s in streams.items()},
+        matchers=matchers, forecast_step_ms=forecast_ms,
+        forecast_observe_p50_us=observe_us,
+        summary={k: x for k, x in v["summary"].items() if k != "forecaster"})
+
+
+def _wl_million_entry(run):
+    """Seconds, setup / ticks / teardown split and the vector engine's
+    driver ticks of one million-scenario run."""
+    facts = run["runs"][0]
+    vec = facts["vector"]
+    v = run["verdict"]
+    return dict(
+        seconds=run["seconds"], setup_s=facts["setup_s"],
+        ticks_s=run["seconds"] - facts["setup_s"] - facts["teardown_s"],
+        teardown_s=facts["teardown_s"], driver_ticks_s=vec["ticks_s"],
+        driver_tick_mean_ms=vec["tick_mean_ms"],
+        driver_tick_max_ms=vec["tick_max_ms"], fast_rows=vec["fast_rows"],
+        seq_rows=vec["seq_rows"], seq_ticks=vec["seq_ticks"],
+        peak_population=v["summary"]["peak_population"],
+        refresh_ok_ratio=v["summary"].get("refresh_ok_ratio"),
+        top_band_goodput=next(
+            (x["observed"] for x in v["slo"]["verdicts"]
+             if x["slo"].endswith(":top_band_goodput")), None),
+        launches=run["launches"], log_sha256=v["log_sha256"],
+        servers=facts["server_devices"])
+
+
+def _wl_say_million(name, scale, e, card):
+    say(f"phase workload[{name} x{scale:g}]: ok in {e['seconds']:.2f}s "
+        f"(setup {e['setup_s']:.2f}s, ticks {e['ticks_s']:.2f}s, teardown "
+        f"{e['teardown_s']:.2f}s), peak population "
+        f"{e['peak_population']:.0f}, refresh ok "
+        f"{e['refresh_ok_ratio']}, top-band goodput {e['top_band_goodput']}; "
+        f"driver tick mean / max {e['driver_tick_mean_ms']:.2f} / "
+        f"{e['driver_tick_max_ms']:.2f} ms; decide rows fast "
+        f"{e['fast_rows']} vs sequential {e['seq_rows']} (sequential on "
+        f"{e['seq_ticks']} ticks); launches {e['launches']}; servers on "
+        f"{e['servers']}; card {card}")
+
+
+def _wl_million(torch, card):
+    """diurnal_million at full scale, flash_crowd_million at the small
+    scales with the exponent of seconds against clients, and each one's
+    CPU twin at WL_TWIN_SCALE."""
+    import numpy as np
+
+    want = "cuda" if DEVICE != "cpu" else "cpu"
+    out = {}
+    name = "diurnal_million"
+    run = _wl_run(torch, name, DEVICE, scale=WL_MILLION_SCALE)
+    v = run["verdict"]
+    check(v["ok"], f"workload {name}: verdict not ok")
+    _wl_devices(name, run, want)
+    e = _wl_million_entry(run)
+    check(e["peak_population"] >= WL_PEAK_MIN * WL_MILLION_SCALE,
+          f"workload {name}: peak population {e['peak_population']}")
+    check(e["refresh_ok_ratio"] >= WL_REFRESH_OK_MIN,
+          f"workload {name}: refresh ok ratio {e['refresh_ok_ratio']}")
+    _wl_say_million(name, WL_MILLION_SCALE, e, card)
+    out[name] = {f"{WL_MILLION_SCALE:g}": e}
+    name = "flash_crowd_million"
+    fcm = {}
+    for scale in WL_FCM_SCALES:
+        run = _wl_run(torch, name, DEVICE, scale=scale)
+        check(run["verdict"]["ok"], f"workload {name} x{scale:g}: verdict "
+              "not ok")
+        _wl_devices(name, run, want)
+        e = _wl_million_entry(run)
+        check(e["top_band_goodput"] is not None
+              and e["top_band_goodput"] >= WL_TOP_GOODPUT_MIN,
+              f"workload {name} x{scale:g}: top-band goodput "
+              f"{e['top_band_goodput']}")
+        _wl_say_million(name, scale, e, card)
+        fcm[f"{scale:g}"] = dict(e, clients=e["peak_population"],
+                                 run=run)
+    clients = np.log([x["clients"] for x in fcm.values()])
+    secs = np.log([x["seconds"] for x in fcm.values()])
+    exponent = float(np.polyfit(clients, secs, 1)[0])
+    say(f"phase workload[{name}]: seconds against clients "
+        + ", ".join(f"{x['clients']:.0f}: {x['seconds']:.2f}s"
+                    for x in fcm.values())
+        + f"; fitted exponent {exponent:.3f} (scale 1.0, 1,000,000 parked "
+        "clients, not run)")
+    twins = {}
+    for name in ("diurnal_million", "flash_crowd_million"):
+        key = f"{WL_TWIN_SCALE:g}"
+        card_run = (fcm[key]["run"] if name == "flash_crowd_million"
+                    and key in fcm else
+                    _wl_run(torch, name, DEVICE, scale=WL_TWIN_SCALE))
+        cpu_run = _wl_run(torch, name, "cpu", scale=WL_TWIN_SCALE)
+        check(card_run["verdict"]["ok"] and cpu_run["verdict"]["ok"],
+              f"workload {name} x{key}: a twin's verdict is not ok")
+        _wl_same(f"{name} x{key}", [("card", card_run), ("CPU", cpu_run)])
+        _wl_devices(name, cpu_run, "cpu")
+        twins[name] = dict(card_seconds=card_run["seconds"],
+                           cpu_seconds=cpu_run["seconds"],
+                           log_sha256=card_run["verdict"]["log_sha256"])
+        say(f"phase workload[{name} x{key} twins]: log_sha256 equal on the "
+            f"card ({card_run['seconds']:.2f}s) and the CPU "
+            f"({cpu_run['seconds']:.2f}s)")
+    for x in fcm.values():
+        x.pop("run")
+    out["flash_crowd_million"] = fcm
+    out["flash_crowd_million_exponent"] = exponent
+    out["twins"] = twins
+    return out
+
+
+def _wl_cli(card, want_sha):
+    """`python -m doorman_tpu_torch.cmd.workload --scenario
+    flash_crowd_predictive --device cuda` in a process of its own: exit 0,
+    the in-process card run's log_sha256, the tick device on stderr."""
+    t = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-m", "doorman_tpu_torch.cmd.workload",
+         "--scenario", WL_CLI_SCENARIO, "--device", DEVICE],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=WL_CLI_TIMEOUT_S)
+    secs = time.perf_counter() - t
+    if out.returncode != 0:
+        say(out.stdout[-2000:] + out.stderr[-4000:])
+    check(out.returncode == 0, f"cmd.workload exited {out.returncode}")
+    verdict = json.loads(out.stdout)
+    check(verdict["ok"], "cmd.workload: verdict not ok")
+    check(verdict["log_sha256"] == want_sha,
+          "cmd.workload: log_sha256 differs from the in-process card run")
+    line = [ln for ln in out.stderr.splitlines() if "tick device" in ln]
+    dev = DEVICE if DEVICE == "cpu" else "cuda:0"
+    check(line and line[-1].strip().endswith(f"tick device {dev}"),
+          f"cmd.workload: {line[-1:] or 'no tick device line'}")
+    say(f"phase workload: cmd.workload --scenario {WL_CLI_SCENARIO} --device "
+        f"{DEVICE} exited 0 in {secs:.1f}s, log_sha256 equal to the "
+        f"in-process run; {line[-1].strip()}; card {card}")
+    return dict(seconds=secs, stderr_line=line[-1].strip())
+
+
+def phase_workload(torch, card):
+    """The workload harness's scenarios through run_scenario(..., device=
+    "cuda"): the ten small ones at scale 1.0 (each replayed on the card and
+    held to its CPU twin, log_sha256 equal), diurnal_million at 1,000,000
+    clients, flash_crowd_million at three small scales, then cmd.workload
+    in a process of its own."""
+    t0 = time.perf_counter()
+    small = {}
+    for name in WL_SMALL:
+        r = _wl_small(torch, name)
+        small[name] = r
+        if r["forecast_observe_p50_us"] is None:
+            dev = "no forecaster"
+        else:
+            step = ("not timed" if r["forecast_step_ms"] is None
+                    else f"{r['forecast_step_ms']:.4f} ms")
+            dev = (f"forecaster step {step} between CUDA events, observe "
+                   f"(upload, step, download) p50 "
+                   f"{r['forecast_observe_p50_us']:.1f} us")
+        match = ", ".join(
+            f"{n}: {'none built' if m is None else m}"
+            for n, m in r["matchers"].items()) or "no stream server"
+        say(f"phase workload[{name}]: ok in {r['seconds']:.2f}s on the card "
+            f"(replay {r['replay_seconds']:.2f}s, CPU {r['cpu_seconds']:.2f}s)"
+            f", {r['ticks']} ticks, peak population "
+            f"{r['peak_population']:.0f}, {r['stream_pushes']:.0f} pushes, "
+            f"{r['events']} events, log_sha256 equal on card, replay and "
+            f"CPU; servers on {r['servers']}; matcher {match}; {dev}; "
+            f"launches {r['launches']}")
+    small_s = time.perf_counter() - t0
+    million = _wl_million(torch, card)
+    million_s = time.perf_counter() - t0 - small_s
+    cli = _wl_cli(card, small[WL_CLI_SCENARIO]["log_sha256"])
+    card_runs = [r["launches"] for r in small.values()] + [
+        e["launches"] for name in ("diurnal_million", "flash_crowd_million")
+        for e in million[name].values()]
+    launches = {k: sum(x[k] for x in card_runs) for k in ("k1", "k2", "k3")}
+    secs = time.perf_counter() - t0
+    say(f"phase workload: K1/K2/K3 launches over the card runs {launches} "
+        f"(immediate mode: no tick solve); {len(small)} small scenarios in "
+        f"{small_s:.1f}s, the million scenarios in {million_s:.1f}s, the CLI "
+        f"in {cli['seconds']:.1f}s; {secs:.1f}s in all; card {card}")
+    return dict(small=small, million=million, cli=cli, launches=launches,
+                small_seconds=small_s, million_seconds=million_s,
+                seconds=secs)
+
 BESIDE = {
     "streams": lambda torch, card: phase_streams(torch, card, "main"),
     "streams-scoped": lambda torch, card: phase_streams(torch, card, "scoped"),
     "takeover": phase_takeover,
+    "workload": phase_workload,
 }
 BESIDE_JOIN_S = 900.0  # script time by which every one must have ended
 BESIDE_THREADS = 2  # torch threads in each: four processes share 8 cores
@@ -9164,6 +9599,7 @@ def main() -> int:
             "beside")
         streams = {**done["streams"], **done["streams-scoped"]}
         tk = done["takeover"]
+        wl = done["workload"]
         # The round-trip server's K1 launches and the Python-store
         # server's K3 launches (f32) join the main path's counts; every
         # path's count stands beside them.
@@ -9307,6 +9743,13 @@ def main() -> int:
             entry["launches"] += sum(adds.values())
         line["chaos"] = chaos
         line["loadtest_lane"] = lt
+        # The workload harness (beside the main sequence): immediate-mode
+        # servers, no tick solve, so no K1/K2/K3 launch is expected; the
+        # count stands beside the others all the same.
+        for key, entry in (("k1", k1), ("k2", k2), ("k3", k3)):
+            entry["launches_by_path"]["workload"] = wl["launches"][key]
+            entry["launches"] += wl["launches"][key]
+        line["workload"] = wl
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -9402,6 +9845,13 @@ def main() -> int:
         f"{lt['tick_ms']['storm']['p95']:.2f} ms under the storm (free "
         f"{lt['tick_ms']['storm_free']['p50']:.2f} / "
         f"{lt['tick_ms']['storm_free']['p95']:.2f})"
+        f"; workload {len(wl['small'])} small scenarios ok and replayed in "
+        f"{wl['small_seconds']:.1f}s, diurnal_million driver tick mean / max "
+        f"{wl['million']['diurnal_million']['1']['driver_tick_mean_ms']:.2f} / "
+        f"{wl['million']['diurnal_million']['1']['driver_tick_max_ms']:.2f} "
+        f"ms, flash_crowd_million exponent "
+        f"{wl['million']['flash_crowd_million_exponent']:.3f}, phase "
+        f"{wl['seconds']:.1f}s"
         f"; total {time.perf_counter() - t0:.1f}s")
     say(card)
     say(json.dumps(line))

@@ -184,6 +184,46 @@ class Admission:
             kind="overload",
         )
 
+    def check_get_capacity_band(self, band: int) -> bool:
+        """One driver-side gate decision for a single-resource refresh
+        of this band. Identical controller draw and tally sequence to
+        `check_get_capacity` with no RPC context (so no deadline
+        fast-fail — the vector population drives the server in-process
+        with no per-request deadline, same as the loopback harness
+        clients whose deadlines never bind)."""
+        admitted, _ = self.controller.admit(band)
+        self._tally(
+            "GetCapacity", band, "admitted" if admitted else "shed"
+        )
+        return admitted
+
+    def check_get_capacity_many(self, priorities):
+        """Vectorized gate for a batch of single-resource refreshes
+        (bands = priorities, in input order): one `admit_many` pass,
+        bulk tallies. Returns the boolean admitted mask. Draw-order and
+        tally-count identical to calling `check_get_capacity` once per
+        request in the same order (the deterministic-tally contract the
+        chaos invariants and the workload `_log_admission` rows read).
+        """
+        import numpy as np  # deferred: keep the module import-light
+
+        prio = np.asarray(priorities, dtype=np.int64)
+        admitted = self.controller.admit_many(prio)
+        for outcome, mask in (("admitted", admitted), ("shed", ~admitted)):
+            if not mask.any():
+                continue
+            bands, counts = np.unique(prio[mask], return_counts=True)
+            for band, k in zip(bands.tolist(), counts.tolist()):
+                entry = self.tallies.setdefault(
+                    ("GetCapacity", int(band)),
+                    {"admitted": 0, "shed": 0, "fast_fail": 0},
+                )
+                entry[outcome] += int(k)
+                self._requests.inc(
+                    "GetCapacity", str(int(band)), outcome, by=float(k)
+                )
+        return admitted
+
     def check_watch(self, request) -> Optional[Shed]:
         """Admission gate for WatchCapacity stream ESTABLISHMENT: the
         same AIMD band-ordered shed as a refresh (lowest bands

@@ -211,6 +211,76 @@ class AimdController:
             return False, self.retry_after(priority)
         return True, None
 
+    def admit_many(self, priorities):
+        """Vectorized twin of calling `admit` once per entry of
+        ``priorities`` (in input order) at a single clock reading;
+        returns the boolean admitted mask as a numpy array.
+
+        Exactness contract (the vector population engine's parity pin
+        rides on it): the window rolls once — within one batch only the
+        first sequential call could have moved it; every arrival counts
+        toward the hard cap at its 1-based global index; band discovery
+        happens at each unseen priority's first occurrence, so the
+        batch is split there and the band set / top band / probability
+        mapping is static within each segment; and `self.rng.random()`
+        is drawn in input order for exactly the positions whose band
+        probability is fractional — the same draws, in the same order,
+        the sequential loop would have made.
+        """
+        import numpy as np  # deferred: keep the module import-light
+
+        prio = np.asarray(priorities, dtype=np.int64)
+        n = int(prio.size)
+        out = np.zeros(n, dtype=bool)
+        if n == 0:
+            return out
+        self._roll(self._clock())
+        a0 = self._arrivals
+        self._arrivals += n
+
+        uniq, first = np.unique(prio, return_index=True)
+        known = set(self._bands)
+        new_at = {
+            int(ix): int(v)
+            for v, ix in zip(uniq.tolist(), first.tolist())
+            if int(v) not in known
+        }
+        cuts = sorted({0, n, *new_at})
+        cap = (
+            None if self.max_rps is None else self.max_rps * self.window
+        )
+        for s, e in zip(cuts[:-1], cuts[1:]):
+            if s in new_at:
+                self._note_band(new_at[s])
+            seg = prio[s:e]
+            bands = self._bands
+            b = len(bands)
+            top = bands[-1]
+            if b > 1:
+                # The goodput floor: top band admitted outright, exempt
+                # even from the hard cap (checked first in `admit`).
+                top_mask = seg >= top
+            else:
+                top_mask = np.zeros(e - s, dtype=bool)
+            admitted = top_mask.copy()
+            rest = ~top_mask
+            if cap is not None:
+                arrival_index = a0 + np.arange(
+                    s + 1, e + 1, dtype=np.float64
+                )
+                rest &= ~(arrival_index > cap)
+            if rest.any():
+                j = np.searchsorted(bands, seg, side="right") - 1
+                j = np.maximum(j, 0)
+                lo = (b - 1 - j) / b
+                p = np.clip((self.level - lo) * b, 0.0, 1.0)
+                admitted |= rest & (p >= 1.0)
+                frac = np.flatnonzero(rest & (p > 0.0) & (p < 1.0))
+                for i in frac.tolist():
+                    admitted[i] = self.rng.random() < p[i]
+            out[s:e] = admitted
+        return out
+
     def retry_after(self, priority: int) -> float:
         """Pacing hint for a shed response: heavier overload and deeper
         bands wait longer (spreading the retry wave down-band)."""

@@ -39,9 +39,9 @@ def _imported_modules(path: Path):
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
-    # The port's 115 modules and chip_smoke.py: a slice that drops one
+    # The port's 128 modules and chip_smoke.py: a slice that drops one
     # is noticed here.
-    assert len(files) >= 116
+    assert len(files) >= 129
     names = {str(f.relative_to(ROOT)) for f in files}
     for mod in ("obs/audit", "obs/debug", "obs/detect", "obs/flightrec",
                 "obs/history", "obs/metrics", "obs/phases", "obs/requests",
@@ -68,7 +68,12 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 "chaos/runner", "chaos/trace_export", "cmd/chaos",
                 "loadtest/__init__", "loadtest/ratecurve",
                 "loadtest/recipe", "loadtest/storm", "loadtest/target",
-                "loadtest/worker"):
+                "loadtest/worker",
+                "sim/__init__", "sim/__main__", "sim/core", "sim/model",
+                "sim/reporter", "sim/scenarios", "sim/varz",
+                "workload/spec", "workload/generators",
+                "workload/population", "workload/harness",
+                "workload/scenarios", "cmd/workload"):
         assert f"doorman_tpu_torch/{mod}.py" in names, mod
     bad = []
     for path in files:
@@ -81,7 +86,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 @pytest.mark.parametrize(
     "entry", ["solver", "server", "cmd", "device", "aggregate",
-              "intermediate", "forecast", "matcher", "chaos", "cmd_chaos"]
+              "intermediate", "forecast", "matcher", "chaos", "cmd_chaos",
+              "workload", "run_scenario", "cmd_workload"]
 )
 def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
     entry, tmp_path
@@ -105,7 +111,11 @@ def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
     from doorman_tpu_torch.server.server import CapacityServer
     from doorman_tpu_torch.solver.resident import ResidentDenseSolver
     from doorman_tpu_torch.utils.backend import resolve_device
+    from doorman_tpu_torch.cmd import workload as cmd_workload
+    from doorman_tpu_torch.workload import run_scenario
     from doorman_tpu_torch.workload.forecast import SeasonalForecaster
+    from doorman_tpu_torch.workload.harness import WorkloadRunner
+    from doorman_tpu_torch.workload.scenarios import SCENARIOS
 
     if not native.native_available():
         pytest.skip("native engine unavailable")
@@ -138,6 +148,17 @@ def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
                 + (["--device", kw["device"]] if kw else [])
             )
         )),
+        "workload": lambda **kw: WorkloadRunner(
+            SCENARIOS["rolling_deploy"](), **kw
+        ),
+        "run_scenario": lambda **kw: run_scenario("rolling_deploy", **kw),
+        # The CLI's exit code: 0 once the scenario has run and passed.
+        "cmd_workload": lambda **kw: cmd_workload.run(
+            cmd_workload.make_parser().parse_args(
+                ["--scenario", "rolling_deploy"]
+                + (["--device", kw["device"]] if kw else [])
+            )
+        ),
         "cmd": lambda **kw: asyncio.run(asyncio.wait_for(cmd_server.serve(
             cmd_server.make_parser().parse_args(
                 ["--config", f"file:{cfg}", "--port", "0",
@@ -153,8 +174,11 @@ def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
         # Serves until cancelled: the CPU server starting is the pass.
         with pytest.raises(asyncio.TimeoutError):
             make(device="cpu")
-    elif entry == "cmd_chaos":
+    elif entry in ("cmd_chaos", "cmd_workload"):
         assert make(device="cpu") == 0
+    elif entry == "run_scenario":
+        verdict = make(device="cpu")
+        assert verdict["ok"], verdict["slo"]
     else:
         got = make(device="cpu")
         dev = {"device": got, "matcher": getattr(got, "_device", None)}.get(
