@@ -9425,6 +9425,513 @@ def phase_workload(torch, card):
                 small_seconds=small_s, million_seconds=million_s,
                 seconds=secs)
 
+# -- the mesh (parallel/, solver/resident_mesh.py, --mesh) -------------------
+
+MESH_SHARDS = 4  # shards of one card: mesh=make_mesh([4], [cuda:0] * 4)
+MESH_TICKS = 8  # churn ticks (a config-epoch full tick at MESH_EPOCH_TICK)
+MESH_EPOCH_TICK = 4
+MESH_QUIET = 2
+MESH_WIDE_TICKS = (6, 2)  # (churn, quiet) ticks of wide-1m
+MESH_WIDE_CLIENTS = 1_000_000
+
+
+def _mesh(torch, groups=1):
+    """The 4-shard mesh of the one card. groups=2 names the card by two
+    distinct device objects (cuda:0 for shards 0-1, cuda for 2-3): two
+    device groups, each solving in a thread of its own, whose reduces
+    meet in the combine across the middle shard boundary."""
+    from doorman_tpu_torch.parallel import make_mesh
+
+    half = MESH_SHARDS // 2
+    devices = [torch.device(DEVICE, 0)] * MESH_SHARDS if groups == 1 else (
+        [torch.device(DEVICE, 0)] * half
+        + [torch.device(DEVICE)] * (MESH_SHARDS - half))
+    mesh = make_mesh([MESH_SHARDS], ("clients",), devices)
+    check(len(mesh.device_groups()) == groups,
+          f"mesh: {len(mesh.device_groups())} device groups, not {groups}")
+    return mesh
+
+
+def _mesh_server(name, mesh, dtype_name="f32"):
+    from doorman_tpu_torch.server.election import TrivialElection
+    from doorman_tpu_torch.server.server import CapacityServer
+
+    return CapacityServer(
+        name, TrivialElection(), mode="batch", native_store=True,
+        solver_dtype=dtype_name, fused_tick=True, scoped_solve=True,
+        tick_pipeline_depth=3, tick_interval=1.0, flightrec_capacity=0,
+        device=DEVICE, mesh=mesh,
+    )
+
+
+async def _mesh_tick(torch, server, mesh_run):
+    """One tick_once; on the mesh server, the wrappers' launches of that
+    tick (dense_cuda.LAUNCHES before and after) and its per-shard bytes."""
+    from doorman_tpu_torch.obs.phases import last_shard_bytes
+    from doorman_tpu_torch.solver import dense_cuda
+
+    before = dict(dense_cuda.LAUNCHES)
+    t = time.perf_counter()
+    await server.tick_once()
+    wall = time.perf_counter() - t
+    if mesh_run is not None:
+        for k in ("k1", "k2"):
+            mesh_run["launches"][k] += dense_cuda.LAUNCHES[k] - before[k]
+        for (comp, direction), per in last_shard_bytes().items():
+            acc = mesh_run["bytes"].setdefault(
+                f"{comp} {direction}", [0] * MESH_SHARDS)
+            for d, b in enumerate(per):
+                acc[d] += b
+    return wall
+
+
+def _mesh_walls(walls):
+    """Tick p50 / p95 (ms) of the mesh and its twin after the first
+    tick, and the first (rebuild) tick's wall on its own."""
+    mesh, twin = walls["mesh"], walls["twin"]
+    return {"p50": _pcts(mesh[1:])[0], "p95": _pcts(mesh[1:])[1],
+            "twin_p50": _pcts(twin[1:])[0], "twin_p95": _pcts(twin[1:])[1],
+            "rebuild_ms": mesh[0] * 1e3, "twin_rebuild_ms": twin[0] * 1e3}
+
+
+async def _mesh_lane(torch):
+    """The lane cell on a 4-shard mesh of the one card beside its
+    single-device twin, from one seed, delta-tracked: stores and changed
+    rows equal after every tick."""
+    import numpy as np
+
+    from doorman_tpu_torch.server.config import parse_yaml_config
+
+    servers = [_mesh_server("smoke-mesh", _mesh(torch)),
+               _mesh_server("smoke-mesh-twin", None)]
+    ports, worlds, rngs = [], [], []
+    try:
+        for s in servers:
+            ports.append(await s.start(0, host="127.0.0.1", tick_loop=False))
+            # refresh_interval = the tick interval: every tick delivers
+            # every row (rotate 1), since the mesh rotates per shard and
+            # the twin over the whole table.
+            await s.load_config(parse_yaml_config(_config_yaml(refresh=1)))
+            rng = np.random.default_rng(61)
+            worlds.append(_populate(s, rng))
+            rngs.append(rng)
+            s._resident_solver().enable_delta_tracking()
+        run = {"launches": {"k1": 0, "k2": 0}, "bytes": {}}
+        walls = {"mesh": [], "twin": []}
+        modes = []
+        for i in range(MESH_TICKS + MESH_QUIET):
+            for s, (res, rids, cids), rng in zip(servers, worlds, rngs):
+                if i < MESH_TICKS:
+                    _churn(s._store_engine, rng, rids, cids)
+                if i == MESH_EPOCH_TICK:
+                    s._config_epoch += 1  # a full tick: K2 on each shard
+            walls["mesh"].append(await _mesh_tick(torch, servers[0], run))
+            walls["twin"].append(await _mesh_tick(torch, servers[1], None))
+            modes.append(servers[0]._resident.last_solve_mode)
+            check(modes[-1] == servers[1]._resident.last_solve_mode,
+                  f"mesh-lane tick {i}: solve modes differ")
+            diff = _byte_diff(_packed_has(servers[0]), _packed_has(servers[1]))
+            check(diff == 0, f"mesh-lane tick {i}: {diff} leases differ "
+                  "from the single-device twin")
+            ch = [sorted(s._resident.take_changed_rids()) for s in servers]
+            check(ch[0] == ch[1], f"mesh-lane tick {i}: changed rows differ")
+        for s in servers:
+            await s.flush_ticks()
+        torch.cuda.synchronize()
+        diff = _byte_diff(_packed_has(servers[0]), _packed_has(servers[1]))
+        check(diff == 0, f"mesh-lane after the flush: {diff} leases differ")
+        solver = servers[0]._resident
+        shard = dict(solver.shard_launches)
+        for k in ("k1", "k2"):
+            check(sum(shard[k]) == run["launches"][k],
+                  f"mesh-lane: per-shard {k} calls {shard[k]} do not sum to "
+                  f"the wrapper's {run['launches'][k]} launches")
+            check(all(n > 0 for n in shard[k]),
+                  f"mesh-lane: {k} not launched on every shard: {shard[k]}")
+        parity = _mesh_shard_parity(torch, solver)
+        served = await _requests(torch, servers[0], ports[0], worlds[0][0])
+        ticks = MESH_TICKS + MESH_QUIET
+        return {
+            "shards": MESH_SHARDS, "rows_per_shard": solver._Rp // MESH_SHARDS,
+            "K": solver._K, "ticks": ticks, "modes": modes,
+            **_mesh_walls(walls),
+            "launches": run["launches"], "shard_launches": shard,
+            "bytes_per_tick": {k: [b / ticks for b in v]
+                               for k, v in run["bytes"].items()
+                               if k.startswith("resident ")},
+            "parity": parity, "served": served,
+        }
+    finally:
+        for s in servers:
+            await s.stop()
+
+
+def _mesh_shard_parity(torch, solver):
+    """K1 and K2 on shard 0's own tables (comparison launches, not
+    counted) against the plain version."""
+    from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
+    from doorman_tpu_torch.solver import dense_cuda
+    from doorman_tpu_torch.solver.dense import solve_dense
+
+    batch = solver._shard_batch(0)
+    saved = dict(dense_cuda.LAUNCHES)
+    k1 = dense_cuda.solve_dense_k1(batch)
+    dense_cuda.LAUNCHES.update(saved)
+    p1 = solve_dense(batch)
+    rel1 = _rel_err(torch, k1, p1, batch)
+    check(rel1 <= F32_PARITY_REL_BOUND, f"mesh shard 0: K1 vs plain {rel1:.3g}")
+    delivered = torch.zeros(batch.wants.shape[0], dtype=torch.bool,
+                            device=batch.wants.device)
+    delivered[::5] = True
+    _res, err2, rel2 = _check_k2(torch, batch, solver._prev[0], delivered,
+                                 "mesh shard 0")
+    return {"k1_max_abs_err": (k1 - p1).abs().max().item(),
+            "k1_rel_err": rel1, "k2_max_abs_err": err2, "k2_rel_err": rel2,
+            "shape": list(batch.wants.shape)}
+
+
+async def _mesh_wide(torch):
+    """wide-1m on the 4-shard mesh, in two device groups, beside its
+    single-device twin: one resource of 1,000,000 clients whose 245
+    chunk rows straddle all three shard boundaries, the middle one
+    between the groups; stores equal after every tick."""
+    import numpy as np
+
+    from doorman_tpu_torch.server.config import parse_yaml_config
+
+    clients = MESH_WIDE_CLIENTS
+    servers = [_mesh_server("smoke-mesh-wide", _mesh(torch, groups=2)),
+               _mesh_server("smoke-mesh-wide-twin", None)]
+    worlds, rngs = [], []
+    yaml = _wide_yaml(["wide0"], 40.0 * clients).replace(
+        "refresh_interval: 5", "refresh_interval: 1")  # rotate 1
+    try:
+        for s in servers:
+            await s.start(0, host="127.0.0.1", tick_loop=False)
+            await s.load_config(parse_yaml_config(yaml))
+            rng = np.random.default_rng(62)
+            res = s.get_or_create_resource("wide0")
+            engine = s._store_engine
+            rids = np.full(clients, res.store._rid, np.int32)
+            cids = np.fromiter((engine.client_handle(f"w{i}")
+                                for i in range(clients)), np.int64, clients)
+            engine.bulk_assign(
+                rids, cids, np.full(clients, time.time() + 3600.0),
+                np.full(clients, 5.0), np.zeros(clients),
+                rng.integers(1, 100, clients).astype(np.float64),
+                np.ones(clients, np.int32),
+            )
+            worlds.append((rids, cids))
+            rngs.append(rng)
+        churn, quiet = MESH_WIDE_TICKS
+        walls = {"mesh": [], "twin": []}
+        n_churn = clients // 20
+        modes = []
+        for i in range(churn + quiet):
+            for s, (rids, cids), rng in zip(servers, worlds, rngs):
+                if 0 < i < churn:
+                    pick = rng.choice(clients, n_churn, replace=False)
+                    s._store_engine.bulk_refresh(
+                        rids[pick], cids[pick],
+                        np.full(n_churn, time.time() + 3600.0),
+                        np.full(n_churn, 5.0),
+                        rng.integers(1, 100, n_churn).astype(np.float64),
+                    )
+            for s, key in zip(servers, ("mesh", "twin")):
+                t = time.perf_counter()
+                await s.tick_once()
+                walls[key].append(time.perf_counter() - t)
+            modes.append(servers[0]._resident_wide.last_solve_mode)
+            diff = _byte_diff(_packed_has(servers[0]), _packed_has(servers[1]))
+            check(diff == 0, f"mesh-wide tick {i}: {diff} leases differ "
+                  "from the single-device twin")
+        for s in servers:
+            await s.flush_ticks()
+        torch.cuda.synchronize()
+        diff = _byte_diff(_packed_has(servers[0]), _packed_has(servers[1]))
+        check(diff == 0, f"mesh-wide after the flush: {diff} leases differ")
+        wide = servers[0]._resident_wide
+        Rl = wide._Rp // MESH_SHARDS
+        check(wide._R > (MESH_SHARDS - 1) * Rl,
+              f"mesh-wide: {wide._R} chunk rows do not straddle all "
+              f"{MESH_SHARDS - 1} boundaries of {Rl}-row shards")
+        return {"chunk_rows": wide._R, "rows_per_shard": Rl,
+                "device_groups": len(wide._combine.groups),
+                "modes": modes, **_mesh_walls(walls)}
+    finally:
+        for s in servers:
+            await s.stop()
+
+
+def _mesh_priority(torch):
+    """The priority cell's grouped solve (10,000 PRIORITY_BANDS rows x
+    100 clients, 16 capacity groups of 500 shuffled over the rows, so
+    every group spans every shard) through make_sharded_priority_solver
+    on the 4-shard mesh, against the unsharded solve; K3's calls counted
+    per shard."""
+    import numpy as np
+
+    from doorman_tpu_torch.parallel import (
+        make_sharded_priority_solver,
+        shard_priority,
+    )
+    from doorman_tpu_torch.solver import dense_cuda, priority_cuda
+    from doorman_tpu_torch.solver.priority import (
+        PriorityBatch,
+        alloc_evaluations,
+        solve_priority,
+    )
+
+    rng = np.random.default_rng(63)
+    _ids, cap, group, gcap = _prio_layout(rng)
+    R, K = N_PRIO, 128
+    act = np.zeros((R, K), bool)
+    act[:, :N_CLIENTS] = True
+    host = PriorityBatch(
+        wants=(rng.integers(0, 100, (R, K)) * act).astype(np.float32),
+        weights=(rng.integers(1, 4, (R, K)) * act).astype(np.float32),
+        band=(rng.integers(0, 4, (R, K)) * act).astype(np.int32),
+        active=act, capacity=cap.astype(np.float32),
+        group=group.astype(np.int32), group_cap=gcap.astype(np.float32),
+    )
+    mesh = _mesh(torch)
+    batch = shard_priority(mesh, host)
+    ptr = {s.data_ptr(): d for d, s in enumerate(batch.active.shards())}
+    per_shard = [0] * MESH_SHARDS
+    real = priority_cuda.alloc_banded_k3
+
+    def counted(wants, *a, **kw):
+        # Each shard's call passes that shard's own active mask (a[2]).
+        d = ptr.get(a[2].data_ptr())
+        if d is not None:
+            per_shard[d] += 1
+        return real(wants, *a, **kw)
+
+    solve = make_sharded_priority_solver(mesh, num_bands=4)
+    before = dense_cuda.LAUNCHES["k3"]
+    priority_cuda.alloc_banded_k3 = counted
+    try:
+        t = time.perf_counter()
+        got = solve(batch).numpy()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        priority_cuda.alloc_banded_k3 = real
+    launched = dense_cuda.LAUNCHES["k3"] - before
+    evals = alloc_evaluations(torch.float32, True)
+    check(launched == MESH_SHARDS * evals,
+          f"mesh-priority: {launched} K3 launches, want {MESH_SHARDS} "
+          f"shards x {evals} evaluations")
+    check(sum(per_shard) == launched and all(n == evals for n in per_shard),
+          f"mesh-priority: K3 calls per shard {per_shard}")
+    one = PriorityBatch(**{k: torch.from_numpy(np.asarray(v)).to(DEVICE)
+                           for k, v in vars(host).items()})
+    saved = dict(dense_cuda.LAUNCHES)
+    want = solve_priority(one, num_bands=4, use_kernel=True).cpu().numpy()
+    dense_cuda.LAUNCHES.update(saved)
+    rel = float((np.abs(got - want).max(axis=1) / np.maximum(cap, 1.0)).max())
+    check(rel <= K3_SOLVE_RTOL, f"mesh-priority: sharded vs unsharded "
+          f"{rel:.3g} of capacity (limit {K3_SOLVE_RTOL})")
+    usage = got.astype(np.float64).sum(axis=1)
+    over = [g for g in range(N_GROUPS)
+            if usage[group == g].sum() > gcap[g] * (1 + K3_SOLVE_RTOL)]
+    check(not over, f"mesh-priority: groups {over} past their caps")
+    return {"k3_launches": launched, "k3_per_shard": per_shard,
+            "evaluations": evals, "rel_err": rel, "wall_ms": wall * 1e3}
+
+
+def _mesh_procs(torch, tmp):
+    """Two processes on the one card joined over gloo
+    (tests/_torch_multihost_worker.py at f32): each holds 2 shards on
+    cuda:0 and only its half of the edge table, runs the sharded edge
+    solve and the sharded grouped priority solve on CUDA tensors, and
+    holds its shards to the single-process result within 1e-5 of
+    capacity."""
+    import os
+
+    worker = ROOT / "tests" / "_torch_multihost_worker.py"
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("DOORMAN_", "MASTER_"))}
+    store = Path(tmp) / "mesh-rendezvous"
+    procs, infos = [], []
+    t = time.perf_counter()
+    try:
+        for rank in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, str(worker), "--device", DEVICE,
+                 "--dtype", "f32"],
+                env=dict(env, PYTHONPATH=str(ROOT),
+                         DOORMAN_COORDINATOR=f"file://{store}",
+                         DOORMAN_NUM_PROCESSES="2",
+                         DOORMAN_PROCESS_ID=str(rank),
+                         DOORMAN_DIST_BACKEND="gloo"),
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, start_new_session=True,
+            ))
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        outs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    check(outs is not None, "mesh-procs: a worker was still running at 300 s")
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        line = [x for x in out.splitlines()
+                if x.startswith("MULTIHOST WORKER OK ")]
+        if p.returncode != 0 or not line:
+            say(out[-4000:])
+        check(p.returncode == 0 and line,
+              f"mesh-procs: worker {rank} failed (rc {p.returncode})")
+        infos.append(json.loads(line[0][len("MULTIHOST WORKER OK "):]))
+    return {"seconds": time.perf_counter() - t, "workers": infos}
+
+
+def _mesh_binary(torch, tmp):
+    """The server binary with --mesh auto serving GetCapacity, its
+    status()'s mesh read from /debug/vars; --mesh 3 exits 2 on the one
+    card."""
+    import os
+    import socket
+    import urllib.request
+
+    import grpc
+
+    from doorman_tpu_torch.proto import doorman_pb2 as pb
+    from doorman_tpu_torch.proto.grpc_api import CapacityStub
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    cfg = Path(tmp) / "mesh-cfg.yml"
+    cfg.write_text(_config_yaml())
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    base = [sys.executable, "-m", "doorman_tpu_torch.cmd.server",
+            "--config", f"file:{cfg}", "--host", "127.0.0.1",
+            "--mode", "batch", "--native-store", "--device", DEVICE,
+            "--tick-interval", "0.2", "--log-level", "warning"]
+    t = time.perf_counter()
+    bad = subprocess.run(base + ["--port", str(free_port()), "--debug-port",
+                                 "-1", "--mesh", "3"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=180)
+    check(bad.returncode == 2,
+          f"mesh-binary: --mesh 3 exited {bad.returncode}, want 2: "
+          f"{bad.stderr[-500:]}")
+    bad_s = time.perf_counter() - t
+    port, dport = free_port(), free_port()
+
+    async def serve():
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
+            stub = CapacityStub(ch)
+            deadline = time.time() + 120.0
+            while True:
+                check(proc.poll() is None and time.time() < deadline,
+                      "mesh-binary: the server did not come up")
+                try:
+                    d = await stub.Discovery(pb.DiscoveryRequest(),
+                                             timeout=1.0)
+                    if d.is_master:
+                        break
+                except grpc.aio.AioRpcError:
+                    pass
+                await asyncio.sleep(0.5)
+            served = 0
+            for c in range(3):
+                req = pb.GetCapacityRequest(client_id=f"c{c}")
+                for r in range(20):
+                    rr = req.resource.add()
+                    rr.resource_id = f"prop.t{r % 4}.r{r}"
+                    rr.wants, rr.priority = 10.0 + c, 1
+                out = await stub.GetCapacity(req)
+                served += len(out.response)
+            await asyncio.sleep(1.0)  # ticks run on the mesh
+            return served
+
+    with open(Path(tmp) / "mesh-server.log", "w+") as log:
+        proc = subprocess.Popen(
+            base + ["--port", str(port), "--debug-port", str(dport),
+                    "--mesh", "auto"],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            served = asyncio.run(serve())
+            deadline = time.time() + 60.0
+            while True:  # until the mesh has ticked
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{dport}/debug/vars",
+                        timeout=30) as resp:
+                    status = json.loads(resp.read().decode())["servers"][0]
+                if status.get("ticks", 0) > 0 or time.time() > deadline:
+                    break
+                time.sleep(0.5)
+            check(proc.poll() is None, "mesh-binary: the server exited")
+        except PhaseFailed:
+            log.seek(0)
+            say(log.read()[-4000:])
+            raise
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    check(status["mesh"] == {"clients": torch.cuda.device_count()},
+          f"mesh-binary: status mesh {status['mesh']}")
+    check(status.get("ticks", 0) > 0, "mesh-binary: no tick ran")
+    check(served == 60, f"mesh-binary: {served} of 60 grants answered")
+    return {"mesh": status["mesh"], "ticks": status["ticks"],
+            "served": served, "bad_spec_rc": bad.returncode,
+            "bad_spec_s": bad_s, "seconds": time.perf_counter() - t}
+
+
+def phase_mesh(torch, card):
+    """Multi-device on the one card (parallel/, solver/resident_mesh.py,
+    the server's mesh=, cmd.server --mesh): the lane cell and wide-1m on
+    a 4-shard mesh beside single-device twins, byte for byte; the
+    priority cell's grouped solve sharded; two processes joined over
+    gloo; and the binary's --mesh."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for part, run in (
+                ("lane", lambda: asyncio.run(_mesh_lane(torch))),
+                ("wide", lambda: asyncio.run(_mesh_wide(torch))),
+                ("priority", lambda: _mesh_priority(torch)),
+                ("procs", lambda: _mesh_procs(torch, tmp)),
+                ("binary", lambda: _mesh_binary(torch, tmp))):
+            t = time.perf_counter()
+            out[part] = run()
+            say(f"phase mesh-{part}: {time.perf_counter() - t:.1f}s "
+                f"{json.dumps(out[part])}")
+    out["seconds"] = time.perf_counter() - t0
+    lane, wide, pr = out["lane"], out["wide"], out["priority"]
+    say(f"phase mesh: lane cell on {MESH_SHARDS} shards of {lane['rows_per_shard']}"
+        f" rows x K {lane['K']}, {lane['ticks']} ticks byte-identical to "
+        f"its twin (modes {lane['modes']}), rebuild tick "
+        f"{lane['rebuild_ms']:.1f} ms (twin {lane['twin_rebuild_ms']:.1f}), "
+        f"then p50 / p95 {lane['p50']:.2f} / {lane['p95']:.2f} ms (twin "
+        f"{lane['twin_p50']:.2f} / {lane['twin_p95']:.2f}), K1 / K2 per shard "
+        f"{lane['shard_launches']['k1']} / {lane['shard_launches']['k2']}, "
+        f"bytes per tick per shard {lane['bytes_per_tick']}; wide-1m "
+        f"{wide['chunk_rows']} chunk rows over shards of "
+        f"{wide['rows_per_shard']} in {wide['device_groups']} device groups, "
+        f"byte-identical, p50 / p95 "
+        f"{wide['p50']:.2f} / {wide['p95']:.2f} ms (twin "
+        f"{wide['twin_p50']:.2f} / {wide['twin_p95']:.2f}); priority K3 per "
+        f"shard {pr['k3_per_shard']}, {pr['rel_err']:.3g} of capacity from "
+        f"the unsharded solve, {pr['wall_ms']:.1f} ms; two gloo processes "
+        f"ok in {out['procs']['seconds']:.1f}s "
+        f"(staged through host: "
+        f"{[w['staged_through_host'] for w in out['procs']['workers']]}); "
+        f"--mesh auto status {out['binary']['mesh']}, --mesh 3 exit "
+        f"{out['binary']['bad_spec_rc']}; {out['seconds']:.1f}s; card {card}")
+    return out
+
+
 BESIDE = {
     "streams": lambda torch, card: phase_streams(torch, card, "main"),
     "streams-scoped": lambda torch, card: phase_streams(torch, card, "scoped"),
@@ -9743,6 +10250,24 @@ def main() -> int:
             entry["launches"] += sum(adds.values())
         line["chaos"] = chaos
         line["loadtest_lane"] = lt
+        say(f"elapsed {time.perf_counter() - t0:.1f}s before mesh")
+        # The mesh: K1/K2 once per shard on the 4-shard lane cell's ticks,
+        # K3 once per shard in each evaluation of the sharded grouped
+        # solve (the wide mesh ticks run the plain chunked solve). Each
+        # kernel's per-shard launches stand beside its total.
+        mesh = phase_mesh(torch, card)
+        for key, entry in (("k1", k1), ("k2", k2)):
+            n = mesh["lane"]["launches"][key]
+            entry["launches_by_path"][f"mesh-lane f32 ({MESH_SHARDS} shards)"] = n
+            entry["launches"] += n
+            entry["shard_launches"] = {
+                "mesh-lane f32": mesh["lane"]["shard_launches"][key]}
+        k3["launches_by_path"][f"mesh-priority f32 ({MESH_SHARDS} shards)"] = (
+            mesh["priority"]["k3_launches"])
+        k3["launches"] += mesh["priority"]["k3_launches"]
+        k3["shard_launches"] = {
+            "mesh-priority f32": mesh["priority"]["k3_per_shard"]}
+        line["mesh"] = mesh
         # The workload harness (beside the main sequence): immediate-mode
         # servers, no tick solve, so no K1/K2/K3 launch is expected; the
         # count stands beside the others all the same.
@@ -9845,6 +10370,12 @@ def main() -> int:
         f"{lt['tick_ms']['storm']['p95']:.2f} ms under the storm (free "
         f"{lt['tick_ms']['storm_free']['p50']:.2f} / "
         f"{lt['tick_ms']['storm_free']['p95']:.2f})"
+        f"; mesh lane cell on {MESH_SHARDS} shards tick p50 / p95 "
+        f"{mesh['lane']['p50']:.2f} / {mesh['lane']['p95']:.2f} ms (twin "
+        f"{mesh['lane']['twin_p50']:.2f} / {mesh['lane']['twin_p95']:.2f}), "
+        f"wide-1m {mesh['wide']['p50']:.2f} / {mesh['wide']['p95']:.2f} ms "
+        f"(twin {mesh['wide']['twin_p50']:.2f} / "
+        f"{mesh['wide']['twin_p95']:.2f}), phase {mesh['seconds']:.1f}s"
         f"; workload {len(wl['small'])} small scenarios ok and replayed in "
         f"{wl['small_seconds']:.1f}s, diurnal_million driver tick mean / max "
         f"{wl['million']['diurnal_million']['1']['driver_tick_mean_ms']:.2f} / "
@@ -9861,7 +10392,30 @@ def main() -> int:
     return 0
 
 
+def _mesh_only() -> int:
+    """`chip_smoke.py --mesh-only`: the device, the build and the mesh
+    phase alone (a quick rerun of that phase; it prints no result line)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    try:
+        _name, card = phase_device(torch)
+        phase_build()
+        out = phase_mesh(torch, card)
+    except PhaseFailed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    say(card)
+    say(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--beside"]:
         sys.exit(_beside_main(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--mesh-only"]:
+        sys.exit(_mesh_only())
     sys.exit(main())

@@ -222,6 +222,7 @@ async def smoke(args: argparse.Namespace) -> int:
             lap("push")
 
             # 3) kill the owning worker: the stream must END loudly.
+            dead = pool._procs[victim]
             pool.kill_worker(victim)
             log.info("killed worker %s", victim)
             try:
@@ -241,13 +242,25 @@ async def smoke(args: argparse.Namespace) -> int:
             log.info("stream reset after worker kill")
             lap("kill_reset")
 
-            # 4) wait for the reaper to sweep + respawn, then resume.
+            # 4) wait for the reaper to sweep + respawn, then for the
+            # new worker's first heartbeat (sent only once it serves the
+            # public port), then resume. The live count alone can read
+            # full while the killed process is still exiting.
+            held = pool.control.worker_held
             while time.monotonic() < deadline:
-                if len(pool.status()["live"]) == args.workers:
+                fresh = pool._procs.get(victim)
+                if fresh is not None and fresh is not dead:
+                    held.pop(victim, None)
                     break
                 await asyncio.sleep(0.2)
             else:
                 raise TimeoutError("reaper never respawned the worker")
+            while time.monotonic() < deadline:
+                if victim in held and fresh.is_alive():
+                    break
+                await asyncio.sleep(0.2)
+            else:
+                raise TimeoutError("respawned worker never heartbeat")
             log.info("worker respawned; re-establishing with resume")
             lap("respawn")
 

@@ -5,7 +5,7 @@
          [--master-delay S]] [--persist file:DIR|etcd:PREFIX \\
          [--snapshot-interval S]] \\
         [--mode immediate|batch] [--native-store] [--no-fused-tick] \\
-        [--device cuda] [--solver-dtype f32] \\
+        [--device cuda] [--mesh auto|N|AxB] [--solver-dtype f32] \\
         [--stream-push [--max-streams-per-band N] [--stream-shards N]] \\
         [--admission [--coalesce-window S] [--admission-max-rps R] \\
          [--fuse-admission]] \\
@@ -37,6 +37,11 @@ ticks the batched solve on `--device` (default cuda; a machine without
 a GPU must pass --device cpu, which every mode checks); `--native-store`
 backs the stores with the C++ engine and its device-resident tick, whose
 `--no-fused-tick` round-trip variant is kept for baselines and triage.
+`--mesh` shards that tick's table rows over a device mesh ('auto': every
+visible CUDA device; '4' or '2x2': axis sizes whose product is the
+device count; with --device cpu the spec names its own count of CPU
+shards) and exits 2 on a spec it cannot build. The reference's
+`--jax-platform` is not taken: `--device` names the platform.
 `--stream-push` serves WatchCapacity: lease deltas pushed at tick edges.
 `--shard i/N` makes the server root shard i of a federation of N: the
 election lock gets the suffix /shard<i>, `--persist` is namespaced under
@@ -130,7 +135,16 @@ def make_parser() -> argparse.ArgumentParser:
                    help="back lease stores with the C++ engine (an error "
                         "if it cannot be built)")
     p.add_argument("--device", default="cuda",
-                   help="device of the batch tick: cuda (default) or cpu")
+                   help="device of the batch tick: cuda (default) or cpu "
+                        "(covers the reference's --jax-platform)")
+    p.add_argument("--mesh", default="",
+                   help="batch mode, native store: shard the resident "
+                        "tick across a device mesh — 'auto' (every "
+                        "visible CUDA device, one axis) or per-axis sizes "
+                        "like '4' or '2x2' (product = the visible CUDA "
+                        "device count; with --device cpu, that many CPU "
+                        "shards). Store contents stay byte-identical to "
+                        "the single-device tick")
     p.add_argument("--tick-interval", type=float, default=1.0,
                    help="seconds between device solves")
     p.add_argument("--solver-dtype", choices=("f32", "f64"), default="f64",
@@ -456,6 +470,20 @@ async def serve(args: argparse.Namespace, on_started=None) -> None:
                       "resources the beat reconciles)")
             raise SystemExit(2)
 
+    mesh = None
+    if args.mesh:
+        from doorman_tpu_torch.parallel.mesh import mesh_for_device
+
+        # Fail fast and loud: a server falling back to one device after
+        # the operator asked for a mesh would hide the deployment error.
+        try:
+            mesh = mesh_for_device(args.mesh, args.device)
+        except (ValueError, RuntimeError) as e:
+            log.error("--mesh %s unusable: %s", args.mesh, e)
+            raise SystemExit(2)
+        log.info("resident tick mesh: %s over %s", mesh.shape,
+                 [str(d) for d in mesh.flat_devices])
+
     server = CapacityServer(
         args.server_id or f"{args.host}:{args.port}",
         election,
@@ -486,6 +514,7 @@ async def serve(args: argparse.Namespace, on_started=None) -> None:
         admission=admission,
         fuse_admission=args.fuse_admission,
         device=args.device,
+        mesh=mesh,
     )
     if args.history_dir:
         log.info("durable history in %s (run %d, replayed %d records)",

@@ -214,12 +214,17 @@ class CapacityServer(CapacityServicer):
         admission=None,  # Optional[doorman_tpu_torch.admission.Admission]
         fuse_admission: bool = False,
         device="cuda",
+        mesh=None,  # Optional[doorman_tpu_torch.parallel.Mesh]
     ):
         if mode not in ("immediate", "batch"):
             raise ValueError(f"unknown mode {mode!r}")
         if solver_dtype not in ("f32", "f64"):
             raise ValueError(f"unknown solver dtype {solver_dtype!r}")
         self.device = resolve_device(device)
+        # Optional device mesh for the resident solvers: table rows
+        # shard over its shards (solver.resident_mesh); store contents
+        # stay byte-identical to the single-device tick.
+        self._solver_mesh = mesh
         if native_store and not native.native_available():
             raise RuntimeError(
                 "native store engine unavailable (g++ build failed?)"
@@ -801,7 +806,7 @@ class CapacityServer(CapacityServicer):
             dtype = np.float64 if self.solver_dtype == "f64" else np.float32
             self._resident = ResidentDenseSolver(
                 self._store_engine, dtype=dtype, clock=self._clock,
-                device=self.device,
+                device=self.device, mesh=self._solver_mesh,
                 # Grant delivery rides the config's fastest refresh
                 # cadence relative to this server's tick cadence.
                 rotate_ticks=None, tick_interval=self.tick_interval,
@@ -831,7 +836,7 @@ class CapacityServer(CapacityServicer):
             dtype = np.float64 if self.solver_dtype == "f64" else np.float32
             self._resident_wide = WideResidentSolver(
                 self._store_engine, dtype=dtype, clock=self._clock,
-                device=self.device,
+                device=self.device, mesh=self._solver_mesh,
                 rotate_ticks=None, tick_interval=self.tick_interval,
                 fused=self._fused_tick, scoped=self._scoped_solve,
             )
@@ -2370,7 +2375,13 @@ class CapacityServer(CapacityServicer):
             "current_master": self.current_master,
             "mode": self.mode,
             "backend": self._backend_platform(),
-            "mesh": None,
+            # Axis sizes of the resident solvers' device mesh (None:
+            # single device).
+            "mesh": (
+                {str(k): int(v) for k, v in self._solver_mesh.shape.items()}
+                if self._solver_mesh is not None
+                else None
+            ),
             "ticks": self._ticks_done,
             "tick_pipeline": {
                 "depth": self._tick_pipeline_depth,

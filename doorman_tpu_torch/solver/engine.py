@@ -13,6 +13,14 @@ doorman_tpu/solver/engine.py).
 The host classes are copies of the reference's; the device seams are
 PyTorch: `place` (one counted host->device copy), `count_launch`, and
 the landing of a tick's delivery slab (utils.transfer).
+
+With a parallel.mesh Mesh the table rows shard over the mesh
+(solver.resident_mesh.MeshRows): per-row tables and config land one
+allocation per device group, viewed apart per shard (`_put_rows`),
+per-segment config lands replicated on every device group
+(`_put_rep`), the rotation walks per-shard cursors, and a mesh tick
+lands one delivery slab per device group (`_land_mesh`), its solve-moved
+mask in the slab beside the grants.
 """
 
 from __future__ import annotations
@@ -127,6 +135,16 @@ class TickHandle:
     # Wide (chunked) ticks only: the chunk number of each delivered row
     # (solver.resident_wide writes back with apply_chunks).
     chunks: "np.ndarray | None" = None
+    # Mesh ticks only: one delivery slab per device group (`out` is
+    # None), each its shards' delivered rows back to back, then — with
+    # `tracked` — their changed masks, then their solve-moved masks
+    # (narrow: per shard, `scope_counts` slots each; wide: the scope's
+    # per-segment mask, `moved_rows` rows of group 0's slab). Shard-major
+    # order IS the sorted order of sel_rows and scope_ids.
+    parts: "list | None" = None
+    shard_counts: "np.ndarray | None" = None
+    scope_counts: "np.ndarray | None" = None
+    tracked: bool = False
 
 
 def idle_handle(now: float) -> TickHandle:
@@ -242,17 +260,26 @@ class RotationCursor:
 
     def __init__(self):
         self.cursor = 0
+        self.shard_cursors: "np.ndarray | None" = None
 
-    def reset(self) -> None:
+    def reset(self, n_dev: "int | None" = None) -> None:
+        """Mesh: one cursor per shard, each walking its own real rows, so
+        every tick's delivery stays balanced across shards."""
         self.cursor = 0
+        self.shard_cursors = np.zeros(n_dev, np.int64) if n_dev else None
 
-    def rows(self, n_real: int, rotate: int) -> np.ndarray:
-        rot_block = -(-n_real // rotate) if n_real else 1
-        rot = (
-            self.cursor + np.arange(rot_block, dtype=np.int64)
-        ) % max(n_real, 1)
-        self.cursor = (self.cursor + rot_block) % max(n_real, 1)
-        return rot
+    def rows(self, n_real: int, rotate: int, meshrows=None,
+             rows_per_shard: int = 0) -> np.ndarray:
+        if meshrows is None or self.shard_cursors is None:
+            rot_block = -(-n_real // rotate) if n_real else 1
+            rot = (
+                self.cursor + np.arange(rot_block, dtype=np.int64)
+            ) % max(n_real, 1)
+            self.cursor = (self.cursor + rot_block) % max(n_real, 1)
+            return rot
+        return meshrows.rotation_rows(
+            self.shard_cursors, n_real, rows_per_shard, rotate
+        )
 
 
 class FusedStaging:
@@ -375,6 +402,9 @@ class TickEngineBase:
 
     component = "resident"
     supports_delta = False
+    # Per-row config (narrow) lands like the table rows on a mesh;
+    # per-segment config (wide) is replicated on every device group.
+    replicated_config = False
 
     def __init__(
         self,
@@ -382,6 +412,7 @@ class TickEngineBase:
         *,
         dtype=np.float32,
         device: torch.device,
+        mesh=None,
         clock: Callable[[], float] = time.time,
         rotate_ticks: "int | None" = 8,
         tick_interval: "float | None" = None,
@@ -393,6 +424,22 @@ class TickEngineBase:
         self._dtype = np.dtype(dtype)
         self._tdtype = torch.float64 if self._dtype == np.float64 else torch.float32
         self._device = device
+        # A parallel.mesh Mesh shards the table rows (and the per-tick
+        # staging and delivery) over its shards; `device` is then the
+        # first shard's.
+        self._mesh = mesh
+        self._meshrows = None
+        if mesh is not None:
+            from doorman_tpu_torch.parallel.combine import Combine
+            from doorman_tpu_torch.solver.resident_mesh import MeshRows
+
+            self._meshrows = MeshRows(mesh)
+            self._combine = Combine(mesh)
+            # Kernel wrapper calls on CUDA shards, per shard (the
+            # wrappers' own counters, dense_cuda.LAUNCHES, sum them).
+            self.shard_launches = {
+                k: [0] * mesh.size for k in ("k1", "k2")
+            }
         self._clock = clock
         self._tick_interval = tick_interval
         self._rotate_override: "int | None" = None
@@ -411,7 +458,11 @@ class TickEngineBase:
         self._quiet_ticks = 0
         self._just_rebuilt = False
         self._rotation = RotationCursor()
-        self._config = ConfigTable(self._dtype, self._put)
+        self._config = ConfigTable(
+            self._dtype,
+            self._put if mesh is None else (
+                self._put_rep if self.replicated_config else self._put_rows),
+        )
         self._track_deltas = False
         self._changed_lock = threading.Lock()
         self._changed_rids: set = set()  # guarded-by: self._changed_lock
@@ -576,8 +627,38 @@ class TickEngineBase:
     def staging(self) -> "FusedStaging | None":
         return self._staging
 
+    @property
+    def mesh(self):
+        return self._mesh
+
     def _put(self, arr):
         return place(arr, self._device)
+
+    def _put_groups(self, arr) -> list:
+        """Mesh row placement: an array of the padded table's rows lands
+        one copy per device group, holding that group's shards' rows
+        only (shard-major), in group order."""
+        arr = np.asarray(arr)
+        Rl = arr.shape[0] // self._meshrows.n_dev
+        return [place(arr[first * Rl:(first + n) * Rl], dev)
+                for dev, first, n in self._meshrows.groups]
+
+    def _put_rows(self, arr) -> list:
+        """`_put_groups`, viewed apart per shard, in mesh order."""
+        Rl = np.shape(arr)[0] // self._meshrows.n_dev
+        return [t[i * Rl:(i + 1) * Rl]
+                for t, (_d, _f, n) in zip(self._put_groups(arr),
+                                          self._meshrows.groups)
+                for i in range(n)]
+
+    def _put_rep(self, arr) -> list:
+        """Mesh replicated placement (per-segment config): one copy per
+        device group, in group order."""
+        return [place(arr, dev) for dev, _f, _n in self._meshrows.groups]
+
+    def _count_shard(self, kernel: str, shard: int, device) -> None:
+        if device.type == "cuda":
+            self.shard_launches[kernel][shard] += 1
 
     def _anomaly(self, kind: str, detail: dict) -> None:
         log.warning("%s: %s: %s", type(self).__name__, kind, detail)
@@ -597,8 +678,10 @@ class TickEngineBase:
                 self._rotate = derived
         return changed
 
-    def _rotation_rows(self, n_real: int) -> np.ndarray:
-        return self._rotation.rows(n_real, self.rotate_ticks)
+    def _rotation_rows(self, n_real: int, rows_per_shard: int = 0) -> np.ndarray:
+        return self._rotation.rows(
+            n_real, self.rotate_ticks, self._meshrows, rows_per_shard
+        )
 
     # -- the stage skeleton -------------------------------------------
 
@@ -652,12 +735,16 @@ class TickEngineBase:
         if handle.collected:
             return 0
         handle.collected = True
-        if handle.out is None:
+        if handle.out is None and handle.parts is None:
             self.ticks += 1
             self.idle_ticks += 1
             self.last_tick_seconds = self._clock() - handle.dispatched_at
             return 0
         ph = PhaseRecorder(self.component, self.phase_s)
+        if handle.parts is not None:
+            gets, changed, moved = self._land_mesh(handle)
+            ph.lap("download")
+            return self._finish_collect(handle, gets, changed, moved, ph)
         slab = transfer.land(handle.out)
         n_slots = slab.shape[0] - handle.mask_rows - handle.moved_rows
         gets = slab[: handle.n_sel]
@@ -674,6 +761,9 @@ class TickEngineBase:
                 != 0.0
             )
         ph.lap("download")
+        return self._finish_collect(handle, gets, changed, moved, ph)
+
+    def _finish_collect(self, handle, gets, changed, moved, ph) -> int:
         applied = self._apply_grants(handle, gets)
         ph.lap("apply")
         if changed is not None:
@@ -689,6 +779,37 @@ class TickEngineBase:
         self.ticks += 1
         self.last_tick_seconds = self._clock() - handle.dispatched_at
         return applied
+
+    def _land_mesh(self, handle: TickHandle):
+        """Land a mesh tick's per-group slabs: (gets [n_sel, W], changed
+        [n_sel] or None, moved aligned with scope_ids or None)."""
+        gets, changed, moved = [], [], []
+        for (_dev, first, n), part in zip(self._meshrows.groups, handle.parts):
+            slab = transfer.land(part)
+            W = slab.shape[1]
+            n_sel = int(handle.shard_counts[first:first + n].sum())
+            gets.append(slab[:n_sel])
+            o = n_sel
+            if handle.tracked:
+                rows = -(-n_sel // W)
+                changed.append(slab[o:o + rows].reshape(-1)[:n_sel] != 0.0)
+                o += rows
+            if handle.scope_counts is not None:
+                n_sc = int(handle.scope_counts[first:first + n].sum())
+                rows = -(-n_sc // W)
+                moved.append(slab[o:o + rows].reshape(-1)[:n_sc] != 0.0)
+            elif handle.moved_rows and first == 0:
+                moved.append(
+                    slab[o:o + handle.moved_rows].reshape(-1)[
+                        : len(handle.scope_ids)] != 0.0
+                )
+        W = gets[0].shape[1] if gets else 1
+        return (
+            np.concatenate(gets) if gets else np.zeros((0, W)),
+            np.concatenate(changed) if handle.tracked else None,
+            np.concatenate(moved)
+            if moved and handle.scope_ids is not None else None,
+        )
 
     def step(
         self, resources: Sequence[Resource], config_epoch: int = 0

@@ -105,10 +105,11 @@ def _alloc_banded(
 
 
 def solve_priority(
-    batch: PriorityBatch,
+    batch,
     num_bands: int = 4,
     use_kernel: bool = False,
-) -> torch.Tensor:
+    combine=None,
+):
     """Grants [R, K]; matches algorithms.priority.grouped_priority_alloc.
 
     `num_bands` bounds the band loop (the host packs dense ranks <
@@ -118,50 +119,70 @@ def solve_priority(
     the plain version on CPU tensors); False runs the plain version on
     any device.
 
+    Row-sharded (parallel.sharded.make_sharded_priority_solver): `batch`
+    is then the list of shards this process holds, in mesh order (rows
+    of one PriorityBatch each, group_cap replicated), and the result the
+    list of their grants. Group caps are the one coupling across rows,
+    so `combine` — the counterpart of the reference's `combine_axes`,
+    e.g. parallel.combine.Combine.sum — takes the per-shard [G] usage
+    partials of each bisection evaluation and returns their total; the
+    bisection then runs on the same totals everywhere. With one batch
+    and combine=None the arithmetic is the single-device solve's.
+
     Group usage is summed per group in a fixed order (a masked [G, R]
     row sum, no atomics: left to right up to rowsum's sequential width,
     as the reference's segment sum adds on the CPU), so two calls on the
     same batch give bit-identical grants: `usage <= group_cap` cannot
     flip between identical ticks."""
-    dtype = batch.wants.dtype
-    dev = batch.wants.device
-    zero = torch.zeros((), dtype=dtype, device=dev)
+    single = isinstance(batch, PriorityBatch)
+    shards = [batch] if single else list(batch)
+    if len(shards) > 1 and combine is None:
+        raise ValueError(
+            f"{len(shards)} shards need a combine for their group usage"
+        )
+    gets = _solve_shards(shards, num_bands, use_kernel, combine)
+    return gets[0] if single else gets
+
+
+def _solve_shards(shards, num_bands, use_kernel, combine):
+    home = shards[0].wants
+    dtype, dev = home.dtype, home.device
     one = torch.ones((), dtype=dtype, device=dev)
-    wants = torch.where(batch.active, batch.wants, zero)
-    weights = torch.where(batch.active, batch.weights, zero)
-
-    if use_kernel:
-        from doorman_tpu_torch.solver.priority_cuda import alloc_banded_k3
-
-        def alloc(eff_cap, totals=False):
-            return alloc_banded_k3(
-                wants, weights, batch.band, batch.active, eff_cap,
-                num_bands, totals=totals,
-            )
-    else:
-        def alloc(eff_cap, totals=False):
-            gets = _alloc_banded(
-                wants, weights, batch.band, batch.active, eff_cap,
-                num_bands,
-            )
-            return (gets, rowsum(gets)) if totals else gets
-
-    G = batch.group_cap.shape[0]
+    allocs = [_allocator(b, num_bands, use_kernel) for b in shards]
+    group_cap = shards[0].group_cap
+    G = group_cap.shape[0]
     if G == 0:
         # No cross-resource caps configured: a single banded pass.
-        return alloc(batch.capacity)
-    grouped = batch.group >= 0
-    # Gather index clamped for uncoupled resources (group id -1).
-    gidx = torch.where(grouped, batch.group, 0).long()
-    member = (
-        gidx[None, :] == torch.arange(G, device=dev)[:, None]
-    ) & grouped[None, :]  # [G, R]
-    group_cap = batch.group_cap
+        return [alloc(b.capacity) for b, alloc in zip(shards, allocs)]
+    # Per shard: the grouped mask, the gather index (clamped for
+    # uncoupled resources, group id -1) and the [G, rows] membership.
+    members = []
+    for b in shards:
+        grouped = b.group >= 0
+        gidx = torch.where(grouped, b.group, 0).long()
+        member = (
+            gidx[None, :] == torch.arange(G, device=b.wants.device)[:, None]
+        ) & grouped[None, :]
+        members.append((grouped, gidx, member))
+
+    def theta_rows(theta_g, b, grouped, gidx):
+        t = theta_g.to(b.wants.device)
+        return torch.where(grouped, t[gidx], torch.ones_like(t[0]))
 
     def usage_per_group(theta_g):  # [G] -> [G]
-        theta_r = torch.where(grouped, theta_g[gidx], one)
-        _gets, per_resource = alloc(batch.capacity * theta_r, totals=True)
-        return rowsum(torch.where(member, per_resource[None, :], zero))
+        parts = []
+        for b, alloc, (grouped, gidx, member) in zip(shards, allocs, members):
+            _gets, per_resource = alloc(
+                b.capacity * theta_rows(theta_g, b, grouped, gidx),
+                totals=True,
+            )
+            zero = torch.zeros((), dtype=dtype, device=b.wants.device)
+            parts.append(
+                rowsum(torch.where(member, per_resource[None, :], zero))
+            )
+        if combine is None:
+            return parts[0]
+        return combine(parts).to(dev)
 
     lo = torch.zeros(G, dtype=dtype, device=dev)
     hi = torch.ones(G, dtype=dtype, device=dev)
@@ -182,5 +203,31 @@ def solve_priority(
         feasible = usage_per_group(cand) <= group_cap
         lo = torch.where(feasible, cand, lo)
     theta_g = torch.where(fits_at_one, one, lo)
-    theta_r = torch.where(grouped, theta_g[gidx], one)
-    return alloc(batch.capacity * theta_r)
+    return [
+        alloc(b.capacity * theta_rows(theta_g, b, grouped, gidx))
+        for b, alloc, (grouped, gidx, _m) in zip(shards, allocs, members)
+    ]
+
+
+def _allocator(batch: PriorityBatch, num_bands: int, use_kernel: bool):
+    """alloc(eff_cap, totals=False) -> gets (and each row's total) for
+    one batch: K3's wrapper, or the plain banded fill."""
+    zero = torch.zeros((), dtype=batch.wants.dtype, device=batch.wants.device)
+    wants = torch.where(batch.active, batch.wants, zero)
+    weights = torch.where(batch.active, batch.weights, zero)
+    if use_kernel:
+        from doorman_tpu_torch.solver.priority_cuda import alloc_banded_k3
+
+        def alloc(eff_cap, totals=False):
+            return alloc_banded_k3(
+                wants, weights, batch.band, batch.active, eff_cap,
+                num_bands, totals=totals,
+            )
+    else:
+        def alloc(eff_cap, totals=False):
+            gets = _alloc_banded(
+                wants, weights, batch.band, batch.active, eff_cap,
+                num_bands,
+            )
+            return (gets, rowsum(gets)) if totals else gets
+    return alloc

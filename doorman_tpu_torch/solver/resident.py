@@ -1,6 +1,6 @@
 """Device-resident steady-state tick solver, narrow rows (port of
-doorman_tpu/solver/resident.py on one device: the fused tick and the
-round-trip tick).
+doorman_tpu/solver/resident.py: the fused tick and the round-trip tick,
+on one device or row-sharded over a mesh).
 
 The dense [R, K] demand tables stay RESIDENT on the device between
 ticks and only what changed moves:
@@ -36,6 +36,16 @@ On a CUDA device the solve runs the hand-written kernels of
 solver.dense_cuda for f32 and f64 alike; on the CPU (device="cpu") the
 same wrappers take their plain PyTorch versions.
 
+With `mesh=` (a parallel.mesh Mesh) the tables shard their rows over
+the mesh's shards (solver.resident_mesh). Rows are independent, so a
+mesh tick needs no combine: each device group of the mesh gets one
+packed staging buffer and one host->device copy a tick (its shards'
+blocks, shard-local indices, viewed apart at static offsets), K1 — or
+K2 on a tracked full tick — runs once per shard over that shard's rows
+(the scoped tick: its own scope rows), and each group's delivery lands
+as one slab (`_stage_mesh`). Per-row arithmetic is the single-device
+tick's, so the stores are byte-identical to it.
+
 Write-back safety: each row records the resource's membership epoch at
 upload; `apply_dense` skips rows whose epoch moved while the solve was in
 flight (the change dirtied the row, so the next tick re-delivers it).
@@ -61,9 +71,16 @@ from doorman_tpu_torch.solver.engine import (
     bf16_exact,
     ceil_to,
     count_launch,
+    place,
     pow2_bucket,
 )
 from doorman_tpu_torch.solver.lanes import ITERATIVE_KINDS
+from doorman_tpu_torch.solver.resident_mesh import (
+    group_by_shard,
+    mesh_device,
+    pad_shard_blocks,
+    pad_shard_indices,
+)
 from doorman_tpu_torch.utils import transfer
 from doorman_tpu_torch.utils.backend import resolve_device
 
@@ -126,6 +143,7 @@ class ResidentDenseSolver(TickEngineBase):
         *,
         dtype=np.float32,
         device="cuda",
+        mesh=None,
         clock: Callable[[], float] = time.time,
         rotate_ticks: "int | None" = 8,
         tick_interval: "float | None" = None,
@@ -136,7 +154,9 @@ class ResidentDenseSolver(TickEngineBase):
         super().__init__(
             engine,
             dtype=dtype,
-            device=resolve_device(device),
+            device=mesh_device(mesh) if mesh is not None
+            else resolve_device(device),
+            mesh=mesh,
             clock=clock,
             rotate_ticks=rotate_ticks,
             tick_interval=tick_interval,
@@ -158,8 +178,8 @@ class ResidentDenseSolver(TickEngineBase):
         # the download dtype; None until enable_delta_tracking() and the
         # next rebuild.
         self._prev = None
-        # Plain-path iterative-lane rows of the full table, rebuilt when
-        # the config's kind vector moves.
+        # Plain-path iterative-lane rows of the full table (mesh: one
+        # per shard), rebuilt when the config's kind vector moves.
         self._iter_src = None
         self._iter_rows_d = None
         self._iter_layout = ()
@@ -179,7 +199,13 @@ class ResidentDenseSolver(TickEngineBase):
         # +1 reserves a padding row: ticks with no dirty rows scatter a
         # zero row there instead of disturbing a live row's has chain.
         self._Rp = _round_rows(self._R + 1)
-        self._rotation.reset()
+        if self._meshrows is not None:
+            # Equal row blocks per shard; fresh per-shard rotation
+            # cursors (the old ones indexed the old partition).
+            self._Rp = self._meshrows.round_rows(self._Rp)
+            self._rotation.reset(self._meshrows.n_dev)
+        else:
+            self._rotation.reset()
         self._rids = np.full(self._Rp, -1, np.int32)
         for i, r in enumerate(rows):
             self._rids[i] = r.store._rid
@@ -208,17 +234,20 @@ class ResidentDenseSolver(TickEngineBase):
         self._K = K
         self._kfill = min(K, ceil_to(kmax, 8))
         dtype = self._dtype
-        self._wants = self._put(w.astype(dtype))
-        self._has = self._put(h.astype(dtype))
-        self._sub = self._put(s.astype(dtype))
-        self._act = self._put(act.astype(bool))
+        put = self._put if self._meshrows is None else self._put_rows
+        self._wants = put(w.astype(dtype))
+        self._has = put(h.astype(dtype))
+        self._sub = put(s.astype(dtype))
+        self._act = put(act.astype(bool))
         # The previous-grants table starts at the store's current has, in
         # the download dtype (the compare sees the bytes the host would).
-        self._prev = (
-            self._put(h.astype(dtype)).to(self._out_tdtype)
-            if self._track_deltas
-            else None
-        )
+        if not self._track_deltas:
+            self._prev = None
+        elif self._meshrows is None:
+            self._prev = self._put(h.astype(dtype)).to(self._out_tdtype)
+        else:
+            self._prev = [t.to(self._out_tdtype)
+                          for t in self._put_rows(h.astype(dtype))]
         self._uploaded_versions = versions
         self._config.reset(self._Rp)
         self._iter_src = None
@@ -388,11 +417,18 @@ class ResidentDenseSolver(TickEngineBase):
             self._just_rebuilt = False
             sel = np.arange(max(self._R, 1), dtype=np.int64)
         else:
-            parts = [order, self._rotation_rows(self._R)]
+            rot = self._rotation_rows(
+                self._R,
+                self._Rp // self._meshrows.n_dev if self._meshrows else 0,
+            )
+            parts = [order, rot]
             if len(config_changed):
                 parts.append(config_changed[config_changed < self._R])
             sel = np.unique(np.concatenate(parts))
         n_sel = len(sel)
+        if self._meshrows is not None:
+            return self._stage_mesh(order, is_full, w, h, s, act, sel, now,
+                                    ph, fwin, rows_hit, scope)
 
         kfill = self._kfill
         dtype = self._dtype
@@ -619,10 +655,265 @@ class ResidentDenseSolver(TickEngineBase):
     def _mask_rows(self, mask: torch.Tensor, n_rows: int, kfill: int):
         """A bool mask as {0,1} rows of the slab (download dtype)."""
         flat = torch.zeros(
-            n_rows * kfill, dtype=self._out_tdtype, device=self._device
+            n_rows * kfill, dtype=self._out_tdtype, device=mask.device
         )
         flat[: mask.shape[0]] = mask.to(self._out_tdtype)
         return flat.reshape(n_rows, kfill)
+
+    # -- the mesh tick -------------------------------------------------
+
+    def _shard_lane_rows(self, d: int, lanes: frozenset):
+        """Plain path only: each iterative lane's rows of shard d's real
+        rows, shard-local (the mesh analog of _full_lane_rows)."""
+        kind_h = self._config.kind_h
+        if kind_h is not self._iter_src:
+            self._iter_src = kind_h
+            Rl = self._Rp // self._meshrows.n_dev
+            self._iter_layout = []
+            for e in range(self._meshrows.n_dev):
+                kinds = kind_h[e * Rl: min((e + 1) * Rl, self._R)]
+                layout, pos = _iter_positions(kinds, lanes)
+                self._iter_layout.append(
+                    (layout, torch.from_numpy(pos) if pos is not None
+                     else None))
+        return _lane_rows(*self._iter_layout[d])
+
+    def _stage_mesh(self, order, is_full, w, h, s, act, sel, now, ph,
+                    fwin, rows_hit, scope):
+        """The mesh tail of the launch: this tick's row scatters, scope
+        and delivery set grouped by owning shard (shard-local indices,
+        padded per shard to one width; padded slots are never read), one
+        staged buffer and one host->device copy per device group (its
+        shards' blocks only), then per shard the scatters, K1 over its
+        scope rows or its whole table (K2 on a tracked full tick), and
+        its delivered rows; each group's delivery lands as one slab."""
+        mr = self._meshrows
+        n_dev = mr.n_dev
+        Rl = self._Rp // n_dev
+        kfill = self._kfill
+        dtype = self._dtype
+        owner_a = order // Rl
+        counts_a, (a_idx_l, a_w_l) = group_by_shard(
+            owner_a, n_dev, [order - owner_a * Rl, w[:, :kfill]]
+        )
+        f_pos = np.nonzero(is_full)[0]
+        rows_f = order[f_pos]
+        owner_f = rows_f // Rl
+        counts_f, (f_idx_l, f_h_l, f_s_l, f_a_l) = group_by_shard(
+            owner_f, n_dev,
+            [rows_f - owner_f * Rl, h[f_pos, :kfill], s[f_pos, :kfill],
+             act[f_pos, :kfill]],
+        )
+        # sel is sorted, so the stable grouping keeps its order exactly:
+        # the handle's global bookkeeping needs no permutation.
+        owner_sel = sel // Rl
+        counts_sel, (sel_l,) = group_by_shard(
+            owner_sel, n_dev, [sel - owner_sel * Rl]
+        )
+        Da = ceil_to(int(counts_a.max()), 8)
+        Df = ceil_to(int(counts_f.max()), 8)
+        Sb = ceil_to(int(counts_sel.max()), 8)
+        a_idx_b, a_w_b, f_idx_b, f_h_b, f_s_b, f_a_b = (
+            pad_shard_blocks(counts_a, Da, [(a_idx_l, 0),
+                                            (a_w_l.astype(dtype), 0)])
+            + pad_shard_blocks(counts_f, Df, [
+                (f_idx_l, 0), (f_h_l.astype(dtype), 0),
+                (f_s_l.astype(dtype), 0), (f_a_l.astype(bool), False)])
+        )
+        use_bf16 = bf16_exact(a_w_b)
+        f_block = np.stack([f_h_b, f_s_b], axis=1)  # [n_dev, 2, Df, k]
+        idx_host = np.concatenate(
+            [a_idx_b, f_idx_b, pad_shard_indices(counts_sel, Sb, sel_l)],
+            axis=1,
+        ).astype(np.int32)
+        counts_c = None
+        Cb = 0
+        if scope is not None:
+            # Per-shard scoped extents: the sorted global scope groups
+            # into contiguous shard-local blocks.
+            owner_c = scope // Rl
+            counts_c, (scope_l,) = group_by_shard(
+                owner_c, n_dev, [scope - owner_c * Rl]
+            )
+            Cb = ceil_to(int(counts_c.max()), 8)
+            (scope_b,) = pad_shard_blocks(counts_c, Cb, [(scope_l, 0)])
+            scope_b = scope_b.astype(np.int32)
+        itemsize = dtype.itemsize
+        ph.shard_bytes(
+            "upload",
+            counts_a * (kfill * itemsize + 4)
+            + counts_f * (kfill * (2 * itemsize + 1) + 4)
+            + counts_sel * 4
+            + (counts_c * 4 if counts_c is not None else 0),
+        )
+        ph.shard_bytes(
+            "download",
+            counts_sel * kfill * self._out_tdtype.itemsize,
+        )
+        lanes = self._config.lanes()
+        plain = self._device.type == "cpu"
+        tdt = self._tdtype
+        track = self._track_deltas
+        fused = self._fused
+        parts = []
+        for dev, first, n in mr.groups:
+            grp = slice(first, first + n)
+            blocks = [
+                idx_host[grp],
+                bf16_bytes(a_w_b[grp]).view(np.int16) if use_bf16
+                else a_w_b[grp],
+                f_block[grp],
+                f_a_b[grp],
+            ]
+            if scope is not None:
+                blocks.append(scope_b[grp])
+            if fused:
+                # One buffer, one host->device copy for the group; every
+                # block's byte offset is a multiple of its element size
+                # (each block's width is a multiple of 8).
+                buf_d = place(
+                    np.concatenate([np.ascontiguousarray(b).view(np.uint8)
+                                    .ravel() for b in blocks]), dev)
+                o = 0
+                views = []
+                for b in blocks:
+                    nbytes = b.size * b.itemsize
+                    views.append(buf_d[o: o + nbytes])
+                    o += nbytes
+                idx, a_w_d, f_block_d, f_act_d = (
+                    views[0].view(torch.int32), views[1], views[2],
+                    views[3])
+                scope_d = (views[4].view(torch.int32)
+                           if scope is not None else None)
+            else:
+                idx, a_w_d, f_block_d, f_act_d = (
+                    place(b, dev) for b in blocks[:4])
+                scope_d = None
+            idx = idx.reshape(n, -1).long()
+            a_w_d = a_w_d.view(torch.bfloat16 if use_bf16 else tdt).reshape(
+                n, Da, kfill).to(tdt)
+            f_block_d = f_block_d.view(tdt).reshape(n, 2, Df, kfill)
+            f_act_d = (f_act_d.view(torch.uint8) != 0).reshape(n, Df, kfill)
+            if scope_d is not None:
+                scope_d = scope_d.reshape(n, Cb)
+            outs, changed, moved = [], [], []
+            for i in range(n):
+                d = first + i
+                ca, cf, cs = (int(counts_a[d]), int(counts_f[d]),
+                              int(counts_sel[d]))
+                a_i = idx[i, :ca]
+                f_i = idx[i, Da:Da + cf]
+                sel_i = idx[i, Da + Df:Da + Df + cs]
+                self._wants[d][a_i, :kfill] = a_w_d[i, :ca]
+                self._has[d][f_i, :kfill] = f_block_d[i, 0, :cf]
+                self._sub[d][f_i, :kfill] = f_block_d[i, 1, :cf]
+                self._act[d][f_i, :kfill] = f_act_d[i, :cf]
+                batch = self._shard_batch(d)
+                out, ch, mv = self._solve_shard(
+                    d, batch, sel_i, lanes, plain,
+                    scope_d[i, :int(counts_c[d])] if scope is not None
+                    else None,
+                    scope[int(counts_c[:d].sum()):][:int(counts_c[d])]
+                    if scope is not None else None,
+                )
+                outs.append(out)
+                if ch is not None:
+                    changed.append(ch)
+                if mv is not None:
+                    moved.append(mv)
+            slab = [torch.cat(outs)]
+            if track:
+                ch = torch.cat(changed)
+                slab.append(self._mask_rows(ch, -(-ch.shape[0] // kfill),
+                                            kfill))
+            if scope is not None:
+                mv = torch.cat(moved)
+                slab.append(self._mask_rows(mv, -(-mv.shape[0] // kfill),
+                                            kfill))
+            count_launch()
+            parts.append(transfer.start_download(torch.cat(slab)))
+        ph.lap("fused" if fused else "solve")
+        self.last_fused = {"windows": fwin, "rows": rows_hit}
+        cfg = self._config
+        return TickHandle(
+            out=None,
+            sel_rows=sel,
+            rids=self._rids[sel],
+            versions=self._uploaded_versions[sel],
+            keep_has=cfg.learn_h[sel].astype(np.uint8),
+            n_sel=len(sel),
+            dispatched_at=now,
+            fused_windows=fwin,
+            fused_rows=rows_hit,
+            scope_ids=scope,
+            seq=self._seq,
+            parts=parts,
+            shard_counts=counts_sel,
+            scope_counts=counts_c,
+            tracked=track,
+        )
+
+    def _shard_batch(self, d: int) -> DenseBatch:
+        cfg = self._config
+        return DenseBatch(
+            wants=self._wants[d], has=self._has[d], subclients=self._sub[d],
+            active=self._act[d], capacity=cfg.cap_d[d],
+            algo_kind=cfg.kind_d[d], learning=cfg.learn_d[d],
+            static_capacity=cfg.statc_d[d],
+        )
+
+    def _solve_shard(self, d, batch, sel_i, lanes, plain, rows_c, scope_g):
+        """Shard d's solve and delivery: (delivered rows in the download
+        dtype, changed mask or None, solve-moved mask or None). The
+        single-device tick's arithmetic on the shard's rows."""
+        kfill = self._kfill
+        out_dt = self._out_tdtype
+        dev = batch.wants.device
+        if rows_c is not None:
+            moved = torch.zeros(0, dtype=torch.bool, device=dev)
+            if rows_c.shape[0]:
+                lane_rows = None
+                if plain:
+                    layout, pos = _iter_positions(
+                        self._config.kind_h[scope_g], lanes)
+                    lane_rows = _lane_rows(
+                        layout, torch.from_numpy(pos) if pos is not None
+                        else None)
+                h_c = self._has[d][rows_c.long()]
+                gets_c = solve_dense_k1(batch, rows=rows_c, lanes=lanes,
+                                        lane_rows=lane_rows)
+                self._count_shard("k1", d, dev)
+                moved = (gets_c != h_c).any(dim=1)
+                self._has[d].index_copy_(0, rows_c.long(), gets_c)
+            out = self._has[d][sel_i, :kfill].to(out_dt)
+            changed = None
+            if self._track_deltas:
+                changed = (out != self._prev[d][sel_i, :kfill]).any(dim=1)
+                self._prev[d][sel_i, :kfill] = out
+            return out, changed, moved
+        lane_rows = self._shard_lane_rows(d, lanes) if plain else None
+        if self._track_deltas and self._fused:
+            delivered = torch.zeros(batch.wants.shape[0], dtype=torch.bool,
+                                    device=dev)
+            delivered[sel_i] = True
+            gets, self._prev[d], changed_rows = fused_tick_k2(
+                batch, self._prev[d], delivered, lanes=lanes,
+                lane_rows=lane_rows,
+            )
+            self._count_shard("k2", d, dev)
+            self._has[d] = gets
+            return gets[sel_i, :kfill].to(out_dt), changed_rows[sel_i], None
+        gets = solve_dense_k1(batch, lanes=lanes, lane_rows=lane_rows)
+        self._count_shard("k1", d, dev)
+        # `gets` IS the next tick's has: grants chain on device.
+        self._has[d] = gets
+        out = gets[sel_i, :kfill].to(out_dt)
+        changed = None
+        if self._track_deltas:
+            # The round-trip tick compares in plain ops, as on one device.
+            changed = (out != self._prev[d][sel_i, :kfill]).any(dim=1)
+            self._prev[d][sel_i, :kfill] = out
+        return out, changed, None
 
     def _apply_grants(self, handle: TickHandle, gets: np.ndarray) -> int:
         return self._engine.apply_dense(

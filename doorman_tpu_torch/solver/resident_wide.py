@@ -1,6 +1,6 @@
 """Device-resident tick solver for WIDE resources, the chunked layout
-(port of doorman_tpu/solver/resident_wide.py on one device: the fused
-tick and the round-trip tick).
+(port of doorman_tpu/solver/resident_wide.py: the fused tick and the
+round-trip tick, on one device or row-sharded over a mesh).
 
 Doorman's headline shape is ONE shared resource with a huge client
 population. The narrow resident solver (solver.resident) maps one
@@ -46,6 +46,17 @@ The round-trip tick (fused=False) places each staged block on its own
 and solves the full table every tick (scope reason "round-trip"): the
 same scatters and the same chunked solve, so byte-identical stores.
 
+With `mesh=` (a parallel.mesh Mesh) the chunk rows shard over the
+mesh's shards and chunks straddle shard boundaries. Each device group
+(the shards one device holds, one row block) stages one buffer and one
+host->device copy a tick, scatters its slots with shard-local indices
+and runs the chunked solve over its rows; per-segment totals come from
+parallel.sharded.resident_chunk_reduces (scoped ticks:
+scoped_chunk_reduces): each group writes its per-row totals into the
+GLOBAL row vector at its own offset, the mesh combine adds disjoint
+supports, and every group runs the same sorted segment op — so the
+stores are byte-identical to the single-device tick.
+
 Write-back safety: chunk membership versions are read after the slot
 drain and before the pack (StoreEngine.chunk_versions), so an apply's
 expected version can lag the device state but never lead it — a
@@ -77,9 +88,17 @@ from doorman_tpu_torch.solver.engine import (
     ceil_to,
     compact_index_dtype,
     count_launch,
+    place,
     pow2_bucket,
 )
+from doorman_tpu_torch.solver.lanes import solve_lanes
 from doorman_tpu_torch.solver.resident import DENSE_MAX_K, _round_rows
+from doorman_tpu_torch.solver.resident_mesh import (
+    group_by_shard,
+    mesh_device,
+    pad_shard_blocks,
+    pad_shard_indices,
+)
 from doorman_tpu_torch.utils import transfer
 from doorman_tpu_torch.utils.backend import resolve_device
 
@@ -95,6 +114,7 @@ class WideResidentSolver(TickEngineBase):
     device="cpu" to run the solve on the host."""
 
     component = "resident_wide"
+    replicated_config = True  # per-segment config
 
     def __init__(
         self,
@@ -102,6 +122,7 @@ class WideResidentSolver(TickEngineBase):
         *,
         dtype=np.float32,
         device="cuda",
+        mesh=None,
         clock: Callable[[], float] = time.time,
         rotate_ticks: "int | None" = None,
         tick_interval: "float | None" = None,
@@ -113,7 +134,9 @@ class WideResidentSolver(TickEngineBase):
         super().__init__(
             engine,
             dtype=dtype,
-            device=resolve_device(device),
+            device=mesh_device(mesh) if mesh is not None
+            else resolve_device(device),
+            mesh=mesh,
             clock=clock,
             rotate_ticks=rotate_ticks,
             tick_interval=tick_interval,
@@ -155,7 +178,13 @@ class WideResidentSolver(TickEngineBase):
         self._R = int(self._base_row[-1])
         # +1 reserves a padding row for no-op scatters.
         self._Rp = _round_rows(self._R + 1)
-        self._rotation.reset()
+        if self._meshrows is not None:
+            # Equal chunk-row blocks per shard; fresh per-shard rotation
+            # cursors (the old ones indexed the old layout).
+            self._Rp = self._meshrows.round_rows(self._Rp)
+            self._rotation.reset(self._meshrows.n_dev)
+        else:
+            self._rotation.reset()
         # Flat device indices (slot s of the segment at row b lives at
         # b*W + s): int32 halves the index-upload bytes when it fits.
         self._idx_dtype = compact_index_dtype((self._Rp + 1) * W)
@@ -188,12 +217,22 @@ class WideResidentSolver(TickEngineBase):
         )
         dtype = self._dtype
         pad = ((0, self._Rp - self._R), (0, 0))
-        self._wants = self._put(np.pad(w, pad).astype(dtype))
-        self._has = self._put(np.pad(h, pad).astype(dtype))
-        self._sub = self._put(np.pad(s, pad).astype(dtype))
-        self._act = self._put(np.pad(act, pad).astype(bool))
-        self._row_seg_d = self._put(self._row_seg_h.astype(np.int64))
-        self._seg_len_d = self._put(seg_len.astype(np.int64))
+        # Mesh: one row block per device group (its shards' rows).
+        put = self._put if self._meshrows is None else self._put_groups
+        self._wants = put(np.pad(w, pad).astype(dtype))
+        self._has = put(np.pad(h, pad).astype(dtype))
+        self._sub = put(np.pad(s, pad).astype(dtype))
+        self._act = put(np.pad(act, pad).astype(bool))
+        if self._meshrows is None:
+            self._row_seg_d = self._put(self._row_seg_h.astype(np.int64))
+            self._seg_len_d = self._put(seg_len.astype(np.int64))
+        else:
+            # Every group runs the segment op over the whole row vector:
+            # the global row->segment map and lengths on each device,
+            # beside the group's own rows' segments.
+            self._row_seg_d = self._put_rep(self._row_seg_h.astype(np.int64))
+            self._seg_len_d = self._put_rep(seg_len.astype(np.int64))
+            self._row_seg_g = self._put_groups(self._row_seg_h.astype(np.int64))
         self._config.reset(self._Sp)
         self._refresh_config(res, self._config._epoch, self._clock())
         self._just_rebuilt = True
@@ -306,7 +345,10 @@ class WideResidentSolver(TickEngineBase):
             }
         else:
             self.last_scope = {"rows": self._R, "resources": self._S}
-        rot = self._rotation_rows(self._R)
+        rot = self._rotation_rows(
+            self._R,
+            self._Rp // self._meshrows.n_dev if self._meshrows else 0,
+        )
         # Delivery set (chunk rows): full-dirty rows and config-changed
         # segments always deliver same-tick; wants-dirty rows only while
         # the set stays small (beyond the budget the rotation covers
@@ -371,6 +413,11 @@ class WideResidentSolver(TickEngineBase):
         if n_sel:
             keep = self._config.learn_h[self._row_seg_h[sel]].astype(np.uint8)
         ph.lap("pack")
+        if self._meshrows is not None:
+            return self._stage_mesh(
+                (w_idx, w_val, f_idx, f_w, f_h, f_s, f_a), sel, sel_rids,
+                sel_chunks, versions, keep, now, ph, scope,
+            )
 
         Dw = ceil_to(n_w, 1024)
         Df = ceil_to(n_f, 256)
@@ -546,6 +593,234 @@ class WideResidentSolver(TickEngineBase):
         handle.out = transfer.start_download(slab)
         ph.lap("solve")
         return handle
+
+    # -- the mesh tick -------------------------------------------------
+
+    def _stage_mesh(self, packed, sel, sel_rids, sel_chunks, versions, keep,
+                    now, ph, scope):
+        """The mesh tail of the launch: slot scatters and the delivery
+        set grouped by owning shard (shard-local indices, padded per
+        shard to one width; padded slots are never read), one staged
+        buffer and one host->device copy per device group, the chunked
+        solve per group in lockstep with the bit-exact combine, and one
+        delivery slab per group."""
+        w_idx, w_val, f_idx, f_w, f_h, f_s, f_a = packed
+        mr = self._meshrows
+        n_dev = mr.n_dev
+        W = self._W
+        Rl = self._Rp // n_dev
+        span = Rl * W
+        idt = self._idx_dtype
+        ow = w_idx // span
+        counts_w, (w_idx_l, w_val_l) = group_by_shard(
+            ow, n_dev, [w_idx - ow * span, w_val])
+        of = f_idx // span
+        counts_f, f_cols = group_by_shard(
+            of, n_dev, [f_idx - of * span, f_w, f_h, f_s, f_a])
+        # sel is sorted, so the stable grouping keeps its order exactly.
+        owner_sel = sel // Rl
+        counts_sel, (sel_l,) = group_by_shard(
+            owner_sel, n_dev, [sel - owner_sel * Rl])
+        Dw = ceil_to(int(counts_w.max()), 8)
+        Df = ceil_to(int(counts_f.max()), 8)
+        Sb = ceil_to(int(counts_sel.max()), 8)
+        w_idx_b, w_val_b = pad_shard_blocks(
+            counts_w, Dw, [(w_idx_l.astype(idt), 0), (w_val_l, 0)])
+        use_bf16 = bf16_exact(w_val_b)
+        f_idx_b, f_w_b, f_h_b, f_s_b, f_a_b = pad_shard_blocks(
+            counts_f, Df, [(f_cols[0].astype(idt), 0), (f_cols[1], 0),
+                           (f_cols[2], 0), (f_cols[3], 0), (f_cols[4], False)])
+        sel_b = pad_shard_indices(counts_sel, Sb, sel_l).astype(np.int32)
+        itemsize = self._dtype.itemsize
+        idx_bytes = np.dtype(idt).itemsize
+        ph.shard_bytes(
+            "upload",
+            counts_w * (idx_bytes + itemsize)
+            + counts_f * (idx_bytes + 3 * itemsize + 1)
+            + counts_sel * 4,
+        )
+        ph.shard_bytes(
+            "download", counts_sel * W * self._out_tdtype.itemsize)
+        scope_plan = self._mesh_scope(scope, Rl) if scope is not None else None
+        tdt = self._tdtype
+        it_t = torch.int32 if idt == np.int32 else torch.int64
+        cfg = self._config
+        lanes = cfg.lanes()
+        staged = []
+        for gi, (dev, first, n) in enumerate(mr.groups):
+            grp = slice(first, first + n)
+            blocks = [
+                w_idx_b[grp],
+                bf16_bytes(w_val_b[grp]).view(np.int16) if use_bf16
+                else w_val_b[grp],
+                f_idx_b[grp], f_w_b[grp], f_h_b[grp], f_s_b[grp],
+                sel_b[grp], f_a_b[grp],
+            ]
+            if self._fused:
+                # One buffer, one host->device copy for the group; block
+                # widths are multiples of 8, so every offset is aligned.
+                buf_d = place(np.concatenate(
+                    [np.ascontiguousarray(b).view(np.uint8).ravel()
+                     for b in blocks]), dev)
+                views, o = [], 0
+                for b in blocks:
+                    views.append(buf_d[o: o + b.size * b.itemsize])
+                    o += b.size * b.itemsize
+            else:
+                views = [place(b, dev).view(torch.uint8).reshape(-1)
+                         for b in blocks]
+            w_i = views[0].view(it_t).reshape(n, Dw).long()
+            w_v = views[1].view(torch.bfloat16 if use_bf16 else tdt).reshape(
+                n, Dw).to(tdt)
+            f_i = views[2].view(it_t).reshape(n, Df).long()
+            f_wv, f_hv, f_sv = (v.view(tdt).reshape(n, Df)
+                                for v in views[3:6])
+            sel_i = views[6].view(torch.int32).reshape(n, Sb).long()
+            f_av = (views[7] != 0).reshape(n, Df)
+            wants, has = self._wants[gi].view(-1), self._has[gi].view(-1)
+            sub, act = self._sub[gi].view(-1), self._act[gi].view(-1)
+            for i in range(n):
+                d = first + i
+                cw, cf = int(counts_w[d]), int(counts_f[d])
+                base = i * span  # the shard's slots in the group's block
+                wants[base + w_i[i, :cw]] = w_v[i, :cw]
+                fi = base + f_i[i, :cf]
+                wants[fi] = f_wv[i, :cf]
+                has[fi] = f_hv[i, :cf]
+                sub[fi] = f_sv[i, :cf]
+                act[fi] = f_av[i, :cf]
+            staged.append(sel_i)
+        ph.lap("staging")
+
+        if scope_plan is None:
+            def body(g):
+                return self._solve_group_full(g, lanes)
+        else:
+            def body(g):
+                return self._solve_group_scoped(g, lanes, scope_plan)
+        results = self._combine.run(body)
+        out_dt = self._out_tdtype
+        parts = []
+        moved_rows = 0
+        for gi, (dev, first, n) in enumerate(mr.groups):
+            moved_seg = results[gi]
+            has = self._has[gi]
+            rows = [has[i * Rl + staged[gi][i, :int(counts_sel[first + i])]]
+                    for i in range(n)]
+            slab = [torch.cat(rows).to(out_dt)]
+            if moved_seg is not None and gi == 0:
+                Scb = moved_seg.shape[0]
+                moved_rows = -(-Scb // W)
+                mvd = torch.zeros(moved_rows * W, dtype=out_dt, device=dev)
+                mvd[:Scb] = moved_seg.to(out_dt)
+                slab.append(mvd.reshape(moved_rows, W))
+            count_launch()
+            parts.append(transfer.start_download(torch.cat(slab)))
+        ph.lap("fused" if self._fused else "solve")
+        return TickHandle(
+            out=None,
+            sel_rows=sel,
+            rids=sel_rids,
+            versions=versions,
+            keep_has=keep,
+            n_sel=len(sel),
+            dispatched_at=now,
+            chunks=sel_chunks,
+            scope_ids=scope,
+            moved_rows=moved_rows,
+            seq=self._seq,
+            parts=parts,
+            shard_counts=counts_sel,
+        )
+
+    def _solve_group_full(self, g: int, lanes):
+        """Device group g's full chunked solve over its rows, with the
+        bit-exact cross-shard reduction; grants chain into has."""
+        from doorman_tpu_torch.parallel.sharded import resident_chunk_reduces
+
+        _dev, first, _n = self._meshrows.groups[g]
+        Rl = self._Rp // self._meshrows.n_dev
+        cfg = self._config
+        segsum, segmax = resident_chunk_reduces(
+            self._combine, g, self._row_seg_d[g], self._seg_len_d[g],
+            first * Rl, self._Rp,
+        )
+        seg = self._row_seg_g[g]
+        self._has[g] = solve_lanes(
+            self._wants[g], self._has[g], self._sub[g], self._act[g],
+            cfg.cap_d[g], cfg.kind_d[g], cfg.learn_d[g], cfg.statc_d[g],
+            segsum=segsum, segmax=segmax,
+            expand=lambda totals: totals[seg][:, None], lanes=lanes,
+        )
+        return None
+
+    def _mesh_scope(self, scope: np.ndarray, Rl: int) -> dict:
+        """The scoped tick's compact layout over the mesh: the closure's
+        chunk rows (global order), its compact segment map, the scoped
+        segment ids and lengths — the single-device tick's — and per
+        device group its local scoped rows and their global compact
+        positions. A group's gather pads to the pow2 bucket of its row
+        count (padding rows repeat a real one and are never written
+        back), so on a one-device mesh the compact shapes are the single
+        device's."""
+        scope_rows = self._scope_rows(scope)
+        Cbg = min(pow2_bucket(max(len(scope_rows), 1), 8), self._Rp)
+        Scb = pow2_bucket(len(scope) + 1, 8)
+        row_seg_cg = np.full(Cbg, Scb - 1, np.int64)
+        row_seg_cg[: len(scope_rows)] = np.repeat(
+            np.arange(len(scope), dtype=np.int64), self._n_chunks[scope])
+        seg_ids = np.full(Scb, self._Sp - 1, np.int64)
+        seg_ids[: len(scope)] = scope
+        seg_len = np.bincount(row_seg_cg, minlength=Scb).astype(np.int64)
+        host = np.concatenate([row_seg_cg, seg_ids, seg_len])
+        groups = []
+        for dev, first, n in self._meshrows.groups:
+            lo, hi = first * Rl, (first + n) * Rl
+            pos = np.nonzero((scope_rows >= lo) & (scope_rows < hi))[0]
+            rows_l = scope_rows[pos] - lo
+            count = len(rows_l)
+            Cbl = min(pow2_bucket(max(count, 1), 8), n * Rl)
+            gather = np.resize(rows_l, Cbl) if count else np.zeros(Cbl, np.int64)
+            block = place(np.concatenate([host, gather, pos]), dev)
+            groups.append(dict(
+                row_seg=block[:Cbg], seg_ids=block[Cbg:Cbg + Scb],
+                seg_len=block[Cbg + Scb:Cbg + 2 * Scb],
+                gather=block[Cbg + 2 * Scb:Cbg + 2 * Scb + Cbl],
+                gpos=block[Cbg + 2 * Scb + Cbl:], count=count,
+            ))
+        return dict(Cbg=Cbg, Scb=Scb, groups=groups)
+
+    def _solve_group_scoped(self, g: int, lanes, plan: dict):
+        """Device group g's scoped solve: its scoped rows gathered,
+        solved with the scoped cross-shard reduction, written back into
+        has; returns the per-segment moved mask [Scb]."""
+        from doorman_tpu_torch.parallel.sharded import scoped_chunk_reduces
+
+        sp = plan["groups"][g]
+        cfg = self._config
+        count = sp["count"]
+        rows = sp["gather"]
+        segsum, segmax = scoped_chunk_reduces(
+            self._combine, g, sp["gpos"], sp["row_seg"], sp["seg_len"],
+            plan["Cbg"], count,
+        )
+        seg_l = sp["row_seg"][sp["gpos"]]
+        if rows.shape[0] > count:
+            seg_l = torch.cat([seg_l, seg_l.new_full(
+                (rows.shape[0] - count,), plan["Scb"] - 1)])
+        sid = sp["seg_ids"]
+        h_c = self._has[g][rows]
+        gets_c = solve_lanes(
+            self._wants[g][rows], h_c, self._sub[g][rows], self._act[g][rows],
+            cfg.cap_d[g][sid], cfg.kind_d[g][sid], cfg.learn_d[g][sid],
+            cfg.statc_d[g][sid],
+            segsum=segsum, segmax=segmax,
+            expand=lambda totals: totals[seg_l][:, None], lanes=lanes,
+        )
+        moved = segsum(
+            (gets_c != h_c).any(dim=1).to(self._tdtype)[:, None]) > 0
+        self._has[g].index_copy_(0, rows[:count], gets_c[:count])
+        return moved
 
     def _apply_grants(self, handle: TickHandle, gets: np.ndarray) -> int:
         return self._engine.apply_chunks(

@@ -39,9 +39,9 @@ def _imported_modules(path: Path):
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
-    # The port's 128 modules and chip_smoke.py: a slice that drops one
+    # The port's 134 modules and chip_smoke.py: a slice that drops one
     # is noticed here.
-    assert len(files) >= 129
+    assert len(files) >= 135
     names = {str(f.relative_to(ROOT)) for f in files}
     for mod in ("obs/audit", "obs/debug", "obs/detect", "obs/flightrec",
                 "obs/history", "obs/metrics", "obs/phases", "obs/requests",
@@ -73,7 +73,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 "sim/reporter", "sim/scenarios", "sim/varz",
                 "workload/spec", "workload/generators",
                 "workload/population", "workload/harness",
-                "workload/scenarios", "cmd/workload"):
+                "workload/scenarios", "cmd/workload",
+                "parallel/__init__", "parallel/mesh", "parallel/combine",
+                "parallel/sharded", "parallel/multihost",
+                "solver/resident_mesh"):
         assert f"doorman_tpu_torch/{mod}.py" in names, mod
     bad = []
     for path in files:
@@ -87,7 +90,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 @pytest.mark.parametrize(
     "entry", ["solver", "server", "cmd", "device", "aggregate",
               "intermediate", "forecast", "matcher", "chaos", "cmd_chaos",
-              "workload", "run_scenario", "cmd_workload"]
+              "workload", "run_scenario", "cmd_workload", "mesh"]
 )
 def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
     entry, tmp_path
@@ -112,6 +115,7 @@ def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
     from doorman_tpu_torch.solver.resident import ResidentDenseSolver
     from doorman_tpu_torch.utils.backend import resolve_device
     from doorman_tpu_torch.cmd import workload as cmd_workload
+    from doorman_tpu_torch.parallel import make_mesh_from_spec
     from doorman_tpu_torch.workload import run_scenario
     from doorman_tpu_torch.workload.forecast import SeasonalForecaster
     from doorman_tpu_torch.workload.harness import WorkloadRunner
@@ -148,6 +152,10 @@ def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
                 + (["--device", kw["device"]] if kw else [])
             )
         )),
+        # 'auto' takes the visible CUDA devices; CPU shards only when
+        # the caller names them.
+        "mesh": lambda **kw: make_mesh_from_spec(
+            "auto", [torch.device(kw["device"])] * 2 if kw else None),
         "workload": lambda **kw: WorkloadRunner(
             SCENARIOS["rolling_deploy"](), **kw
         ),
@@ -181,7 +189,8 @@ def test_entry_points_default_to_cuda_and_run_on_cpu_only_when_asked(
         assert verdict["ok"], verdict["slo"]
     else:
         got = make(device="cpu")
-        dev = {"device": got, "matcher": getattr(got, "_device", None)}.get(
+        dev = {"device": got, "matcher": getattr(got, "_device", None),
+               "mesh": getattr(got, "flat_devices", [None])[0]}.get(
             entry, getattr(got, "device", None))
         assert dev == torch.device("cpu")
 

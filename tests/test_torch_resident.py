@@ -9,8 +9,9 @@ After every tick the stores must hold IDENTICAL leases (exact float
 equality: the port's plain solve adds rows left to right at these
 widths, as XLA's CPU reduction does) and the delta-tracking changed-rid
 streams must be equal — for the scoped tick (also with the window-time
-pack cache attached), the full fused tick and the tracked full tick.
-f64, the reference's parity dtype.
+pack cache attached), the full fused tick and the tracked full tick —
+and the scoped and tracked full ticks again on an 8-shard mesh against
+the JAX package's mesh solver. f64, the reference's parity dtype.
 """
 
 import numpy as np
@@ -93,6 +94,10 @@ MODES = {
     "scoped_staged": dict(scoped=True, track=False, staged=True),
     "full_fused": dict(scoped=False, track=False),
     "full_tracked": dict(scoped=False, track=True),
+    # The mesh legs: the port's 8-shard CPU mesh against the JAX
+    # package's 8 virtual CPU devices (per-shard rotation on both).
+    "scoped_mesh": dict(scoped=True, track=True, mesh=True),
+    "full_tracked_mesh": dict(scoped=False, track=True, mesh=True),
 }
 
 
@@ -103,10 +108,18 @@ def test_port_resident_matches_reference_tick_for_tick(mode):
     clock = lambda: t[0]  # noqa: E731
     eng_j, res_j = make_world(clock, jnative, JResource)
     eng_t, res_t = make_world(clock, tnative, TResource)
+    if cfg.get("mesh"):
+        from doorman_tpu.parallel import make_mesh as jmake_mesh
+        from doorman_tpu_torch.parallel import make_mesh
+
+        on_j = dict(mesh=jmake_mesh())
+        on_t = dict(mesh=make_mesh(devices=[torch.device("cpu")] * 8))
+    else:
+        on_j, on_t = {}, dict(device="cpu")
     ref = JSolver(eng_j, dtype=np.float64, clock=clock, rotate_ticks=2,
-                  scoped=cfg["scoped"])
+                  scoped=cfg["scoped"], **on_j)
     port = TSolver(eng_t, dtype=np.float64, clock=clock, rotate_ticks=2,
-                   scoped=cfg["scoped"], device="cpu")
+                   scoped=cfg["scoped"], **on_t)
     if cfg["track"]:
         assert ref.enable_delta_tracking() and port.enable_delta_tracking()
     if cfg.get("staged"):

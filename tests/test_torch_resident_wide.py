@@ -19,6 +19,7 @@
 
 import numpy as np
 import pytest
+import torch
 
 import tests.conftest  # noqa: F401
 
@@ -402,18 +403,32 @@ def test_drain_remove_pack_interleaving_converges():
     assert_close(all_leases(res_a), all_leases(res_b))
 
 
-@pytest.mark.parametrize("scoped", [True, False], ids=["scoped", "fused"])
-def test_port_wide_matches_reference_tick_for_tick(scoped):
+@pytest.mark.parametrize(
+    "scoped,mesh", [(True, False), (False, False), (True, True),
+                    (False, True)],
+    ids=["scoped", "fused", "scoped_mesh", "fused_mesh"],
+)
+def test_port_wide_matches_reference_tick_for_tick(scoped, mesh):
+    """The mesh legs: the port's 8-shard CPU mesh against the JAX
+    package's 8 virtual CPU devices, chunks straddling shards."""
     t = [1000.0]
     clock = lambda: t[0]  # noqa: E731
     eng_j, res_j = make_world(clock, n_res=5, seed=21, engine_mod=jnative,
                               resource_cls=JResource, proto=jpb)
     eng_t, res_t = make_world(clock, n_res=5, seed=21)
+    if mesh:
+        from doorman_tpu.parallel import make_mesh as jmake_mesh
+        from doorman_tpu_torch.parallel import make_mesh
+
+        on_j = dict(mesh=jmake_mesh())
+        on_t = dict(mesh=make_mesh(devices=[torch.device("cpu")] * 8))
+    else:
+        on_j, on_t = {}, dict(device="cpu")
     ref = JWide(eng_j, dtype=np.float64, clock=clock, rotate_ticks=3,
-                chunk_width=8, scoped=scoped)
+                chunk_width=8, scoped=scoped, **on_j)
     port = WideResidentSolver(eng_t, dtype=np.float64, clock=clock,
                               rotate_ticks=3, chunk_width=8, scoped=scoped,
-                              device="cpu")
+                              **on_t)
     rng_j, rng_t = (np.random.default_rng(99) for _ in range(2))
     modes = []
     for step in range(14):

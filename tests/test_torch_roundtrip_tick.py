@@ -5,7 +5,8 @@ resident solvers on the CPU (device="cpu", K1's plain version).
     tick of a churn stream that mixes bf16-exact and non-exact wants:
     byte-identical, narrow (untracked and delta-tracked, with equal
     changed-rid streams) and wide, at f64 and f32 (as the reference's
-    tests/test_fused_tick.py:67 pins its own two tails);
+    tests/test_fused_tick.py:67 pins its own two tails), and both again
+    on an 8-shard CPU mesh (the reference's mesh legs there);
   * against the JAX package's round-trip tick, tick for tick on each
     package's own native store: identical stores, the same solve mode
     and changed rids (f64, the reference's parity dtype);
@@ -16,6 +17,7 @@ resident solvers on the CPU (device="cpu", K1's plain version).
 
 import numpy as np
 import pytest
+import torch
 
 import tests.conftest  # noqa: F401
 
@@ -26,6 +28,7 @@ from doorman_tpu.solver.resident import ResidentDenseSolver as JNarrow
 from doorman_tpu.solver.resident_wide import WideResidentSolver as JWide
 from doorman_tpu_torch import native as tnative
 from doorman_tpu_torch.core.resource import Resource as TResource
+from doorman_tpu_torch.parallel import make_mesh
 from doorman_tpu_torch.solver.engine import PHASES
 from doorman_tpu_torch.solver.resident import ResidentDenseSolver
 from doorman_tpu_torch.solver.resident_wide import WideResidentSolver
@@ -43,6 +46,7 @@ DTYPES = {"f64": np.float64, "f32": np.float32}
 
 
 def _world(path, clock, port=True):
+    path = path.removesuffix("_mesh")
     if path == "narrow":
         if port:
             return narrow_world(clock, tnative, TResource)
@@ -54,17 +58,22 @@ def _world(path, clock, port=True):
 
 
 def _port_solver(path, engine, clock, fused, dtype=np.float64):
-    if path == "narrow":
+    # "_mesh" paths shard the tables over an 8-shard CPU mesh.
+    on = dict(device="cpu")
+    if path.endswith("_mesh"):
+        on = dict(mesh=make_mesh(devices=[torch.device("cpu")] * 8))
+    if path.startswith("narrow"):
         return ResidentDenseSolver(engine, dtype=dtype, clock=clock,
-                                   rotate_ticks=2, fused=fused, device="cpu")
+                                   rotate_ticks=2, fused=fused, **on)
     return WideResidentSolver(engine, dtype=dtype, clock=clock,
                               rotate_ticks=2, chunk_width=8, fused=fused,
-                              device="cpu")
+                              **on)
 
 
 CASES = [
     ("narrow", False, "f64"), ("narrow", True, "f64"), ("wide", False, "f64"),
     ("narrow", False, "f32"), ("narrow", True, "f32"), ("wide", False, "f32"),
+    ("narrow_mesh", True, "f64"), ("wide_mesh", False, "f32"),
 ]
 
 
