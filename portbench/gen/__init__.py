@@ -1,0 +1,1 @@
+"""Part of the port's benchmark (see portbench/run.py)."""
