@@ -28,6 +28,7 @@ import numpy as np
 
 from doorman_tpu_torch.core.lease import Lease, ZERO_LEASE
 from doorman_tpu_torch.core.store import ClientLeaseStatus, ResourceLeaseStatus
+from doorman_tpu_torch.obs import trace as trace_mod
 
 log = logging.getLogger(__name__)
 
@@ -369,21 +370,28 @@ class StoreEngine:
     ) -> int:
         """Bulk demand refresh preserving each lease's current
         has/subclients/priority (a client refresh's store effect);
-        returns the number refreshed."""
-        rids = np.ascontiguousarray(rids, np.int32)
-        cids = np.ascontiguousarray(cids, np.int64)
-        expiry = np.ascontiguousarray(expiry, np.float64)
-        refresh = np.ascontiguousarray(refresh, np.float64)
-        wants = np.ascontiguousarray(wants, np.float64)
-        return int(
-            self._lib.dm_bulk_refresh(
-                self._ptr, rids.ctypes.data_as(_I32P),
-                cids.ctypes.data_as(_I64P),
-                expiry.ctypes.data_as(_F64P),
-                refresh.ctypes.data_as(_F64P),
-                wants.ctypes.data_as(_F64P), len(rids),
+        returns the number refreshed. Traced as `store.bulk_refresh`
+        with the count asked (`n`) and refreshed (`done`)."""
+        with trace_mod.default_tracer().span(
+            "store.bulk_refresh", cat="store"
+        ) as span:
+            rids = np.ascontiguousarray(rids, np.int32)
+            cids = np.ascontiguousarray(cids, np.int64)
+            expiry = np.ascontiguousarray(expiry, np.float64)
+            refresh = np.ascontiguousarray(refresh, np.float64)
+            wants = np.ascontiguousarray(wants, np.float64)
+            done = int(
+                self._lib.dm_bulk_refresh(
+                    self._ptr, rids.ctypes.data_as(_I32P),
+                    cids.ctypes.data_as(_I64P),
+                    expiry.ctypes.data_as(_F64P),
+                    refresh.ctypes.data_as(_F64P),
+                    wants.ctypes.data_as(_F64P), len(rids),
+                )
             )
-        )
+            if span is not None:
+                span.args = dict(span.args or (), n=len(rids), done=done)
+        return done
 
     def clean_all(self, now: "float | None" = None) -> int:
         """Engine-wide expiry sweep in one C call; returns removals."""

@@ -27,7 +27,9 @@ Design constraints, in order:
   * one time axis: all timestamps are microseconds of time.perf_counter
     relative to one process epoch — monotonic and comparable across
     threads, which wall clocks are not. (Cross-process traces align by
-    span parentage, not by ts.)
+    span parentage, not by ts.) A torch.profiler capture
+    (start_torch_capture) carries the spans it overlaps into its own
+    trace file, moved onto the profiler's axis by an anchor annotation.
 
 Unclosed spans are tracked: `open_spans()` returns whatever entered but
 never exited, and the tier-1 tests assert every instrumented path leaves
@@ -38,6 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import gc
 import itertools
 import json
 import os
@@ -49,9 +52,11 @@ from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 __all__ = [
     "KNOWN_INSTANT_NAMES",
     "KNOWN_SPAN_NAMES",
+    "PORT_SPAN_NAMES",
     "TRACE_METADATA_KEY",
     "Span",
     "SpanContext",
+    "TorchCapture",
     "Tracer",
     "default_tracer",
     "grpc_metadata",
@@ -128,6 +133,24 @@ KNOWN_INSTANT_NAMES = frozenset({
     # shard-side beat report installing its returned shares.
     "fleet.epoch",
     "fleet.report",
+})
+# Spans only this port records. Kept apart from KNOWN_SPAN_NAMES, which
+# stays equal to the reference package's (tests/test_torch_obs_parity.py
+# holds the two vocabularies equal), and named in full rather than
+# admitted by `server.*`, which stands for the RPC handler spans.
+PORT_SPAN_NAMES = frozenset({
+    # Children of server.tick after the solve: the shadow audit's
+    # sampling, the per-tick flight record and, inside it, the digest
+    # of every store's aggregates.
+    "server.audit",
+    "server.flight_record",
+    "server.store_digest",
+    # The native store taking one batch of client refreshes
+    # (StoreEngine.bulk_refresh); args n (asked) and done (refreshed).
+    "store.bulk_refresh",
+    # One full (generation 2) collection of Python's garbage collector;
+    # the process tracer records it while enabled (Tracer.gc_spans).
+    "python.gc",
 })
 
 # The process time axis: perf_counter at import. Chrome trace `ts` must
@@ -276,17 +299,31 @@ class Tracer:
     Thread-safe: the ring is a deque (atomic appends), open-span
     tracking takes a small lock, ids come from itertools.count (atomic
     in CPython). Append paths never block each other for long.
+
+    `gc_spans` (the process tracer's setting): while enabled, a hook in
+    `gc.callbacks` records each full collection of Python's garbage
+    collector as a `python.gc` span parented to the current span, and
+    counts each young one (generations 0 and 1, hundreds a second) with
+    its time on the enclosing open span (args `gc_young`,
+    `gc_young_us`) rather than as spans of their own. Collections are
+    process-wide, so one tracer records them.
     """
 
-    def __init__(self, capacity: int = 65536):
+    def __init__(self, capacity: int = 65536, gc_spans: bool = False):
         self.enabled = False
         self.capacity = capacity
+        self.gc_spans = gc_spans
         self._events: deque = deque(maxlen=capacity)
         self._open: Dict[int, Span] = {}
-        self._open_lock = threading.Lock()
+        # Re-entrant: a collection can start while a thread holds it,
+        # and the GC hook runs in that thread.
+        self._open_lock = threading.RLock()
         self._ids = itertools.count(1)
         self._tids: Dict[int, int] = {}
         self._tnames: Dict[int, str] = {}
+        self._gc_start: Optional[float] = None
+        # Bound once, so that disable() removes the object enable() added.
+        self._gc_hook = self._on_gc
 
     # -- lifecycle -----------------------------------------------------
 
@@ -294,11 +331,16 @@ class Tracer:
         if capacity is not None and capacity != self.capacity:
             self.capacity = capacity
             self._events = deque(self._events, maxlen=capacity)
+        if self.gc_spans and self._gc_hook not in gc.callbacks:
+            gc.callbacks.append(self._gc_hook)
         self.enabled = True
         return self
 
     def disable(self) -> None:
         self.enabled = False
+        if self._gc_hook in gc.callbacks:
+            gc.callbacks.remove(self._gc_hook)
+        self._gc_start = None
 
     def clear(self) -> None:
         self._events.clear()
@@ -351,6 +393,32 @@ class Tracer:
             ts_us, dur_us, self._tid(), args,
         ))
 
+    def _on_gc(self, phase: str, info: dict) -> None:
+        """The gc.callbacks hook (see the class docstring). Collections
+        never overlap, so one start stamp serves every thread."""
+        if phase == "start":
+            self._gc_start = now_us()
+            return
+        t0, self._gc_start = self._gc_start, None
+        if t0 is None or not self.enabled:
+            return
+        dur = now_us() - t0
+        generation = info["generation"]
+        if generation >= 2:
+            self.add_complete(
+                "python.gc", t0, dur, cat="gc",
+                args={"generation": generation,
+                      "collected": info["collected"]},
+            )
+            return
+        ctx = _current.get()
+        rec = self._open.get(ctx.span_id) if ctx is not None else None
+        if rec is not None:
+            args = dict(rec.args) if rec.args else {}
+            args["gc_young"] = args.get("gc_young", 0) + 1
+            args["gc_young_us"] = args.get("gc_young_us", 0.0) + dur
+            rec.args = args
+
     # -- inspection / export -------------------------------------------
 
     def snapshot(self) -> List[Span]:
@@ -376,7 +444,8 @@ class Tracer:
                 "name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
                 "args": {"name": self._tnames.get(tid, f"thread-{tid}")},
             })
-        events = [rec.as_chrome(pid) for rec in self._events]
+        # A copy: a collection during the export appends to the ring.
+        events = [rec.as_chrome(pid) for rec in self.snapshot()]
         events.extend(extra_events)
         events.sort(key=lambda e: e.get("ts", 0.0))
         return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
@@ -398,7 +467,7 @@ class Tracer:
         return tid
 
 
-_default = Tracer()
+_default = Tracer(gc_spans=True)
 
 
 def default_tracer() -> Tracer:
@@ -463,8 +532,24 @@ def parent_from_grpc_context(context) -> Optional[SpanContext]:
 
 _capture_seq = itertools.count()
 
+# The annotation whose `ts` in the exported trace places the tracer's
+# spans on the profiler's time axis (time.perf_counter is read inside
+# it), whatever clock the installed torch's profiler keeps.
+CAPTURE_ANCHOR = "doorman.capture_anchor"
 
-def start_torch_capture(out_dir: Optional[str]):
+
+class TorchCapture:
+    """A torch.profiler session from start_torch_capture: the profiler
+    and the perf_counter reading taken inside its anchor annotation."""
+
+    __slots__ = ("prof", "anchor")
+
+    def __init__(self, prof, anchor: float):
+        self.prof = prof
+        self.anchor = anchor
+
+
+def start_torch_capture(out_dir: Optional[str]) -> Optional[TorchCapture]:
     """Start a torch.profiler session (CPU ops, plus the CUDA kernels and
     copies when the card is present) whose trace goes to `out_dir`;
     returns the session, or None for a falsy out_dir. CUDA activity is
@@ -480,25 +565,68 @@ def start_torch_capture(out_dir: Optional[str]):
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=activities)
     prof.start()
-    return prof
+    # A session's first annotation takes about a millisecond to open;
+    # behind a throwaway one the anchor's ts lies within microseconds
+    # of the clock read inside it.
+    with torch.profiler.record_function("doorman.capture_warmup"):
+        pass
+    with torch.profiler.record_function(CAPTURE_ANCHOR):
+        anchor = time.perf_counter()
+    return TorchCapture(prof, anchor)
 
 
-def stop_torch_capture(prof, out_dir: str) -> str:
+def stop_torch_capture(capture: TorchCapture, out_dir: str) -> str:
     """Stop a session from start_torch_capture and write its Chrome trace
     (trace-<pid>-<n>.json, loadable in Perfetto) under `out_dir`;
     returns the file's path. The card is synchronized first, so every
-    kernel launched before the call is in the trace."""
+    kernel launched before the call is in the trace. The process
+    tracer's spans and instants that overlap the session are written
+    into the same file, on the profiler's time axis, so each idle gap
+    of the card lies under the program span that held the host."""
     import torch
 
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    prof.stop()
+    capture.prof.stop()
+    stop_us = now_us()
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(
         out_dir, f"trace-{os.getpid()}-{next(_capture_seq)}.json"
     )
-    prof.export_chrome_trace(path)
+    capture.prof.export_chrome_trace(path)
+    _merge_spans(path, perf_to_us(capture.anchor), stop_us)
     return path
+
+
+def _merge_spans(path: str, anchor_us: float, stop_us: float) -> None:
+    """Add the process tracer's events between the anchor and `stop_us`
+    (with its process and thread names) to the Chrome trace at `path`,
+    shifted by the anchor annotation's offset; a trace without the
+    anchor is left as written."""
+    ours = [
+        ev for ev in _default.chrome_trace()["traceEvents"]
+        if ev["ph"] == "M"
+        or ev["ts"] <= stop_us and ev["ts"] + ev.get("dur", 0.0) >= anchor_us
+    ]
+    if all(ev["ph"] == "M" for ev in ours):
+        return
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc.get("traceEvents", [])
+    mark = next(
+        (e for e in events
+         if e.get("name") == CAPTURE_ANCHOR and e.get("ph") == "X"),
+        None,
+    )
+    if mark is None:
+        return
+    offset = float(mark["ts"]) - anchor_us
+    for ev in ours:
+        if ev["ph"] != "M":
+            ev["ts"] = round(ev["ts"] + offset, 3)
+    doc["traceEvents"] = events + ours
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 @contextlib.contextmanager

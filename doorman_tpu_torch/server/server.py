@@ -881,12 +881,16 @@ class CapacityServer(CapacityServicer):
         tables."""
         async with self._tick_lock:
             tick_start = self._clock()
-            try:
-                with trace_mod.default_tracer().span(
-                    "server.tick", cat="tick",
-                    args={"server": self.id,
-                          "resources": len(self.resources)},
-                ):
+            tracer = trace_mod.default_tracer()
+            # The span covers all of the tick once the lock is held (the
+            # reference's ends before the audit and the flight record),
+            # so its children account for every part of it.
+            with tracer.span(
+                "server.tick", cat="tick",
+                args={"server": self.id,
+                      "resources": len(self.resources)},
+            ):
+                try:
                     await self._tick_once_locked()
                     # The tick pipeline is the batch server's durability
                     # beat: flush this tick's journal deltas and take the
@@ -897,26 +901,31 @@ class CapacityServer(CapacityServicer):
                     # moved (the fanout's decides are journal deltas of
                     # the NEXT flush beat).
                     self.push_streams()
-            except Exception as exc:
-                # The black box's trigger: an unhandled tick exception
-                # dumps the last N ticks before the error propagates.
-                self._flight_abort(tick_start, exc)
-                raise
-            # Shadow audit BEFORE the flight record so an inline
-            # auditor's fresh divergence count rides this very tick's
-            # record (the executor-backed default may lag a tick; the
-            # counter is cumulative either way).
-            self._audit_step()
-            self._flight_record_tick(tick_start)
-            if self._admission is not None:
-                # Tick lag feeds the overload controller: a solve
-                # falling behind its cadence is overload even while the
-                # RPC path still looks healthy. Measured on the server
-                # clock so replays on a fake clock stay deterministic.
-                self._admission.controller.observe_tick_lag(
-                    (self._clock() - tick_start)
-                    / max(self.tick_interval, 1e-9)
-                )
+                except Exception as exc:
+                    # The black box's trigger: an unhandled tick
+                    # exception dumps the last N ticks before the error
+                    # propagates.
+                    self._flight_abort(tick_start, exc)
+                    raise
+                # Shadow audit BEFORE the flight record so an inline
+                # auditor's fresh divergence count rides this very tick's
+                # record (the executor-backed default may lag a tick; the
+                # counter is cumulative either way).
+                if self.shadow_audit is not None:
+                    with tracer.span("server.audit", cat="tick"):
+                        self._audit_step()
+                with tracer.span("server.flight_record", cat="tick"):
+                    self._flight_record_tick(tick_start)
+                if self._admission is not None:
+                    # Tick lag feeds the overload controller: a solve
+                    # falling behind its cadence is overload even while
+                    # the RPC path still looks healthy. Measured on the
+                    # server clock so replays on a fake clock stay
+                    # deterministic.
+                    self._admission.controller.observe_tick_lag(
+                        (self._clock() - tick_start)
+                        / max(self.tick_interval, 1e-9)
+                    )
 
     async def _tick_once_locked(self) -> None:
         if not self.resources:
@@ -1162,6 +1171,10 @@ class CapacityServer(CapacityServicer):
             if v - self._flight_phase_prev.get(k, 0.0) > 0
         }
         self._flight_phase_prev = totals
+        with trace_mod.default_tracer().span(
+            "server.store_digest", cat="tick"
+        ):
+            digest = store_digest(self.resources)
         rec = {
             "t": now,
             "tick": self._ticks_done,
@@ -1169,7 +1182,7 @@ class CapacityServer(CapacityServicer):
             "is_master": self.is_master,
             "epoch": self.mastership_epoch,
             "resources": len(self.resources),
-            "digest": store_digest(self.resources),
+            "digest": digest,
         }
         if self.shard is not None:
             # Federation beat on the black box: which shard this is,

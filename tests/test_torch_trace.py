@@ -8,7 +8,12 @@ schema, per-phase histogram exposition, unclosed-span detection, the
 (`torch_capture`, the server's `profile_dir`) writes a Chrome trace of
 the CPU ops here; its CUDA half is checked on the card by chip_smoke.py.
 Parity: the same span sequence gives the same Chrome-trace events in
-both packages, apart from timestamps and ids.
+both packages, apart from timestamps and ids. The port's own spans
+(PORT_SPAN_NAMES): the tick span over the whole tick with the flight
+record and the store digest beneath it, the native store's bulk
+refresh, Python's collections on the process tracer, and the capture
+that writes the tracer's spans into its Chrome trace on the profiler's
+time axis.
 """
 
 import asyncio
@@ -404,3 +409,241 @@ def test_resident_phase_spans_and_histograms(tracer):
             'doorman_tick_phase_seconds_count{component="resident",'
             f'phase="{phase}"}}' in text
         )
+
+
+# ----------------------------------------------------------------------
+# The tick's span tree: flight record, store digest, the store's ingest,
+# Python's collector (the port's own spans, PORT_SPAN_NAMES)
+# ----------------------------------------------------------------------
+
+
+def _native_engine():
+    from doorman_tpu_torch import native
+
+    if not native.native_available():
+        pytest.skip("native engine unavailable")
+    return native
+
+
+async def _native_server():
+    """A batch server on the native store (CPU) with the flight recorder
+    on (the default ring) and one lease, before its first tick."""
+    from doorman_tpu_torch.algorithms import Request
+
+    _native_engine()
+    server = CapacityServer(
+        "tree-server", TrivialElection(), mode="batch", native_store=True,
+        tick_interval=3600.0, minimum_refresh_interval=0.0, device="cpu",
+    )
+    await server.load_config(parse_yaml_config(CONFIG))
+    await asyncio.sleep(0)
+    server._decide("r0", Request("c1", 0.0, 30.0, 1))
+    assert server.flightrec is not None
+    return server
+
+
+def _one_tick():
+    async def body():
+        server = await _native_server()
+        await server.tick_once()
+        await server.stop()
+
+    asyncio.run(body())
+
+
+def _inside(child, parent):
+    return (parent.ts <= child.ts
+            and child.ts + child.dur <= parent.ts + parent.dur)
+
+
+def test_tick_span_covers_flight_record_and_digest(tracer):
+    _one_tick()
+    spans = [e for e in tracer.snapshot() if e.ph == "X"]
+    (tick,) = [e for e in spans if e.name == "server.tick"]
+    (record,) = [e for e in spans if e.name == "server.flight_record"]
+    (digest,) = [e for e in spans if e.name == "server.store_digest"]
+    assert record.parent_id == tick.span_id and _inside(record, tick)
+    assert digest.parent_id == record.span_id and _inside(digest, record)
+    laps = [e for e in spans if e.cat.startswith("phase:")]
+    assert {"sweep", "drain", "pack", "fused"} <= {e.name for e in laps}
+    for lap in laps:
+        assert lap.parent_id == tick.span_id, lap.name
+    # No auditor on this server: no audit span.
+    assert not [e for e in spans if e.name == "server.audit"]
+    assert tracer.open_spans() == []
+
+
+def test_anomaly_instant_lands_in_the_flight_record(tracer):
+    from doorman_tpu_torch.obs.detect import AnomalyDetector
+
+    async def body():
+        server = await _native_server()
+        # A floor below any wall time fires on the first record.
+        server.detector = AnomalyDetector(("wall_ms",),
+                                          floors={"wall_ms": -1.0})
+        await server.tick_once()
+        await server.stop()
+
+    asyncio.run(body())
+    events = tracer.snapshot()
+    (record,) = [e for e in events if e.name == "server.flight_record"]
+    (mark,) = [e for e in events if e.name == "detect.anomaly"]
+    assert mark.ph == "i" and mark.parent_id == record.span_id
+    assert mark.args["field"] == "wall_ms"
+    assert tracer.open_spans() == []
+
+
+def test_fleet_beat_report_stamps_an_instant(tracer):
+    from doorman_tpu_torch.fleet.rpc import ShardReporter
+    from doorman_tpu_torch.proto import doorman_pb2 as pb
+
+    class Head:
+        """The head's GetServerCapacity: a share for every resource."""
+
+        async def GetServerCapacity(self, request, timeout):
+            resp = pb.GetServerCapacityResponse()
+            for r in request.resource:
+                out = resp.response.add(resource_id=r.resource_id)
+                out.gets.capacity = 25.0
+                out.gets.expiry_time = 2_000_000_000
+            return resp
+
+    async def body():
+        server = await _native_server()
+        reporter = ShardReporter(server, 1, "head:0", ("r0",))
+        reporter._stub = Head()
+        assert await reporter.step()
+        await server.stop()
+
+    asyncio.run(body())
+    (mark,) = [e for e in tracer.snapshot() if e.name == "fleet.report"]
+    assert mark.ph == "i" and mark.args == {"shard": 1, "resources": 1}
+
+
+def test_bulk_refresh_span_counts_the_call(tracer):
+    import numpy as np
+
+    native = _native_engine()
+    engine = native.StoreEngine()
+    store = engine.store("r0")
+    for c in range(3):
+        store.assign(f"c{c}", 60.0, 5.0, 0.0, 10.0, 1)
+    # Three leases and a client that holds none: four asked, three done.
+    cids = np.array([engine.client_handle(f"c{c}") for c in range(4)])
+    rids = np.full(4, store._rid, np.int32)
+    done = engine.bulk_refresh(rids, cids, np.full(4, 90.0),
+                               np.full(4, 5.0), np.arange(1.0, 5.0))
+    (span,) = [e for e in tracer.snapshot() if e.name == "store.bulk_refresh"]
+    assert span.args["n"] == 4
+    assert span.args["done"] == done
+    assert span.cat == "store" and span.dur >= 0.0
+    assert tracer.open_spans() == []
+
+
+def test_full_collection_is_a_span_under_the_current_one(tracer):
+    import gc
+
+    with tracer.span("outer", cat="t") as outer:
+        gc.collect()
+    (col,) = [e for e in tracer.snapshot() if e.name == "python.gc"]
+    assert col.parent_id == outer.span_id
+    assert col.args["generation"] == 2 and col.args["collected"] >= 0
+    assert col.cat == "gc" and _inside(col, outer)
+    assert tracer.open_spans() == []
+
+
+def test_young_collections_count_on_the_enclosing_span(tracer):
+    import gc
+
+    with tracer.span("outer", cat="t") as outer:
+        gc.collect(0)
+        gc.collect(1)
+    assert outer.args["gc_young"] >= 2
+    assert outer.args["gc_young_us"] > 0.0
+    assert not [e for e in tracer.snapshot() if e.name == "python.gc"]
+    assert tracer.open_spans() == []
+
+
+def test_enable_installs_one_gc_hook_and_disable_removes_it():
+    import gc
+
+    tr = trace_mod.default_tracer()
+    assert tr.gc_spans and not tr.enabled
+    before = list(gc.callbacks)
+    tr.enable()
+    tr.enable()
+    try:
+        added = [cb for cb in gc.callbacks if cb not in before]
+        assert len(gc.callbacks) == len(before) + 1 and len(added) == 1
+    finally:
+        tr.disable()
+        tr.clear()
+    assert gc.callbacks == before
+    # A tracer built without gc_spans never touches the hooks.
+    other = trace_mod.Tracer().enable()
+    assert gc.callbacks == before
+    other.disable()
+
+
+def test_disabled_tracer_records_no_tick_refresh_or_collection():
+    import gc
+
+    import numpy as np
+
+    tr = trace_mod.default_tracer()
+    assert not tr.enabled
+    before = list(gc.callbacks)
+    _one_tick()
+    native = _native_engine()
+    engine = native.StoreEngine()
+    store = engine.store("r0")
+    store.assign("c0", 60.0, 5.0, 0.0, 10.0, 1)
+    engine.bulk_refresh(np.array([store._rid], np.int32),
+                        np.array([engine.client_handle("c0")]),
+                        np.array([90.0]), np.array([5.0]), np.array([2.0]))
+    gc.collect()
+    assert tr.snapshot() == [] and tr.open_spans() == []
+    assert gc.callbacks == before
+
+
+def _span_literals():
+    """Names passed as a literal to .span(...) / .add_complete(...)
+    anywhere in the port."""
+    import ast
+    from pathlib import Path
+
+    import doorman_tpu_torch
+
+    names = set()
+    for path in Path(doorman_tpu_torch.__file__).parent.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)
+                    and node.func.attr in ("span", "add_complete")
+                    and node.args and isinstance(node.args[0], ast.Constant)):
+                names.add(node.args[0].value)
+    return names
+
+
+def test_port_span_names_are_apart_and_used():
+    assert not trace_mod.PORT_SPAN_NAMES & trace_mod.KNOWN_SPAN_NAMES
+    assert trace_mod.PORT_SPAN_NAMES <= _span_literals()
+
+
+def test_capture_writes_program_spans_on_the_profiler_axis(tracer, tmp_path):
+    import torch
+
+    a = torch.randn(256, 256)
+    capture = trace_mod.start_torch_capture(str(tmp_path))
+    with tracer.span("capture.mm", cat="t"):
+        torch.mm(a, a)
+    path = trace_mod.stop_torch_capture(capture, str(tmp_path))
+    events = json.loads(open(path).read())["traceEvents"]
+    (span,) = [e for e in events if e.get("name") == "capture.mm"]
+    (mm,) = [e for e in events if e.get("name") == "aten::mm"]
+    assert span["ph"] == "X" and "span_id" in span["args"]
+    # aten::mm lies inside the span's interval, each edge placed to
+    # within 100 us.
+    assert mm["ts"] >= span["ts"] - 100.0
+    assert mm["ts"] + mm["dur"] <= span["ts"] + span["dur"] + 100.0
+    assert tracer.open_spans() == []
