@@ -93,6 +93,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dm_clean.argtypes = [ctypes.c_void_p, ctypes.c_int32,
                              ctypes.c_double]
     lib.dm_sums.argtypes = [ctypes.c_void_p, ctypes.c_int32, _F64P]
+    lib.dm_sums_many.argtypes = [ctypes.c_void_p, _I32P, ctypes.c_int64,
+                                 _F64P]
     lib.dm_get.restype = ctypes.c_int32
     lib.dm_get.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
                            _F64P]
@@ -268,6 +270,19 @@ class StoreEngine:
     def max_leases(self) -> int:
         """Largest per-resource lease count (one O(R) C call)."""
         return self._lib.dm_max_leases(self._ptr)
+
+    def sums(self, rids) -> np.ndarray:
+        """Every listed resource's aggregates in one locked C call:
+        row i is (sum_has, sum_wants, subclient count, lease count) of
+        engine rid rids[i], as NativeLeaseStore reads them one store at
+        a time; zeros for an unknown rid. One consistent snapshot."""
+        rids = np.ascontiguousarray(rids, np.int32)
+        out = np.empty((len(rids), 4), np.float64)
+        self._lib.dm_sums_many(
+            self._ptr, rids.ctypes.data_as(_I32P), len(rids),
+            out.ctypes.data_as(_F64P),
+        )
+        return out
 
     def pack(self, order: List["NativeLeaseStore"]) -> Tuple[
         np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray,
@@ -607,6 +622,22 @@ class StoreEngine:
                 expected_versions.ctypes.data_as(u64p),
             )
         )
+
+
+def bulk_sums(stores: List[object]) -> "np.ndarray | None":
+    """`StoreEngine.sums` of `stores`, in their order, when every one is
+    a `NativeLeaseStore` of one engine; None otherwise (another kind of
+    store, two engines, or no store), for the caller's per-store path."""
+    if not stores:
+        return None
+    engine = getattr(stores[0], "_engine", None)
+    rids = []
+    for s in stores:
+        if type(s) is not NativeLeaseStore or s._engine is not engine:
+            return None
+        rids.append(s._rid)
+    return engine.sums(rids)
+
 
 class NativeLeaseStore:
     """Drop-in for core.store.LeaseStore, backed by a StoreEngine.

@@ -711,6 +711,25 @@ void dm_sums(Engine *e, int32_t rid, double *out) {
   out[3] = static_cast<double>(r.leases.size());
 }
 
+// dm_sums for n resources under one lock: out[i*4 .. i*4+3] is
+// dm_sums(rids[i]), zeros for an invalid rid. One consistent snapshot
+// of every row, in one crossing (the flight record's store digest).
+void dm_sums_many(Engine *e, const int32_t *rids, int64_t n, double *out) {
+  std::lock_guard<std::mutex> lock(e->mu);
+  for (int64_t i = 0; i < n; ++i) {
+    double *o = out + 4 * i;
+    if (!valid_rid(e, rids[i])) {
+      o[0] = o[1] = o[2] = o[3] = 0.0;
+      continue;
+    }
+    const ResourceStore &r = e->resources[rids[i]];
+    o[0] = r.sum_has;
+    o[1] = r.sum_wants;
+    o[2] = static_cast<double>(r.count);
+    o[3] = static_cast<double>(r.leases.size());
+  }
+}
+
 // Fetch one lease: out = {expiry, refresh_interval, has, wants,
 // subclients, priority}. Returns 1 if present, else 0 (out untouched).
 int32_t dm_get(Engine *e, int32_t rid, int64_t cid, double *out) {

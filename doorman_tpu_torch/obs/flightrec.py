@@ -35,11 +35,13 @@ import re
 import threading
 import time
 from collections import deque
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 log = logging.getLogger(__name__)
 
-__all__ = ["ENV_DUMP_DIR", "FlightRecorder", "store_digest"]
+__all__ = [
+    "ENV_DUMP_DIR", "FlightRecorder", "digest_stores", "store_digest",
+]
 
 ENV_DUMP_DIR = "DOORMAN_FLIGHTREC_DIR"
 
@@ -52,18 +54,38 @@ def store_digest(resources: Dict[str, object]) -> str:
     stores maintain running sums, so this never walks leases. Two
     states that diverge in aggregate grant mass diverge here — the
     cheap "did the stores move?" pin a dump reader diffs first."""
-    items = [
-        (
-            rid,
-            round(float(res.capacity), 6),
-            round(float(res.store.sum_has), 6),
-            round(float(res.store.sum_wants), 6),
-            len(res.store),
-        )
-        for rid, res in sorted(resources.items())
-    ]
+    return digest_stores(resources)[0]
+
+
+def digest_stores(resources: Dict[str, object]) -> Tuple[str, bool]:
+    """`store_digest` and whether it read every store in one native
+    call: when all stores are native views of one engine their rows come
+    from one locked `StoreEngine.sums`, else each store is read on its
+    own. Both give the same bytes."""
+    # Deferred: the native module imports the obs package.
+    from doorman_tpu_torch.native import bulk_sums
+
+    ordered = sorted(resources.items())
+    sums = bulk_sums([res.store for _, res in ordered])
+    if sums is None:
+        items = [
+            (
+                rid,
+                round(float(res.capacity), 6),
+                round(float(res.store.sum_has), 6),
+                round(float(res.store.sum_wants), 6),
+                len(res.store),
+            )
+            for rid, res in ordered
+        ]
+    else:
+        items = [
+            (rid, round(float(res.capacity), 6), round(has, 6),
+             round(wants, 6), int(n))
+            for (rid, res), (has, wants, _, n) in zip(ordered, sums.tolist())
+        ]
     payload = json.dumps(items, separators=(",", ":")).encode()
-    return hashlib.sha256(payload).hexdigest()[:16]
+    return hashlib.sha256(payload).hexdigest()[:16], sums is not None
 
 
 class FlightRecorder:

@@ -141,7 +141,8 @@ KNOWN_INSTANT_NAMES = frozenset({
 PORT_SPAN_NAMES = frozenset({
     # Children of server.tick after the solve: the shadow audit's
     # sampling, the per-tick flight record and, inside it, the digest
-    # of every store's aggregates.
+    # of every store's aggregates; the digest's args resources (rows
+    # digested) and bulk (read in one native call).
     "server.audit",
     "server.flight_record",
     "server.store_digest",

@@ -101,7 +101,7 @@ from doorman_tpu_torch.obs import slo as slo_mod
 from doorman_tpu_torch.obs import trace as trace_mod
 from doorman_tpu_torch.obs.audit import ShadowAuditor
 from doorman_tpu_torch.obs.detect import AnomalyDetector
-from doorman_tpu_torch.obs.flightrec import FlightRecorder, store_digest
+from doorman_tpu_torch.obs.flightrec import FlightRecorder, digest_stores
 from doorman_tpu_torch.obs.history import HistoryStore
 from doorman_tpu_torch.obs.requests import RequestLog
 from doorman_tpu_torch.proto import doorman_pb2 as pb
@@ -1173,8 +1173,13 @@ class CapacityServer(CapacityServicer):
         self._flight_phase_prev = totals
         with trace_mod.default_tracer().span(
             "server.store_digest", cat="tick"
-        ):
-            digest = store_digest(self.resources)
+        ) as span:
+            digest, bulk = digest_stores(self.resources)
+            if span is not None:
+                span.args = dict(
+                    span.args or (), resources=len(self.resources),
+                    bulk=bulk,
+                )
         rec = {
             "t": now,
             "tick": self._ticks_done,

@@ -473,6 +473,40 @@ def test_tick_span_covers_flight_record_and_digest(tracer):
     assert tracer.open_spans() == []
 
 
+@pytest.mark.parametrize("native_store", [True, False])
+def test_store_digest_span_names_its_rows_and_path(tracer, native_store):
+    """The digest's args: every store of a native-store server is read
+    in one call (bulk), a Python-store server's one store at a time."""
+    from doorman_tpu_torch.algorithms import Request
+
+    if native_store:
+        _native_engine()
+
+    async def body():
+        server = CapacityServer(
+            "digest-server", TrivialElection(), mode="batch",
+            native_store=native_store, tick_interval=3600.0,
+            minimum_refresh_interval=0.0, device="cpu",
+        )
+        await server.load_config(parse_yaml_config(CONFIG))
+        await asyncio.sleep(0)
+        for i in range(3):
+            server._decide(f"r{i}", Request(f"c{i}", 0.0, 30.0, 1))
+        await server.tick_once()
+        await server.tick_once()
+        n = len(server.resources)
+        await server.stop()
+        return n
+
+    n = asyncio.run(body())
+    digests = [e for e in tracer.snapshot()
+               if e.ph == "X" and e.name == "server.store_digest"]
+    assert n == 3 and len(digests) == 2
+    for span in digests:
+        assert span.args["resources"] == n
+        assert span.args["bulk"] is native_store
+
+
 def test_anomaly_instant_lands_in_the_flight_record(tracer):
     from doorman_tpu_torch.obs.detect import AnomalyDetector
 
