@@ -146,6 +146,13 @@ PORT_SPAN_NAMES = frozenset({
     "server.audit",
     "server.flight_record",
     "server.store_digest",
+    # An intermediate's parent exchange (_perform_parent_requests; arg
+    # outcome) and, besides the RPC's server.parent_refresh, its parts:
+    # the upstream request's aggregation (args resources, bands) and the
+    # install of the grants as templates (arg templates).
+    "server.parent_exchange",
+    "server.band_aggregate",
+    "server.parent_install",
     # The native store taking one batch of client refreshes
     # (StoreEngine.bulk_refresh); args n (asked) and done (refreshed).
     "store.bulk_refresh",

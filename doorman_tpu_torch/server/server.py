@@ -469,12 +469,16 @@ class CapacityServer(CapacityServicer):
     async def start(self, port: int = 0, host: str = "[::]",
                     tick_loop: bool = True,
                     tls_cert: Optional[str] = None,
-                    tls_key: Optional[str] = None) -> int:
+                    tls_key: Optional[str] = None,
+                    updater_loop: bool = True) -> int:
         """Start serving gRPC and, in batch mode (unless `tick_loop` is
         False, for callers that drive tick_once themselves), the tick
-        loop; returns the bound port. Passing a cert/key pair serves TLS
-        (reference doorman_server.go:171-177); the frontend control
-        surface rides the same port."""
+        loop; returns the bound port. An intermediate also starts its
+        updater, which exchanges with the parent on the wall clock,
+        unless `updater_loop` is False (callers that drive
+        _perform_parent_requests themselves). Passing a cert/key pair
+        serves TLS (reference doorman_server.go:171-177); the frontend
+        control surface rides the same port."""
         if (tls_cert or tls_key) and not (tls_cert and tls_key):
             raise ValueError("tls_cert and tls_key must both be set")
         self._loop = asyncio.get_running_loop()
@@ -507,7 +511,10 @@ class CapacityServer(CapacityServicer):
                 pb.ResourceRepository(resources=[default_resource_template()]),
                 {},
             )
-            self._tasks.append(asyncio.create_task(self._updater_loop()))
+            if updater_loop:
+                self._tasks.append(
+                    asyncio.create_task(self._updater_loop())
+                )
         if self.mode == "batch":
             if tick_loop:
                 self._tasks.append(asyncio.create_task(self._tick_loop()))
@@ -889,9 +896,12 @@ class CapacityServer(CapacityServicer):
                 "server.tick", cat="tick",
                 args={"server": self.id,
                       "resources": len(self.resources)},
-            ):
+            ) as span:
                 try:
                     await self._tick_once_locked()
+                    if span is not None:
+                        # The flight record's solve_mode of this tick.
+                        span.args["solve"] = self._solve_mode()
                     # The tick pipeline is the batch server's durability
                     # beat: flush this tick's journal deltas and take the
                     # cadenced snapshot inside the tick span.
@@ -1832,12 +1842,18 @@ class CapacityServer(CapacityServicer):
         start = self._clock()
         out = pb.GetServerCapacityResponse()
         err = False
-        with self._rpc_span("GetServerCapacity", context, request.server_id):
+        with self._rpc_span(
+            "GetServerCapacity", context, request.server_id
+        ) as span:
             return await self._get_server_capacity(
-                request, context, out, start, err
+                request, context, out, start, err, span
             )
 
-    async def _get_server_capacity(self, request, context, out, start, err):
+    async def _get_server_capacity(self, request, context, out, start, err,
+                                   span=None):
+        # Bands decided by this request, one _decide each (the handler's
+        # cost): the span's `bands` arg and the registry's band counter.
+        decided = 0
         try:
             if not self.is_master:
                 out.mastership.CopyFrom(self._mastership())
@@ -1907,6 +1923,7 @@ class CapacityServer(CapacityServicer):
                         ),
                     )
                     granted += lease.has
+                    decided += 1
                 # Untracked writes: the band sub-lease decides above bypass
                 # the coalescer's stage (see _fused_invalidate).
                 self._fused_invalidate(req.resource_id)
@@ -1925,6 +1942,16 @@ class CapacityServer(CapacityServicer):
                 )
             return out
         finally:
+            if decided:
+                metrics_mod.default_registry().counter(
+                    "doorman_server_capacity_bands",
+                    "Downstream servers' priority bands decided by "
+                    "GetServerCapacity.",
+                    labels=("server",),
+                ).inc(self.id, by=decided)
+            if span is not None:
+                span.args["lines"] = len(request.resource)
+                span.args["bands"] = decided
             self.on_request("GetServerCapacity", self._clock() - start, err)
             self.request_log.record(
                 "GetServerCapacity", request.server_id,
@@ -2258,7 +2285,34 @@ class CapacityServer(CapacityServicer):
     async def _perform_parent_requests(self, retry_number: int):
         """One GetServerCapacity exchange with the parent: send the
         aggregated demand, re-template local resources from the grants
-        (server.go:227-323). Returns (next_interval, next_retry_number)."""
+        (server.go:227-323). Returns (next_interval, next_retry_number).
+
+        Traced as `server.parent_exchange` (arg `outcome`) around its
+        three parts: `server.band_aggregate` (the request, args
+        `resources` and `bands`), `server.parent_refresh` (the RPC) and
+        `server.parent_install` (the grants' templates loaded, arg
+        `templates`); the registry counts exchanges by outcome."""
+        tracer = trace_mod.default_tracer()
+        with tracer.span(
+            "server.parent_exchange", cat="server",
+            args={"server": self.id, "parent": self.parent_addr},
+        ) as span:
+            interval, retry, outcome = await self._parent_exchange(
+                retry_number
+            )
+            if span is not None:
+                span.args["outcome"] = outcome
+        metrics_mod.default_registry().counter(
+            "doorman_server_parent_exchanges",
+            "Parent exchanges of an intermediate server, by outcome.",
+            labels=("server", "outcome"),
+        ).inc(self.id, outcome)
+        return interval, retry
+
+    async def _parent_exchange(self, retry_number: int):
+        """_perform_parent_requests' body: (interval, retry number,
+        outcome), the outcome "ok", "rpc_error" or "config_error"."""
+        tracer = trace_mod.default_tracer()
         if self._parent_conn is None:
             self._parent_conn = Connection(
                 self.parent_addr,
@@ -2266,12 +2320,20 @@ class CapacityServer(CapacityServicer):
                 tls=self.parent_tls,
                 tls_ca=self.parent_tls_ca,
             )
-        request = self._build_server_capacity_request()
+        with tracer.span(
+            "server.band_aggregate", cat="server", args={"server": self.id},
+        ) as span:
+            request = self._build_server_capacity_request()
+            if span is not None:
+                span.args["resources"] = len(request.resource)
+                span.args["bands"] = sum(
+                    len(rr.wants) for rr in request.resource
+                )
         try:
             # The metadata is computed inside the lambda, at call time,
             # so each attempt carries the parent_refresh span context
             # over the GetServerCapacity hop.
-            with trace_mod.default_tracer().span(
+            with tracer.span(
                 "server.parent_refresh", cat="server",
                 args={"server": self.id, "parent": self.parent_addr},
             ):
@@ -2285,6 +2347,7 @@ class CapacityServer(CapacityServicer):
             return (
                 backoff(MIN_BACKOFF, MAX_BACKOFF, retry_number),
                 retry_number + 1,
+                "rpc_error",
             )
 
         interval = VERY_LONG_TIME
@@ -2312,21 +2375,26 @@ class CapacityServer(CapacityServicer):
             # Bumps the config epoch: the next resident tick solves the
             # whole table and the stream fanout checks every
             # subscription, as in the reference.
-            await self.load_config(
-                pb.ResourceRepository(resources=templates), expiry_times
-            )
+            with tracer.span(
+                "server.parent_install", cat="server",
+                args={"server": self.id, "templates": len(templates)},
+            ):
+                await self.load_config(
+                    pb.ResourceRepository(resources=templates), expiry_times
+                )
         except config_mod.ConfigError:
             log.exception("%s: loading parent-derived config failed", self.id)
             return (
                 backoff(MIN_BACKOFF, MAX_BACKOFF, retry_number),
                 retry_number + 1,
+                "config_error",
             )
         if (
             interval < self.minimum_refresh_interval
             or interval == VERY_LONG_TIME
         ):
             interval = self.minimum_refresh_interval
-        return interval, 0
+        return interval, 0, "ok"
 
     async def _updater_loop(self) -> None:
         interval, retry = DEFAULT_INTERVAL, 0
