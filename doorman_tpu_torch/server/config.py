@@ -15,7 +15,7 @@ Mirrors the reference behavior (capability parity, not code):
 from __future__ import annotations
 
 import fnmatch
-from typing import Optional
+from typing import Dict, List, Optional
 
 import yaml
 from google.protobuf import json_format
@@ -164,14 +164,45 @@ def find_template(
 ) -> Optional[pb.ResourceTemplate]:
     """Find the template for a resource id: exact match first, then first
     glob match in repository order. Returns None only for an (invalid)
-    repository without a "*" entry."""
-    for tpl in repo.resources:
-        if tpl.identifier_glob == resource_id:
-            return tpl
-    for tpl in repo.resources:
-        if fnmatch.fnmatchcase(resource_id, tpl.identifier_glob):
-            return tpl
-    return None
+    repository without a "*" entry. For one lookup; a caller with many
+    builds a TemplateIndex once."""
+    return TemplateIndex(repo).find(resource_id)
+
+
+# fnmatch's only metacharacters: a glob without them matches its own
+# string alone (a backslash is literal to fnmatch).
+_GLOB_CHARS = frozenset("*?[")
+
+
+class TemplateIndex:
+    """find_template's answers for one repository, from one pass over it:
+    a dict of every identifier_glob to its first template in repository
+    order, and the templates whose glob holds a metacharacter, in order.
+    An exact match is one dict lookup; only ids that no glob names
+    literally scan the (few) real globs."""
+
+    __slots__ = ("exact", "globs")
+
+    def __init__(self, repo: pb.ResourceRepository):
+        self.exact: Dict[str, pb.ResourceTemplate] = {}
+        self.globs: List[pb.ResourceTemplate] = []
+        for tpl in repo.resources:
+            glob = tpl.identifier_glob
+            self.exact.setdefault(glob, tpl)
+            if not _GLOB_CHARS.isdisjoint(glob):
+                self.globs.append(tpl)
+
+    def find_glob(self, resource_id: str) -> Optional[pb.ResourceTemplate]:
+        """The first glob template matching the id, else None."""
+        for tpl in self.globs:
+            if fnmatch.fnmatchcase(resource_id, tpl.identifier_glob):
+                return tpl
+        return None
+
+    def find(self, resource_id: str) -> Optional[pb.ResourceTemplate]:
+        """find_template(repo, resource_id) for the indexed repository."""
+        tpl = self.exact.get(resource_id)
+        return tpl if tpl is not None else self.find_glob(resource_id)
 
 
 def validate_get_capacity_request(req: pb.GetCapacityRequest) -> Optional[str]:

@@ -304,6 +304,8 @@ class CapacityServer(CapacityServicer):
         self.last_restore: Optional[dict] = None
         self.current_master = ""
         self.config: Optional[pb.ResourceRepository] = None
+        # find_template's answers for self.config, set with it.
+        self._templates: Optional[config_mod.TemplateIndex] = None
         self.is_configured = asyncio.Event()
         self.parent_addr = parent_addr
         self.parent_tls = parent_tls
@@ -609,9 +611,11 @@ class CapacityServer(CapacityServicer):
         self,
         repo: pb.ResourceRepository,
         expiry_times: Optional[Dict[str, float]] = None,
-    ) -> None:
+    ) -> "tuple[int, int]":
         """Install a new ResourceRepository (validating it); the first load
-        also enters the election."""
+        also enters the election. Returns how many existing resources took
+        their template by exact id and how many by a glob ((0, 0) on the
+        first load, which has none)."""
         config_mod.validate_repository(repo)
         if repo.groups and self.mode != "batch":
             # Group caps are enforced only by the batch tick: a grouped
@@ -626,6 +630,7 @@ class CapacityServer(CapacityServicer):
             )
         first_time = self.config is None
         self.config = repo
+        self._templates = config_mod.TemplateIndex(repo)
         self._config_epoch += 1
         self._push_groups()
         if first_time:
@@ -633,13 +638,17 @@ class CapacityServer(CapacityServicer):
             await self.election.run(
                 self.id, self._on_is_master, self._on_current_master
             )
-            return
+            return 0, 0
         expiry_times = expiry_times or {}
+        index = self._templates
+        globbed = 0
         for resource_id, res in self.resources.items():
-            res.load_config(
-                config_mod.find_template(repo, resource_id),
-                expiry_times.get(resource_id),
-            )
+            tpl = index.exact.get(resource_id)
+            if tpl is None:
+                globbed += 1
+                tpl = index.find_glob(resource_id)
+            res.load_config(tpl, expiry_times.get(resource_id))
+        return len(self.resources) - globbed, globbed
 
     def _reset_store_engine(self) -> None:
         """A fresh native engine: dropping the resources map must also
@@ -742,7 +751,7 @@ class CapacityServer(CapacityServicer):
         res = self.resources.get(resource_id)
         if res is not None:
             return res
-        template = config_mod.find_template(self.config, resource_id)
+        template = self._templates.find(resource_id)
         algo = template.algorithm
         if algo.HasField("learning_mode_duration"):
             duration = float(algo.learning_mode_duration)
@@ -2290,8 +2299,10 @@ class CapacityServer(CapacityServicer):
         Traced as `server.parent_exchange` (arg `outcome`) around its
         three parts: `server.band_aggregate` (the request, args
         `resources` and `bands`), `server.parent_refresh` (the RPC) and
-        `server.parent_install` (the grants' templates loaded, arg
-        `templates`); the registry counts exchanges by outcome."""
+        `server.parent_install` (the grants' templates loaded, args
+        `templates`, and `exact` and `globbed`: the resources that took
+        their template by exact id and by a glob); the registry counts
+        exchanges by outcome."""
         tracer = trace_mod.default_tracer()
         with tracer.span(
             "server.parent_exchange", cat="server",
@@ -2378,10 +2389,13 @@ class CapacityServer(CapacityServicer):
             with tracer.span(
                 "server.parent_install", cat="server",
                 args={"server": self.id, "templates": len(templates)},
-            ):
-                await self.load_config(
+            ) as span:
+                exact, globbed = await self.load_config(
                     pb.ResourceRepository(resources=templates), expiry_times
                 )
+                if span is not None:
+                    span.args["exact"] = exact
+                    span.args["globbed"] = globbed
         except config_mod.ConfigError:
             log.exception("%s: loading parent-derived config failed", self.id)
             return (

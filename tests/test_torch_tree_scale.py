@@ -130,9 +130,9 @@ def test_bfloat16_reference_moves_every_number():
 
 
 class Parent(CapacityServicer):
-    """Grants every requested resource 10 (mode "ok"), aborts the RPC
-    ("fail"), or answers an algorithm the config validation refuses
-    ("bad")."""
+    """Grants every requested resource 10 (mode "ok"), only the first one
+    ("partial"), aborts the RPC ("fail"), or answers an algorithm the
+    config validation refuses ("bad")."""
 
     def __init__(self):
         self.mode = "ok"
@@ -143,7 +143,10 @@ class Parent(CapacityServicer):
         if self.mode == "fail":
             await context.abort(grpc.StatusCode.INVALID_ARGUMENT, "refused")
         out = pb.GetServerCapacityResponse()
-        for r in request.resource:
+        granted = request.resource
+        if self.mode == "partial":
+            granted = granted[:1]
+        for r in granted:
             pr = out.response.add(resource_id=r.resource_id)
             pr.gets.capacity = 10.0
             pr.gets.expiry_time = 2_000_000_000
@@ -220,7 +223,8 @@ def _exchanges(outcome):
 
 
 @pytest.mark.parametrize("mode,outcome", [
-    ("ok", "ok"), ("fail", "rpc_error"), ("bad", "config_error")])
+    ("ok", "ok"), ("partial", "ok"), ("fail", "rpc_error"),
+    ("bad", "config_error")])
 def test_exchange_spans_and_counter(tracer, mode, outcome):
     before = _exchanges(outcome)
 
@@ -235,7 +239,7 @@ def test_exchange_spans_and_counter(tracer, mode, outcome):
             await parent.stop(None)
 
     _interval, retry = asyncio.run(body())
-    assert (retry == 0) is (mode == "ok")
+    assert (retry == 0) is (outcome == "ok")
     spans = {e.name: e for e in tracer.snapshot() if e.ph == "X"}
     top = spans["server.parent_exchange"]
     assert top.args["outcome"] == outcome and top.args["server"] == "mid"
@@ -249,9 +253,15 @@ def test_exchange_spans_and_counter(tracer, mode, outcome):
     else:
         install = spans["server.parent_install"]
         assert install.parent_id == top.span_id
-        # The two resources' templates and the default "*".
-        assert install.args["templates"] == 3
+        # The granted resources' templates and the default "*".
+        granted = 1 if mode == "partial" else 2
+        assert install.args["templates"] == granted + 1
         assert ("error" in install.args) is (mode == "bad")
+        if mode != "bad":
+            # A granted resource takes its own template by exact id; the
+            # one left out falls to the "*" glob.
+            assert install.args["exact"] == granted
+            assert install.args["globbed"] == 2 - granted
     assert tracer.open_spans() == []
     assert _exchanges(outcome) == before + 1
 
