@@ -862,15 +862,11 @@ def _check_server_grants(torch, server, resources):
         oracle_row,
     )
     from doorman_tpu_torch.solver import dense_cuda
-    from doorman_tpu_torch.solver.dense import DenseBatch, solve_dense
+    from doorman_tpu_torch.solver.dense import solve_dense
 
     solver = server._resident
     cfg = solver._config
-    batch = DenseBatch(
-        wants=solver._wants, has=solver._has, subclients=solver._sub,
-        active=solver._act, capacity=cfg.cap_d, algo_kind=cfg.kind_d,
-        learning=cfg.learn_d, static_capacity=cfg.statc_d,
-    )
+    batch = solver.table()
     f64 = solver._tdtype == torch.float64
     bound = F64_RTOL if f64 else F32_PARITY_REL_BOUND
     saved = dict(dense_cuda.LAUNCHES)
@@ -886,7 +882,7 @@ def _check_server_grants(torch, server, resources):
     # in scope (overloaded proportional rows, whose grant sits on the
     # free-capacity clamp and moves by an ulp a tick, as in the
     # reference: tests/test_torch_scope.py) are within the parity bound.
-    has = solver._has.double().cpu().numpy()
+    has = batch.has.double().cpu().numpy()
     cap_h = cfg.cap_h.astype(np.float64)
     frontier = set(solver._scope.ids().tolist())
     rng = np.random.default_rng(9)
@@ -1271,7 +1267,6 @@ def phase_tracked(torch, server):
     import numpy as np
 
     from doorman_tpu_torch.solver import dense_cuda
-    from doorman_tpu_torch.solver.dense import DenseBatch
     from doorman_tpu_torch.solver.resident import ResidentDenseSolver
 
     resources = list(server.resources.values())
@@ -1297,23 +1292,21 @@ def phase_tracked(torch, server):
     launches = dict(dense_cuda.LAUNCHES)
     check(launches["k2"] > 0, "K2 never launched on the tracked path")
     check(changed > 0, "tracked path reported no changed rows")
-    check(bool(torch.isfinite(solver._has).all()), "non-finite grants")
+    check(bool(torch.isfinite(solver.table().has).all()),
+          "non-finite grants")
     # K2 once more on the tracked solver's own full tables and resident
     # previous-grants table, with the tick's 20% delivery.
     cfg = solver._config
-    batch = DenseBatch(
-        wants=solver._wants, has=solver._has, subclients=solver._sub,
-        active=solver._act, capacity=cfg.cap_d, algo_kind=cfg.kind_d,
-        learning=cfg.learn_d, static_capacity=cfg.statc_d,
-    )
+    batch = solver.table()
     g = torch.Generator(device="cpu").manual_seed(5)
     delivered = (torch.rand(batch.wants.shape[0], generator=g) < 0.2).cuda()
+    prev = solver.prev_table()
     (_g, _p, chg), _abs, rel = _check_k2(
-        torch, batch, solver._prev, delivered, "tracked tables"
+        torch, batch, prev, delivered, "tracked tables"
     )
     say(f"phase tracked: 6 full ticks with delta tracking on, launches "
         f"{launches}, {changed} changed rids delivered; K2 on the tracked "
-        f"tables {list(batch.wants.shape)} {str(solver._prev.dtype)[6:]} "
+        f"tables {list(batch.wants.shape)} {str(prev.dtype)[6:]} "
         f"prev: vs plain {rel:.3g} relative, == K1, changed/prev_new exact "
         f"({int(chg.sum())} changed rows)")
     return launches
@@ -1821,7 +1814,8 @@ async def _drive_wide(torch, label, n_wide, clients, dtype_name, ticks,
             walls.append(time.perf_counter() - t)
             wide = server._resident_wide
             if i == 0:
-                first = wide._has.clone()  # the first (full) solve's grants
+                # The first (full) solve's grants.
+                first = wide.table().has.clone()
             modes.append(wide.last_solve_mode)
             scopes.append(wide.last_scope["rows"])
         await server.flush_ticks()
@@ -1847,7 +1841,7 @@ def _check_wide(torch, run, label, lanes=False):
         oracle_row,
     )
     from doorman_tpu_torch.core.resource import algo_kind_for, static_param
-    from doorman_tpu_torch.solver.dense import ChunkedDenseBatch, solve_chunked
+    from doorman_tpu_torch.solver.dense import solve_chunked
 
     server, res = run["server"], run["res"]
     wide = server._resident_wide
@@ -1859,7 +1853,7 @@ def _check_wide(torch, run, label, lanes=False):
           "narrow resources")
     W = wide._W
     first = run["first"].double().cpu().numpy().reshape(-1)
-    final = wide._has.double().cpu().numpy().reshape(-1)
+    final = wide.table().has.double().cpu().numpy().reshape(-1)
     rng = np.random.default_rng(17)
     frontier = set(wide._scope.ids().tolist())
     worst_oracle = 0.0
@@ -1894,12 +1888,7 @@ def _check_wide(torch, run, label, lanes=False):
               f"{label} {r.id}: store differs from the device grants")
     # The chunked solve twice on the server's tables: the same bits.
     cfg = wide._config
-    batch = ChunkedDenseBatch(
-        wants=wide._wants, has=wide._has, subclients=wide._sub,
-        active=wide._act, row_seg=wide._row_seg_d, capacity=cfg.cap_d,
-        algo_kind=cfg.kind_d, learning=cfg.learn_d,
-        static_capacity=cfg.statc_d, lengths=wide._seg_len_d,
-    )
+    batch = wide.table()
     lanes_present = cfg.lanes()
     a = solve_chunked(batch, lanes=lanes_present)
     b = solve_chunked(batch, lanes=lanes_present)
@@ -3941,19 +3930,11 @@ def kernel_line(torch, server, tracked_launches, main_launches, worst,
     they had a warp layout."""
     from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
     from doorman_tpu_torch.solver import dense_cuda
-    from doorman_tpu_torch.solver.dense import (
-        DenseBatch,
-        fused_tick_plain,
-        solve_dense,
-    )
+    from doorman_tpu_torch.solver.dense import fused_tick_plain, solve_dense
 
     solver = server._resident
     cfg = solver._config
-    batch = DenseBatch(
-        wants=solver._wants, has=solver._has, subclients=solver._sub,
-        active=solver._act, capacity=cfg.cap_d, algo_kind=cfg.kind_d,
-        learning=cfg.learn_d, static_capacity=cfg.statc_d,
-    )
+    batch = solver.table()
     R, K = batch.wants.shape
     check(dense_cuda.k1_layout(K) == "warp",
           f"the server's K = {K} is not a warp row")
@@ -3973,7 +3954,7 @@ def kernel_line(torch, server, tracked_launches, main_launches, worst,
     err1 = (k1 - p1).abs().max().item()
     # K2 at the same shape, with prev = the resident has where a third
     # of the rows moved since their last delivery; f32 and bf16 prev.
-    prev = solver._has.clone()
+    prev = batch.has.clone()
     prev[::3] += 1.0
     err2 = 0.0
     for pdt in (torch.float32, torch.bfloat16):
@@ -4392,16 +4373,12 @@ def _tree_root_kernels(torch, server, dtype_name):
     not counted."""
     from doorman_tpu_torch.algorithms.tick import F32_PARITY_REL_BOUND
     from doorman_tpu_torch.solver import dense_cuda
-    from doorman_tpu_torch.solver.dense import DenseBatch, solve_dense
+    from doorman_tpu_torch.solver.dense import solve_dense
     from doorman_tpu_torch.solver.priority import solve_priority
 
     solver = server._resident
     cfg = solver._config
-    batch = DenseBatch(
-        wants=solver._wants, has=solver._has, subclients=solver._sub,
-        active=solver._act, capacity=cfg.cap_d, algo_kind=cfg.kind_d,
-        learning=cfg.learn_d, static_capacity=cfg.statc_d,
-    )
+    batch = solver.table()
     bound = F64_RTOL if dtype_name == "f64" else F32_PARITY_REL_BOUND
     saved = dict(dense_cuda.LAUNCHES)
     k1 = dense_cuda.solve_dense_k1(batch)
@@ -4418,7 +4395,7 @@ def _tree_root_kernels(torch, server, dtype_name):
     if solver.delta_tracking:
         delivered = torch.ones(batch.wants.shape[0], dtype=torch.bool,
                                device=batch.wants.device)
-        _res, _abs, out["k2"] = _check_k2(torch, batch, solver._prev,
+        _res, _abs, out["k2"] = _check_k2(torch, batch, solver.prev_table(),
                                           delivered, "tree-root")
     return out
 
@@ -4938,20 +4915,15 @@ def _profiled_kernels(torch, lane_server, prio):
         stop_torch_capture,
     )
     from doorman_tpu_torch.solver import dense_cuda
-    from doorman_tpu_torch.solver.dense import DenseBatch
     from doorman_tpu_torch.solver.priority_cuda import alloc_banded_k3
 
     solver = lane_server._resident
     cfg = solver._config
-    batch = DenseBatch(
-        wants=solver._wants, has=solver._has, subclients=solver._sub,
-        active=solver._act, capacity=cfg.cap_d, algo_kind=cfg.kind_d,
-        learning=cfg.learn_d, static_capacity=cfg.statc_d,
-    )
+    batch = solver.table()
     R = batch.wants.shape[0]
     g = torch.Generator(device="cpu").manual_seed(4)
     delivered = (torch.rand(R, generator=g) < 0.2).cuda()
-    prev = solver._has.clone()
+    prev = batch.has.clone()
     prev[::3] += 1.0
     snap = prio["server"]._solver.last_snapshot.priority_part
     b, nb = snap.batch, snap.num_bands
@@ -6870,8 +6842,8 @@ async def _admission_fused(torch, card):
                               _packed_has(un["server"]))
             check(diff == 0, f"admission-fused: tick {tick + 1}: {diff} "
                   "leases differ between the twins' stores")
-            check(torch.equal(fu["server"]._resident._has,
-                              un["server"]._resident._has),
+            check(torch.equal(fu["server"]._resident.table().has,
+                              un["server"]._resident.table().has),
                   f"admission-fused: tick {tick + 1}: device grants differ")
             check(fu["launches"][-1] == un["launches"][-1],
                   f"admission-fused: tick {tick + 1}: launches "
@@ -7708,8 +7680,9 @@ def _device_rows(torch, server, resources):
     FED_C lanes), on the host."""
     solver = server._resident
     rows = [solver._row_lut[res.store._rid] for res in resources]
-    idx = torch.as_tensor(rows, dtype=torch.long, device=solver._has.device)
-    return solver._has[idx, :FED_C].cpu()
+    has = solver.table().has
+    idx = torch.as_tensor(rows, dtype=torch.long, device=has.device)
+    return has[idx, :FED_C].cpu()
 
 
 def _carry(servers, moved):
@@ -7762,7 +7735,7 @@ def _moved_oracle_err(torch, server, resources, inputs):
     solver = server._resident
     cfg = solver._config
     grants = _device_rows(torch, server, resources).double().numpy()
-    statc = cfg.statc_d.double().cpu().numpy()
+    statc = solver.table().static_capacity.double().cpu().numpy()
     worst = 0.0
     for i, res in enumerate(resources):
         row = solver._row_lut[res.store._rid]

@@ -135,14 +135,20 @@ class Combine:
         an index tensor) and every other group and process holds its
         own disjoint part; `fill` (0 for sum, -inf for max) everywhere
         else. Combining disjoint supports adds only identities, so the
-        assembled vector is bitwise the one a single device computes."""
+        assembled vector is bitwise the one a single device computes.
+        A lone group whose values cover the whole vector has nothing to
+        assemble: they are returned as they are."""
+        alone = self._barrier is None and not self.cross_process
+        if alone and isinstance(positions, int) and positions == 0 and (
+                values.shape[0] == size):
+            return values
         vec = torch.full((size,), fill, dtype=values.dtype,
                          device=values.device)
         if isinstance(positions, int):
             vec[positions: positions + values.shape[0]] = values
         else:
             vec[positions] = values
-        if self._barrier is None and not self.cross_process:
+        if alone:
             return vec
         return self._meet(g, vec, op)
 

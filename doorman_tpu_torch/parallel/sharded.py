@@ -369,7 +369,8 @@ def scoped_chunk_reduces(combine: Combine, g: int, gpos, row_seg_compact,
     """The SCOPED variant of resident_chunk_reduces: each device group
     assembles its COMPACT per-row totals into the global compact row
     vector [Cbg] at the host-computed global compact positions `gpos`
-    (one per local compact row); every position is owned by exactly one
+    (one per local compact row, or the first of them as an int when
+    they are consecutive); every position is owned by exactly one
     shard, so the combine stays exact, and the segment op runs over the
     compact row->segment map in global row order — the partial sums of a
     straddling segment add in exactly the full reduce's order. The

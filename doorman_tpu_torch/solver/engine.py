@@ -7,20 +7,25 @@ doorman_tpu/solver/engine.py).
   solve     — the table solve, shaped by host knowledge from the config
               mirror (`ConfigTable`);
   delivery  — the rotation-and-dirty download back into the store of
-              record (`RotationCursor`, `TickEngineBase.collect`), with
+              record (`_rotation_rows`, `TickEngineBase.collect`), with
               pipelining owned by `PipelinedTicker`.
 
 The host classes are copies of the reference's; the device seams are
 PyTorch: `place` (one counted host->device copy), `count_launch`, and
-the landing of a tick's delivery slab (utils.transfer).
+the landing of a tick's delivery slabs (utils.transfer).
 
-With a parallel.mesh Mesh the table rows shard over the mesh
-(solver.resident_mesh.MeshRows): per-row tables and config land one
-allocation per device group, viewed apart per shard (`_put_rows`),
-per-segment config lands replicated on every device group
-(`_put_rep`), the rotation walks per-shard cursors, and a mesh tick
-lands one delivery slab per device group (`_land_mesh`), its solve-moved
-mask in the slab beside the grants.
+There is one tick tail. The table rows always shard over a mesh
+(solver.resident_mesh.MeshRows): the caller's parallel.mesh Mesh, or
+without one a one-shard mesh over the solver's device — the single-
+device tick is that mesh's one-shard case, not a second tail. Per-row
+tables and config land one allocation per device group, viewed apart
+per shard (`_put_rows`); per-segment config lands replicated on every
+device group (`_put_rep`); the rotation walks per-shard cursors; a tick
+stages one buffer and one host->device copy per device group (a
+round-trip tick: one copy per block; `_upload`) and lands one delivery
+slab per device group (`_land`), its changed and solve-moved masks in
+the slab beside the grants. Only a caller's mesh publishes per-shard
+accounting (`_account_shards`, `shard_launches`).
 """
 
 from __future__ import annotations
@@ -74,6 +79,20 @@ def ceil_to(n: int, m: int) -> int:
     return max(m, ((n + m - 1) // m) * m)
 
 
+def cat_rows(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Row blocks joined in order on the first one's device; a single
+    block is returned as it is (no copy)."""
+    if len(parts) == 1:
+        return parts[0]
+    dev = parts[0].device
+    return torch.cat([p if p.device == dev else p.to(dev) for p in parts])
+
+
+def _joined(parts: Sequence[np.ndarray]) -> np.ndarray:
+    """Host blocks joined in order; a single block as it is."""
+    return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+
 def place(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """The tick engine's single placement chokepoint: every device table,
     config column and staged per-tick buffer lands through here (one
@@ -92,8 +111,13 @@ def bf16_exact(arr: np.ndarray) -> bool:
     (f32) or a quarter (f64) of the upload bytes."""
     if arr.size == 0:
         return False
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    return bool((t.to(torch.bfloat16).to(t.dtype) == t).all())
+    # bfloat16 is float32's upper half: a value round-trips iff it is a
+    # float32 (NaN never compares equal; a float64 past float32's range
+    # casts to inf) whose low 16 bits are zero.
+    with np.errstate(over="ignore", invalid="ignore"):
+        f32 = arr.astype(np.float32, copy=False)
+    return not (f32.view(np.uint32) & 0xFFFF).any() and bool(
+        (f32 == arr).all())
 
 
 def compact_index_dtype(limit: int):
@@ -111,10 +135,17 @@ def bf16_bytes(arr: np.ndarray) -> np.ndarray:
 
 @dataclass
 class TickHandle:
-    """One in-flight tick: the delivery download plus everything collect()
-    needs to write it back. out=None marks an idle tick."""
+    """One in-flight tick: the delivery downloads plus everything
+    collect() needs to write them back. parts=None marks an idle tick."""
 
-    out: "transfer.Download | None"  # the delivery slab [rows, kfill]
+    # One delivery slab download per device group: its shards' delivered
+    # rows back to back, then — with `tracked` — their changed masks,
+    # then their solve-moved masks (narrow: per shard, `scope_counts`
+    # slots each; wide: the scope's per-segment mask, `moved_rows` rows
+    # of group 0's slab); masks are {0,1} in the download dtype,
+    # flattened slot-major. Shard-major order IS the sorted order of
+    # sel_rows and scope_ids.
+    parts: "list | None"
     sel_rows: np.ndarray  # [n_sel] row indices (unique)
     rids: np.ndarray  # [n_sel] engine resource handles
     versions: np.ndarray  # [n_sel] membership epochs at upload
@@ -124,32 +155,21 @@ class TickHandle:
     collected: bool = False
     fused_windows: int = 0
     fused_rows: int = 0
-    # The slab carries, after the delivered grant rows, `mask_rows` rows
-    # of the changed mask (delta tracking) and then `moved_rows` rows of
-    # the scoped solve's per-scope-row moved mask, {0,1} in the
-    # download dtype, flattened slot-major.
-    mask_rows: int = 0
     scope_ids: "np.ndarray | None" = None
     moved_rows: int = 0
     seq: int = 0
     # Wide (chunked) ticks only: the chunk number of each delivered row
     # (solver.resident_wide writes back with apply_chunks).
     chunks: "np.ndarray | None" = None
-    # Mesh ticks only: one delivery slab per device group (`out` is
-    # None), each its shards' delivered rows back to back, then — with
-    # `tracked` — their changed masks, then their solve-moved masks
-    # (narrow: per shard, `scope_counts` slots each; wide: the scope's
-    # per-segment mask, `moved_rows` rows of group 0's slab). Shard-major
-    # order IS the sorted order of sel_rows and scope_ids.
-    parts: "list | None" = None
-    shard_counts: "np.ndarray | None" = None
-    scope_counts: "np.ndarray | None" = None
+    # Per shard: delivered rows and (narrow scoped ticks) scope rows.
+    shard_counts: "list | None" = None
+    scope_counts: "list | None" = None
     tracked: bool = False
 
 
 def idle_handle(now: float) -> TickHandle:
     return TickHandle(
-        out=None,
+        parts=None,
         sel_rows=np.zeros(0, np.int64),
         rids=np.zeros(0, np.int32),
         versions=np.zeros(0, np.uint64),
@@ -172,6 +192,7 @@ class ConfigTable:
         self.n_real = 0
         self.cap_h = self.learn_h = self.kind_h = self.statc_h = None
         self.cap_d = self.kind_d = self.statc_d = self.learn_d = None
+        self._lanes = frozenset()
         self.refresh = None
         self._cap_raw = self._learn_end = self._parent_exp = None
         self._epoch = -1
@@ -181,13 +202,13 @@ class ConfigTable:
         re-reads and re-places everything."""
         self.pad = pad
         self.cap_h = self.learn_h = self.kind_h = self.statc_h = None
+        self._lanes = frozenset()
         self._cap_raw = None
 
     def lanes(self) -> frozenset:
-        """The AlgoKind values present among the real rows."""
-        if self.kind_h is None or self.n_real == 0:
-            return frozenset()
-        return frozenset(int(k) for k in np.unique(self.kind_h[: self.n_real]))
+        """The AlgoKind values present among the real rows (read once a
+        config epoch, where the kind vector is read)."""
+        return self._lanes
 
     def derived_rotate(self, tick_interval: "float | None") -> "int | None":
         """Delivery covers the whole table at least once per refresh
@@ -224,6 +245,8 @@ class ConfigTable:
         self.refresh = refresh
         if self.kind_h is None or not np.array_equal(kind, self.kind_h):
             self.kind_h, self.kind_d = kind, self._put(kind)
+        self._lanes = frozenset(
+            int(k) for k in np.unique(kind[: self.n_real]))
         if self.statc_h is None or not np.array_equal(statc, self.statc_h):
             self.statc_h, self.statc_d = statc, self._put(statc)
 
@@ -252,34 +275,6 @@ class ConfigTable:
         if self.learn_h is None or not np.array_equal(learn, self.learn_h):
             self.learn_h, self.learn_d = learn, self._put(learn)
         return changed
-
-
-class RotationCursor:
-    """The delivery rotation: every tick delivers 1/rotate of the table so
-    the whole store of record refreshes once per `rotate` ticks."""
-
-    def __init__(self):
-        self.cursor = 0
-        self.shard_cursors: "np.ndarray | None" = None
-
-    def reset(self, n_dev: "int | None" = None) -> None:
-        """Mesh: one cursor per shard, each walking its own real rows, so
-        every tick's delivery stays balanced across shards."""
-        self.cursor = 0
-        self.shard_cursors = np.zeros(n_dev, np.int64) if n_dev else None
-
-    def rows(self, n_real: int, rotate: int, meshrows=None,
-             rows_per_shard: int = 0) -> np.ndarray:
-        if meshrows is None or self.shard_cursors is None:
-            rot_block = -(-n_real // rotate) if n_real else 1
-            rot = (
-                self.cursor + np.arange(rot_block, dtype=np.int64)
-            ) % max(n_real, 1)
-            self.cursor = (self.cursor + rot_block) % max(n_real, 1)
-            return rot
-        return meshrows.rotation_rows(
-            self.shard_cursors, n_real, rows_per_shard, rotate
-        )
 
 
 class FusedStaging:
@@ -426,20 +421,24 @@ class TickEngineBase:
         self._device = device
         # A parallel.mesh Mesh shards the table rows (and the per-tick
         # staging and delivery) over its shards; `device` is then the
-        # first shard's.
-        self._mesh = mesh
-        self._meshrows = None
-        if mesh is not None:
-            from doorman_tpu_torch.parallel.combine import Combine
-            from doorman_tpu_torch.solver.resident_mesh import MeshRows
+        # first shard's. Without one the tables are a one-shard mesh
+        # over `device`: the same tail, one group of one shard.
+        from doorman_tpu_torch.parallel.combine import Combine
+        from doorman_tpu_torch.parallel.mesh import Mesh
+        from doorman_tpu_torch.solver.resident_mesh import MeshRows
 
-            self._meshrows = MeshRows(mesh)
-            self._combine = Combine(mesh)
-            # Kernel wrapper calls on CUDA shards, per shard (the
-            # wrappers' own counters, dense_cuda.LAUNCHES, sum them).
-            self.shard_launches = {
-                k: [0] * mesh.size for k in ("k1", "k2")
-            }
+        self._mesh = mesh
+        layout = mesh if mesh is not None else Mesh(
+            [device], [1], ("clients",))
+        self._meshrows = MeshRows(layout)
+        self._combine = Combine(layout)
+        self._cursors = np.zeros(self._meshrows.n_dev, np.int64)
+        # Kernel wrapper calls on CUDA shards, per shard (the wrappers'
+        # own counters, dense_cuda.LAUNCHES, sum them): a caller's mesh
+        # only, as every per-shard series.
+        self.shard_launches = None if mesh is None else {
+            k: [0] * mesh.size for k in ("k1", "k2")
+        }
         self._clock = clock
         self._tick_interval = tick_interval
         self._rotate_override: "int | None" = None
@@ -457,11 +456,9 @@ class TickEngineBase:
         self.last_tick_seconds = 0.0
         self._quiet_ticks = 0
         self._just_rebuilt = False
-        self._rotation = RotationCursor()
         self._config = ConfigTable(
             self._dtype,
-            self._put if mesh is None else (
-                self._put_rep if self.replicated_config else self._put_rows),
+            self._put_rep if self.replicated_config else self._put_rows,
         )
         self._track_deltas = False
         self._changed_lock = threading.Lock()
@@ -631,13 +628,10 @@ class TickEngineBase:
     def mesh(self):
         return self._mesh
 
-    def _put(self, arr):
-        return place(arr, self._device)
-
     def _put_groups(self, arr) -> list:
-        """Mesh row placement: an array of the padded table's rows lands
-        one copy per device group, holding that group's shards' rows
-        only (shard-major), in group order."""
+        """Row placement: an array of the padded table's rows lands one
+        copy per device group, holding that group's shards' rows only
+        (shard-major), in group order."""
         arr = np.asarray(arr)
         Rl = arr.shape[0] // self._meshrows.n_dev
         return [place(arr[first * Rl:(first + n) * Rl], dev)
@@ -652,13 +646,63 @@ class TickEngineBase:
                 for i in range(n)]
 
     def _put_rep(self, arr) -> list:
-        """Mesh replicated placement (per-segment config): one copy per
-        device group, in group order."""
+        """Replicated placement (per-segment config): one copy per device
+        group, in group order."""
         return [place(arr, dev) for dev, _f, _n in self._meshrows.groups]
 
     def _count_shard(self, kernel: str, shard: int, device) -> None:
-        if device.type == "cuda":
+        if self.shard_launches is not None and device.type == "cuda":
             self.shard_launches[kernel][shard] += 1
+
+    def _account_shards(self, ph: PhaseRecorder, per_shard: Callable) -> None:
+        """Per-shard payload bytes of a tick (obs.phases.shard_bytes;
+        `per_shard()` gives the upload and download arrays), for a
+        caller's mesh only: an unmeshed solver has no shard series."""
+        if self._mesh is not None:
+            upload, download = per_shard()
+            ph.shard_bytes("upload", upload)
+            ph.shard_bytes("download", download)
+
+    def _reset_layout(self, rows: int) -> int:
+        """A rebuild's padded row count: equal row blocks per shard, and
+        fresh per-shard rotation cursors (the old ones indexed the old
+        layout)."""
+        self._cursors = np.zeros(self._meshrows.n_dev, np.int64)
+        return self._meshrows.round_rows(rows)
+
+    def _upload(self, ph: PhaseRecorder, blocks: Sequence[np.ndarray],
+                extra: "Sequence[np.ndarray] | None" = None) -> list:
+        """Stage and place one tick's host blocks: `blocks` are shard-
+        major [n_dev, ...] arrays, of which each device group takes its
+        own shards' rows, then its `extra` block, if any. A fused tick
+        packs a group's blocks into one buffer and one host->device
+        copy (every block's byte size is a multiple of 8, so each view
+        stays aligned); a round-trip tick places each block on its own.
+        Laps "staging" once the host side is packed and, round trip,
+        "upload" after the placements. Returns per group its blocks'
+        device views as flat bytes."""
+        fused = self._fused
+        host = []
+        for g, (_dev, first, n) in enumerate(self._meshrows.groups):
+            grp = [b[first:first + n].reshape(-1).view(np.uint8)
+                   for b in blocks]
+            if extra is not None:
+                grp.append(extra[g].view(np.uint8))
+            host.append((grp, np.concatenate(grp) if fused else None))
+        ph.lap("staging")
+        views = []
+        for (dev, _f, _n), (grp, buf) in zip(self._meshrows.groups, host):
+            if buf is None:
+                views.append([place(b, dev) for b in grp])
+                continue
+            buf_d, o, cut = place(buf, dev), 0, []
+            for b in grp:
+                cut.append(buf_d[o: o + b.size])
+                o += b.size
+            views.append(cut)
+        if not fused:
+            ph.lap("upload")
+        return views
 
     def _anomaly(self, kind: str, detail: dict) -> None:
         log.warning("%s: %s: %s", type(self).__name__, kind, detail)
@@ -678,9 +722,13 @@ class TickEngineBase:
                 self._rotate = derived
         return changed
 
-    def _rotation_rows(self, n_real: int, rows_per_shard: int = 0) -> np.ndarray:
-        return self._rotation.rows(
-            n_real, self.rotate_ticks, self._meshrows, rows_per_shard
+    def _rotation_rows(self, n_real: int) -> np.ndarray:
+        """This tick's rotation slice: each shard advances its own cursor
+        through its real rows of the padded table's `_Rp`
+        (MeshRows.rotation_rows)."""
+        mr = self._meshrows
+        return mr.rotation_rows(
+            self._cursors, n_real, self._Rp // mr.n_dev, self.rotate_ticks
         )
 
     # -- the stage skeleton -------------------------------------------
@@ -735,35 +783,14 @@ class TickEngineBase:
         if handle.collected:
             return 0
         handle.collected = True
-        if handle.out is None and handle.parts is None:
+        if handle.parts is None:
             self.ticks += 1
             self.idle_ticks += 1
             self.last_tick_seconds = self._clock() - handle.dispatched_at
             return 0
         ph = PhaseRecorder(self.component, self.phase_s)
-        if handle.parts is not None:
-            gets, changed, moved = self._land_mesh(handle)
-            ph.lap("download")
-            return self._finish_collect(handle, gets, changed, moved, ph)
-        slab = transfer.land(handle.out)
-        n_slots = slab.shape[0] - handle.mask_rows - handle.moved_rows
-        gets = slab[: handle.n_sel]
-        changed = (
-            slab[n_slots : n_slots + handle.mask_rows].reshape(-1)[: handle.n_sel]
-            != 0.0
-        ) if handle.mask_rows else None
-        moved = None
-        if handle.moved_rows and handle.scope_ids is not None:
-            moved = (
-                slab[n_slots + handle.mask_rows :].reshape(-1)[
-                    : len(handle.scope_ids)
-                ]
-                != 0.0
-            )
+        gets, changed, moved = self._land(handle)
         ph.lap("download")
-        return self._finish_collect(handle, gets, changed, moved, ph)
-
-    def _finish_collect(self, handle, gets, changed, moved, ph) -> int:
         applied = self._apply_grants(handle, gets)
         ph.lap("apply")
         if changed is not None:
@@ -780,14 +807,14 @@ class TickEngineBase:
         self.last_tick_seconds = self._clock() - handle.dispatched_at
         return applied
 
-    def _land_mesh(self, handle: TickHandle):
-        """Land a mesh tick's per-group slabs: (gets [n_sel, W], changed
+    def _land(self, handle: TickHandle):
+        """Land a tick's per-group slabs: (gets [n_sel, W], changed
         [n_sel] or None, moved aligned with scope_ids or None)."""
         gets, changed, moved = [], [], []
         for (_dev, first, n), part in zip(self._meshrows.groups, handle.parts):
             slab = transfer.land(part)
             W = slab.shape[1]
-            n_sel = int(handle.shard_counts[first:first + n].sum())
+            n_sel = sum(handle.shard_counts[first:first + n])
             gets.append(slab[:n_sel])
             o = n_sel
             if handle.tracked:
@@ -795,7 +822,7 @@ class TickEngineBase:
                 changed.append(slab[o:o + rows].reshape(-1)[:n_sel] != 0.0)
                 o += rows
             if handle.scope_counts is not None:
-                n_sc = int(handle.scope_counts[first:first + n].sum())
+                n_sc = sum(handle.scope_counts[first:first + n])
                 rows = -(-n_sc // W)
                 moved.append(slab[o:o + rows].reshape(-1)[:n_sc] != 0.0)
             elif handle.moved_rows and first == 0:
@@ -803,12 +830,11 @@ class TickEngineBase:
                     slab[o:o + handle.moved_rows].reshape(-1)[
                         : len(handle.scope_ids)] != 0.0
                 )
-        W = gets[0].shape[1] if gets else 1
         return (
-            np.concatenate(gets) if gets else np.zeros((0, W)),
-            np.concatenate(changed) if handle.tracked else None,
-            np.concatenate(moved)
-            if moved and handle.scope_ids is not None else None,
+            _joined(gets),
+            _joined(changed) if handle.tracked else None,
+            _joined(moved) if moved and handle.scope_ids is not None
+            else None,
         )
 
     def step(

@@ -1,6 +1,5 @@
 """Device-resident steady-state tick solver, narrow rows (port of
-doorman_tpu/solver/resident.py: the fused tick and the round-trip tick,
-on one device or row-sharded over a mesh).
+doorman_tpu/solver/resident.py: the fused tick and the round-trip tick).
 
 The dense [R, K] demand tables stay RESIDENT on the device between
 ticks and only what changed moves:
@@ -9,13 +8,13 @@ ticks and only what changed moves:
             (the native engine tracks dirtiness per resource), packed on
             the host into ONE uint8 buffer — int32 indices, the
             wants-only block (bf16 when that round-trips exactly), the
-            full-row has/subclients block, the scope indices, the active
-            flags — and sent with one host->device copy; the tick views
-            the blocks apart at static byte offsets and scatters them
-            into the tables in place.
+            full-row has/subclients block, the active flags, the scope
+            indices — and sent with one host->device copy; the tick
+            views the blocks apart at static byte offsets and scatters
+            them into the tables in place.
   solve:    scoped by default to the dirty rows plus the not-yet-
-            converged frontier (engine.ScopeTracker): K1 solves those
-            rows straight out of the resident tables and the fresh
+            converged frontier (engine.ScopeTracker): K1 solves exactly
+            those rows straight out of the resident tables and the fresh
             grants are written back into the resident grant table; any
             escalation (rebuild, config epoch/drift, expiry sweep) solves
             the full table — K1, or K2 when delta tracking is on. `has`
@@ -32,19 +31,20 @@ K1 over the full table every tick (scope reason "round-trip") and, with
 delta tracking, the changed mask compared in plain torch ops rather
 than K2 — byte-identical stores and changed rows.
 
+There is one tail (`_stage`). The tables shard their rows over a mesh
+(solver.resident_mesh): the caller's parallel.mesh Mesh (`mesh=`), or
+without one a one-shard mesh over `device`, whose tick is the
+single-device tick above. Rows are independent, so a tick needs no
+combine: each device group of the mesh gets one packed staging buffer
+and one host->device copy a tick (its shards' blocks, shard-local
+indices), K1 — or K2 on a tracked full tick — runs once per shard over
+that shard's rows (the scoped tick: its own scope rows), and each
+group's delivery lands as one slab. The per-row arithmetic does not
+depend on the partition, so every mesh's stores are byte-identical.
+
 On a CUDA device the solve runs the hand-written kernels of
 solver.dense_cuda for f32 and f64 alike; on the CPU (device="cpu") the
 same wrappers take their plain PyTorch versions.
-
-With `mesh=` (a parallel.mesh Mesh) the tables shard their rows over
-the mesh's shards (solver.resident_mesh). Rows are independent, so a
-mesh tick needs no combine: each device group of the mesh gets one
-packed staging buffer and one host->device copy a tick (its shards'
-blocks, shard-local indices, viewed apart at static offsets), K1 — or
-K2 on a tracked full tick — runs once per shard over that shard's rows
-(the scoped tick: its own scope rows), and each group's delivery lands
-as one slab (`_stage_mesh`). Per-row arithmetic is the single-device
-tick's, so the stores are byte-identical to it.
 
 Write-back safety: each row records the resource's membership epoch at
 upload; `apply_dense` skips rows whose epoch moved while the solve was in
@@ -69,17 +69,15 @@ from doorman_tpu_torch.solver.engine import (
     TickHandle,
     bf16_bytes,
     bf16_exact,
+    cat_rows,
     ceil_to,
     count_launch,
-    place,
-    pow2_bucket,
 )
 from doorman_tpu_torch.solver.lanes import ITERATIVE_KINDS
 from doorman_tpu_torch.solver.resident_mesh import (
-    group_by_shard,
     mesh_device,
-    pad_shard_blocks,
-    pad_shard_indices,
+    pad_shard_block,
+    split_rows,
 )
 from doorman_tpu_torch.utils import transfer
 from doorman_tpu_torch.utils.backend import resolve_device
@@ -178,11 +176,10 @@ class ResidentDenseSolver(TickEngineBase):
         # the download dtype; None until enable_delta_tracking() and the
         # next rebuild.
         self._prev = None
-        # Plain-path iterative-lane rows of the full table (mesh: one
-        # per shard), rebuilt when the config's kind vector moves.
+        # Plain-path iterative-lane rows of each shard's table, rebuilt
+        # when the config's kind vector moves.
         self._iter_src = None
-        self._iter_rows_d = None
-        self._iter_layout = ()
+        self._iter_layout = []
 
     # -- build / rebuild ----------------------------------------------
 
@@ -198,14 +195,7 @@ class ResidentDenseSolver(TickEngineBase):
             self._row_lut[r.store._rid] = i
         # +1 reserves a padding row: ticks with no dirty rows scatter a
         # zero row there instead of disturbing a live row's has chain.
-        self._Rp = _round_rows(self._R + 1)
-        if self._meshrows is not None:
-            # Equal row blocks per shard; fresh per-shard rotation
-            # cursors (the old ones indexed the old partition).
-            self._Rp = self._meshrows.round_rows(self._Rp)
-            self._rotation.reset(self._meshrows.n_dev)
-        else:
-            self._rotation.reset()
+        self._Rp = self._reset_layout(_round_rows(self._R + 1))
         self._rids = np.full(self._Rp, -1, np.int32)
         for i, r in enumerate(rows):
             self._rids[i] = r.store._rid
@@ -234,20 +224,16 @@ class ResidentDenseSolver(TickEngineBase):
         self._K = K
         self._kfill = min(K, ceil_to(kmax, 8))
         dtype = self._dtype
-        put = self._put if self._meshrows is None else self._put_rows
-        self._wants = put(w.astype(dtype))
-        self._has = put(h.astype(dtype))
-        self._sub = put(s.astype(dtype))
-        self._act = put(act.astype(bool))
+        # Per shard, views of one allocation per device group.
+        self._wants = self._put_rows(w.astype(dtype))
+        self._has = self._put_rows(h.astype(dtype))
+        self._sub = self._put_rows(s.astype(dtype))
+        self._act = self._put_rows(act.astype(bool))
         # The previous-grants table starts at the store's current has, in
         # the download dtype (the compare sees the bytes the host would).
-        if not self._track_deltas:
-            self._prev = None
-        elif self._meshrows is None:
-            self._prev = self._put(h.astype(dtype)).to(self._out_tdtype)
-        else:
-            self._prev = [t.to(self._out_tdtype)
-                          for t in self._put_rows(h.astype(dtype))]
+        self._prev = [
+            t.to(self._out_tdtype) for t in self._put_rows(h.astype(dtype))
+        ] if self._track_deltas else None
         self._uploaded_versions = versions
         self._config.reset(self._Rp)
         self._iter_src = None
@@ -265,18 +251,23 @@ class ResidentDenseSolver(TickEngineBase):
             or any(a is not b for a, b in zip(resources, self._rows))
         )
 
-    def _full_lane_rows(self, lanes: frozenset):
-        """Plain path only: each iterative lane's rows of the full table
-        (the solve restricts each fill to them — byte-identical)."""
-        kind_h = self._config.kind_h
-        if kind_h is not self._iter_src:
-            self._iter_src = kind_h
-            layout, pos = _iter_positions(kind_h[: self._R], lanes)
-            self._iter_layout = layout
-            self._iter_rows_d = (
-                torch.from_numpy(pos) if pos is not None else None
-            )
-        return _lane_rows(self._iter_layout, self._iter_rows_d)
+    def table(self) -> DenseBatch:
+        """The whole resident table as one DenseBatch, rows in table
+        order: a mesh's shards joined, one shard's own tensors (no
+        copy)."""
+        cfg = self._config
+        return DenseBatch(
+            wants=cat_rows(self._wants), has=cat_rows(self._has),
+            subclients=cat_rows(self._sub), active=cat_rows(self._act),
+            capacity=cat_rows(cfg.cap_d), algo_kind=cat_rows(cfg.kind_d),
+            learning=cat_rows(cfg.learn_d),
+            static_capacity=cat_rows(cfg.statc_d),
+        )
+
+    def prev_table(self) -> "torch.Tensor | None":
+        """The whole previous-delivered-grants table (delta tracking; K2's
+        `prev`), as `table()` joins it; None while tracking is off."""
+        return cat_rows(self._prev) if self._prev is not None else None
 
     # -- drain / pack ---------------------------------------------------
 
@@ -417,254 +408,27 @@ class ResidentDenseSolver(TickEngineBase):
             self._just_rebuilt = False
             sel = np.arange(max(self._R, 1), dtype=np.int64)
         else:
-            rot = self._rotation_rows(
-                self._R,
-                self._Rp // self._meshrows.n_dev if self._meshrows else 0,
-            )
+            rot = self._rotation_rows(self._R)
             parts = [order, rot]
             if len(config_changed):
                 parts.append(config_changed[config_changed < self._R])
             sel = np.unique(np.concatenate(parts))
-        n_sel = len(sel)
-        if self._meshrows is not None:
-            return self._stage_mesh(order, is_full, w, h, s, act, sel, now,
-                                    ph, fwin, rows_hit, scope)
+        return self._stage(order, is_full, w, h, s, act, sel, now, ph,
+                           fwin, rows_hit, scope)
 
-        kfill = self._kfill
-        dtype = self._dtype
-        Da = ceil_to(len(order), 64)
-        Df = ceil_to(int(is_full.sum()), 8)
-        Sb = ceil_to(n_sel, 256)
-        a_pad = np.resize(np.arange(len(order)), Da)
-        a_idx = order[a_pad]
-        a_w = np.ascontiguousarray(w[a_pad, :kfill]).astype(dtype)
-        use_bf16 = bf16_exact(a_w)
-        f_pos = np.nonzero(is_full)[0]
-        if len(f_pos):
-            f_pad = np.resize(f_pos, Df)
-            f_idx = order[f_pad]
-            f_block = np.stack([h[f_pad, :kfill], s[f_pad, :kfill]]).astype(dtype)
-            f_act = np.ascontiguousarray(act[f_pad, :kfill]).astype(bool)
-        else:
-            f_idx = np.full(Df, self._R, np.int64)
-            f_block = np.zeros((2, Df, kfill), dtype)
-            f_act = np.zeros((Df, kfill), bool)
-        sel_pad = np.resize(sel, Sb)
-        idx_host = np.concatenate([a_idx, f_idx, sel_pad]).astype(np.int32)
-        lanes = self._config.lanes()
-        plain = self._device.type == "cpu"
-        if not self._fused:
-            return self._launch_round_trip(
-                ph, now, sel, idx_host, a_w, use_bf16, f_block, f_act,
-                lanes, fwin, rows_hit,
-            )
-
-        # Scope block: the pow2-bucketed compact row set (padding slots
-        # repeat the reserved padding row: duplicates solve identical
-        # inputs and write identical grants), then — plain path only —
-        # each iterative lane's positions within it.
-        clayout = ()
-        scope_host = np.zeros(0, np.int32)
-        Cb = 0
-        if scope is not None:
-            Cb = min(pow2_bucket(len(scope), 8), self._Rp)
-            pos = None
-            if plain:
-                clayout, pos = _iter_positions(
-                    self._config.kind_h[scope], lanes
-                )
-            scope_host = np.full(
-                Cb + (len(pos) if pos is not None else 0), self._R, np.int32
-            )
-            scope_host[: len(scope)] = scope
-            if pos is not None:
-                scope_host[Cb:] = pos
-        # One buffer, one host->device copy. Every block's byte offset is
-        # a multiple of its element size (Da, Df, Sb are multiples of 8).
-        buf = np.concatenate([
-            idx_host.view(np.uint8),
-            bf16_bytes(a_w) if use_bf16 else a_w.view(np.uint8).ravel(),
-            np.ascontiguousarray(f_block).view(np.uint8).ravel(),
-            scope_host.view(np.uint8),
-            f_act.view(np.uint8).ravel(),
-        ])
-        ph.lap("staging")
-
-        buf_d = self._put(buf)
-        tdt = self._tdtype
-        o = 0
-
-        def take(nbytes):
-            nonlocal o
-            part = buf_d[o: o + nbytes]
-            o += nbytes
-            return part
-
-        idx = take(idx_host.nbytes).view(torch.int32).long()
-        a_w_d = take(a_w.size * (2 if use_bf16 else a_w.itemsize)).view(
-            torch.bfloat16 if use_bf16 else tdt
-        ).reshape(Da, kfill).to(tdt)
-        f_block_d = take(f_block.nbytes).view(tdt).reshape(2, Df, kfill)
-        scope_d = take(scope_host.nbytes).view(torch.int32)
-        f_act_d = (take(f_act.size) != 0).reshape(Df, kfill)
-        a_i, f_i, sel_i = idx[:Da], idx[Da:Da + Df], idx[Da + Df:]
-        batch = self._scatter(a_i, a_w_d, f_i, f_block_d, f_act_d)
-        cfg = self._config
-        out_dt = self._out_tdtype
-        changed = None
-        moved = None
-        if scope is not None:
-            rows_c = scope_d[:Cb]
-            h_c = self._has[rows_c.long()]
-            gets_c = solve_dense_k1(
-                batch, rows=rows_c, lanes=lanes,
-                lane_rows=_lane_rows(clayout, scope_d[Cb:]),
-            )
-            # The fixpoint test, in the solve dtype: a scope row whose
-            # fresh solve equals its input has is back at rest.
-            moved = (gets_c != h_c).any(dim=1)
-            self._has.index_copy_(0, rows_c.long(), gets_c)
-            out = self._has[sel_i, :kfill].to(out_dt)
-            if self._track_deltas:
-                changed = (out != self._prev[sel_i, :kfill]).any(dim=1)
-                self._prev[sel_i, :kfill] = out
-        else:
-            lane_rows = self._full_lane_rows(lanes) if plain else None
-            if self._track_deltas:
-                delivered = torch.zeros(
-                    self._Rp, dtype=torch.bool, device=self._device
-                )
-                delivered[sel_i] = True
-                gets, self._prev, changed_rows = fused_tick_k2(
-                    batch, self._prev, delivered, lanes=lanes,
-                    lane_rows=lane_rows,
-                )
-                changed = changed_rows[sel_i]
-            else:
-                gets = solve_dense_k1(batch, lanes=lanes, lane_rows=lane_rows)
-            # `gets` IS the next tick's has: grants chain on device.
-            self._has = gets
-            out = gets[sel_i, :kfill].to(out_dt)
-        slab = [out]
-        mask_rows = moved_rows = 0
-        if changed is not None:
-            mask_rows = -(-Sb // kfill)
-            slab.append(self._mask_rows(changed, mask_rows, kfill))
-        if moved is not None:
-            moved_rows = -(-Cb // kfill)
-            slab.append(self._mask_rows(moved, moved_rows, kfill))
-        slab = torch.cat(slab, dim=0) if len(slab) > 1 else out
-        count_launch()
-        download = transfer.start_download(slab)
-        ph.lap("fused")
-        self.last_fused = {"windows": fwin, "rows": rows_hit}
-        return TickHandle(
-            out=download,
-            sel_rows=sel,
-            rids=self._rids[sel],
-            versions=self._uploaded_versions[sel],
-            keep_has=cfg.learn_h[sel].astype(np.uint8),
-            n_sel=n_sel,
-            dispatched_at=now,
-            fused_windows=fwin,
-            fused_rows=rows_hit,
-            mask_rows=mask_rows,
-            scope_ids=scope,
-            moved_rows=moved_rows,
-            seq=self._seq,
-        )
-
-    def _scatter(self, a_i, a_w, f_i, f_block, f_act) -> DenseBatch:
-        """This tick's row scatters over the first `kfill` lanes (the
-        wants-only rows, then the full rows' has, subclients and active
-        flags); the resident tables as a DenseBatch."""
-        kfill = self._kfill
-        self._wants[a_i, :kfill] = a_w
-        self._has[f_i, :kfill] = f_block[0]
-        self._sub[f_i, :kfill] = f_block[1]
-        self._act[f_i, :kfill] = f_act
-        cfg = self._config
-        return DenseBatch(
-            wants=self._wants, has=self._has, subclients=self._sub,
-            active=self._act, capacity=cfg.cap_d, algo_kind=cfg.kind_d,
-            learning=cfg.learn_d, static_capacity=cfg.statc_d,
-        )
-
-    def _launch_round_trip(self, ph, now, sel, idx_host, a_w, use_bf16,
-                           f_block, f_act, lanes, fwin, rows_hit):
-        """The round-trip tail (reference solver/resident.py `_launch`
-        :1566-1625, `_tick_fn` :523): four placements (indices, the
-        wants-only block, bf16 when exact, the full rows' has and
-        subclients, their active flags), the scatters over the first
-        `kfill` lanes, K1 over the full table, the delivered rows in the
-        download dtype and, with delta tracking, the changed mask
-        against the previous-grants table; then one download, the mask
-        rows packed after the grants. The same scatters, solve and
-        compare as the fused tick, so the stores are byte-identical."""
-        ph.lap("staging")
-        kfill = self._kfill
-        tdt = self._tdtype
-        Da, Df = a_w.shape[0], f_act.shape[0]
-        Sb = len(idx_host) - Da - Df
-        put = self._put
-        idx = put(idx_host).long()
-        if use_bf16:
-            a_w_d = put(bf16_bytes(a_w).view(np.int16).reshape(a_w.shape))
-            a_w_d = a_w_d.view(torch.bfloat16)
-        else:
-            a_w_d = put(a_w)
-        f_block_d = put(f_block)
-        f_act_d = put(f_act)
-        ph.lap("upload")
-        a_i, f_i, sel_i = idx[:Da], idx[Da:Da + Df], idx[Da + Df:]
-        batch = self._scatter(a_i, a_w_d.to(tdt), f_i, f_block_d, f_act_d)
-        cfg = self._config
-        lane_rows = (
-            self._full_lane_rows(lanes) if self._device.type == "cpu" else None
-        )
-        gets = solve_dense_k1(batch, lanes=lanes, lane_rows=lane_rows)
-        # `gets` IS the next tick's has: grants chain on device.
-        self._has = gets
-        out = gets[sel_i, :kfill].to(self._out_tdtype)
-        slab, mask_rows = out, 0
-        if self._track_deltas:
-            changed = (out != self._prev[sel_i, :kfill]).any(dim=1)
-            self._prev[sel_i, :kfill] = out
-            mask_rows = -(-Sb // kfill)
-            slab = torch.cat(
-                [out, self._mask_rows(changed, mask_rows, kfill)], dim=0
-            )
-        count_launch()
-        download = transfer.start_download(slab)
-        ph.lap("solve")
-        self.last_fused = {"windows": fwin, "rows": rows_hit}
-        return TickHandle(
-            out=download,
-            sel_rows=sel,
-            rids=self._rids[sel],
-            versions=self._uploaded_versions[sel],
-            keep_has=cfg.learn_h[sel].astype(np.uint8),
-            n_sel=len(sel),
-            dispatched_at=now,
-            fused_windows=fwin,
-            fused_rows=rows_hit,
-            mask_rows=mask_rows,
-            seq=self._seq,
-        )
-
-    def _mask_rows(self, mask: torch.Tensor, n_rows: int, kfill: int):
+    def _mask_rows(self, mask: torch.Tensor, kfill: int):
         """A bool mask as {0,1} rows of the slab (download dtype)."""
+        n_rows = -(-mask.shape[0] // kfill)
         flat = torch.zeros(
             n_rows * kfill, dtype=self._out_tdtype, device=mask.device
         )
         flat[: mask.shape[0]] = mask.to(self._out_tdtype)
         return flat.reshape(n_rows, kfill)
 
-    # -- the mesh tick -------------------------------------------------
-
     def _shard_lane_rows(self, d: int, lanes: frozenset):
         """Plain path only: each iterative lane's rows of shard d's real
-        rows, shard-local (the mesh analog of _full_lane_rows)."""
+        rows, shard-local (the solve restricts each fill to them —
+        byte-identical)."""
         kind_h = self._config.kind_h
         if kind_h is not self._iter_src:
             self._iter_src = kind_h
@@ -678,165 +442,124 @@ class ResidentDenseSolver(TickEngineBase):
                      else None))
         return _lane_rows(*self._iter_layout[d])
 
-    def _stage_mesh(self, order, is_full, w, h, s, act, sel, now, ph,
-                    fwin, rows_hit, scope):
-        """The mesh tail of the launch: this tick's row scatters, scope
-        and delivery set grouped by owning shard (shard-local indices,
-        padded per shard to one width; padded slots are never read), one
-        staged buffer and one host->device copy per device group (its
-        shards' blocks only), then per shard the scatters, K1 over its
-        scope rows or its whole table (K2 on a tracked full tick), and
-        its delivered rows; each group's delivery lands as one slab."""
+    def _stage(self, order, is_full, w, h, s, act, sel, now, ph,
+               fwin, rows_hit, scope):
+        """The tail of the launch: this tick's row scatters, scope and
+        delivery set grouped by owning shard (shard-local indices,
+        padded per shard to one width; padded slots are never read),
+        staged per device group (engine `_upload`: one buffer and one
+        host->device copy on a fused tick), then per shard the
+        scatters, K1 over its scope rows or its whole table (K2 on a
+        tracked fused full tick), and its delivered rows; each group's
+        delivery lands as one slab."""
         mr = self._meshrows
         n_dev = mr.n_dev
         Rl = self._Rp // n_dev
         kfill = self._kfill
         dtype = self._dtype
-        owner_a = order // Rl
-        counts_a, (a_idx_l, a_w_l) = group_by_shard(
-            owner_a, n_dev, [order - owner_a * Rl, w[:, :kfill]]
-        )
+        counts_a, a_idx_l, (a_w_l,) = split_rows(
+            order, Rl, n_dev, [w[:, :kfill]])
         f_pos = np.nonzero(is_full)[0]
-        rows_f = order[f_pos]
-        owner_f = rows_f // Rl
-        counts_f, (f_idx_l, f_h_l, f_s_l, f_a_l) = group_by_shard(
-            owner_f, n_dev,
-            [rows_f - owner_f * Rl, h[f_pos, :kfill], s[f_pos, :kfill],
-             act[f_pos, :kfill]],
-        )
-        # sel is sorted, so the stable grouping keeps its order exactly:
-        # the handle's global bookkeeping needs no permutation.
-        owner_sel = sel // Rl
-        counts_sel, (sel_l,) = group_by_shard(
-            owner_sel, n_dev, [sel - owner_sel * Rl]
-        )
-        Da = ceil_to(int(counts_a.max()), 8)
-        Df = ceil_to(int(counts_f.max()), 8)
-        Sb = ceil_to(int(counts_sel.max()), 8)
-        a_idx_b, a_w_b, f_idx_b, f_h_b, f_s_b, f_a_b = (
-            pad_shard_blocks(counts_a, Da, [(a_idx_l, 0),
-                                            (a_w_l.astype(dtype), 0)])
-            + pad_shard_blocks(counts_f, Df, [
-                (f_idx_l, 0), (f_h_l.astype(dtype), 0),
-                (f_s_l.astype(dtype), 0), (f_a_l.astype(bool), False)])
-        )
+        counts_f, f_idx_l, (f_h_l, f_s_l, f_a_l) = split_rows(
+            order[f_pos], Rl, n_dev,
+            [h[f_pos, :kfill], s[f_pos, :kfill], act[f_pos, :kfill]])
+        # sel is sorted, so its shard-major order is its own: the
+        # handle's global bookkeeping needs no permutation.
+        counts_sel, sel_l, _ = split_rows(sel, Rl, n_dev)
+        Da = ceil_to(max(counts_a), 8)
+        Df = ceil_to(max(counts_f), 8)
+        Sb = ceil_to(max(counts_sel), 8)
+        # Each block is packed once, cast to its wire dtype on the copy.
+        idx_host = np.empty((n_dev, Da + Df + Sb), np.int32)
+        pad_shard_block(counts_a, a_idx_l, out=idx_host[:, :Da])
+        pad_shard_block(counts_f, f_idx_l, out=idx_host[:, Da:Da + Df])
+        pad_shard_block(counts_sel, sel_l, out=idx_host[:, Da + Df:])
+        a_w_b = pad_shard_block(counts_a, a_w_l, Da, dtype=dtype)
         use_bf16 = bf16_exact(a_w_b)
-        f_block = np.stack([f_h_b, f_s_b], axis=1)  # [n_dev, 2, Df, k]
-        idx_host = np.concatenate(
-            [a_idx_b, f_idx_b, pad_shard_indices(counts_sel, Sb, sel_l)],
-            axis=1,
-        ).astype(np.int32)
+        f_block = np.empty((n_dev, 2, Df, kfill), dtype)
+        pad_shard_block(counts_f, f_h_l, out=f_block[:, 0])
+        pad_shard_block(counts_f, f_s_l, out=f_block[:, 1])
+        f_a_b = pad_shard_block(counts_f, f_a_l, Df, False, dtype=bool)
+        blocks = [
+            idx_host,
+            bf16_bytes(a_w_b).view(np.int16).reshape(a_w_b.shape)
+            if use_bf16 else a_w_b,
+            f_block, f_a_b,
+        ]
         counts_c = None
         Cb = 0
         if scope is not None:
-            # Per-shard scoped extents: the sorted global scope groups
+            # Per-shard scoped extents: the sorted global scope splits
             # into contiguous shard-local blocks.
-            owner_c = scope // Rl
-            counts_c, (scope_l,) = group_by_shard(
-                owner_c, n_dev, [scope - owner_c * Rl]
-            )
-            Cb = ceil_to(int(counts_c.max()), 8)
-            (scope_b,) = pad_shard_blocks(counts_c, Cb, [(scope_l, 0)])
-            scope_b = scope_b.astype(np.int32)
+            counts_c, scope_l, _ = split_rows(scope, Rl, n_dev)
+            Cb = ceil_to(max(counts_c), 8)
+            blocks.append(pad_shard_block(counts_c, scope_l, Cb,
+                                          dtype=np.int32))
         itemsize = dtype.itemsize
-        ph.shard_bytes(
-            "upload",
-            counts_a * (kfill * itemsize + 4)
-            + counts_f * (kfill * (2 * itemsize + 1) + 4)
-            + counts_sel * 4
-            + (counts_c * 4 if counts_c is not None else 0),
-        )
-        ph.shard_bytes(
-            "download",
-            counts_sel * kfill * self._out_tdtype.itemsize,
-        )
+
+        def per_shard():
+            a, f, sl = map(np.asarray, (counts_a, counts_f, counts_sel))
+            c = np.asarray(counts_c) if counts_c is not None else 0
+            return (a * (kfill * itemsize + 4)
+                    + f * (kfill * (2 * itemsize + 1) + 4) + (sl + c) * 4,
+                    sl * kfill * self._out_tdtype.itemsize)
+
+        self._account_shards(ph, per_shard)
         lanes = self._config.lanes()
         plain = self._device.type == "cpu"
         tdt = self._tdtype
         track = self._track_deltas
-        fused = self._fused
+        staged = self._upload(ph, blocks)
+        c_at = 0  # the shard's first row in the global scope
         parts = []
-        for dev, first, n in mr.groups:
-            grp = slice(first, first + n)
-            blocks = [
-                idx_host[grp],
-                bf16_bytes(a_w_b[grp]).view(np.int16) if use_bf16
-                else a_w_b[grp],
-                f_block[grp],
-                f_a_b[grp],
-            ]
-            if scope is not None:
-                blocks.append(scope_b[grp])
-            if fused:
-                # One buffer, one host->device copy for the group; every
-                # block's byte offset is a multiple of its element size
-                # (each block's width is a multiple of 8).
-                buf_d = place(
-                    np.concatenate([np.ascontiguousarray(b).view(np.uint8)
-                                    .ravel() for b in blocks]), dev)
-                o = 0
-                views = []
-                for b in blocks:
-                    nbytes = b.size * b.itemsize
-                    views.append(buf_d[o: o + nbytes])
-                    o += nbytes
-                idx, a_w_d, f_block_d, f_act_d = (
-                    views[0].view(torch.int32), views[1], views[2],
-                    views[3])
-                scope_d = (views[4].view(torch.int32)
-                           if scope is not None else None)
-            else:
-                idx, a_w_d, f_block_d, f_act_d = (
-                    place(b, dev) for b in blocks[:4])
-                scope_d = None
-            idx = idx.reshape(n, -1).long()
-            a_w_d = a_w_d.view(torch.bfloat16 if use_bf16 else tdt).reshape(
-                n, Da, kfill).to(tdt)
-            f_block_d = f_block_d.view(tdt).reshape(n, 2, Df, kfill)
-            f_act_d = (f_act_d.view(torch.uint8) != 0).reshape(n, Df, kfill)
-            if scope_d is not None:
-                scope_d = scope_d.reshape(n, Cb)
+        Wi = Da + Df + Sb  # a shard's index block
+        for (_dev, first, n), views in zip(mr.groups, staged):
+            # The group's blocks as flat index vectors and row tables:
+            # shard i's are the i-th Wi indices, Da wants rows, 2 * Df
+            # has-then-subclients rows, Df active rows and Cb scope rows.
+            idx = views[0].view(torch.int32).long()
+            a_w_d = views[1].view(torch.bfloat16 if use_bf16 else tdt)
+            a_w_d = a_w_d.view(-1, kfill).to(tdt)
+            f_block_d = views[2].view(tdt).view(-1, kfill)
+            f_act_d = views[3].view(torch.bool).view(-1, kfill)
+            scope_d = views[4].view(torch.int32) if scope is not None else None
             outs, changed, moved = [], [], []
             for i in range(n):
                 d = first + i
-                ca, cf, cs = (int(counts_a[d]), int(counts_f[d]),
-                              int(counts_sel[d]))
-                a_i = idx[i, :ca]
-                f_i = idx[i, Da:Da + cf]
-                sel_i = idx[i, Da + Df:Da + Df + cs]
-                self._wants[d][a_i, :kfill] = a_w_d[i, :ca]
-                self._has[d][f_i, :kfill] = f_block_d[i, 0, :cf]
-                self._sub[d][f_i, :kfill] = f_block_d[i, 1, :cf]
-                self._act[d][f_i, :kfill] = f_act_d[i, :cf]
+                ca, cf, cs = counts_a[d], counts_f[d], counts_sel[d]
+                o, a, f = i * Wi, i * Da, 2 * i * Df
+                a_i = idx[o:o + ca]
+                f_i = idx[o + Da:o + Da + cf]
+                sel_i = idx[o + Da + Df:o + Da + Df + cs]
+                self._wants[d][a_i, :kfill] = a_w_d[a:a + ca]
+                self._has[d][f_i, :kfill] = f_block_d[f:f + cf]
+                self._sub[d][f_i, :kfill] = f_block_d[f + Df:f + Df + cf]
+                self._act[d][f_i, :kfill] = f_act_d[i * Df:i * Df + cf]
                 batch = self._shard_batch(d)
-                out, ch, mv = self._solve_shard(
-                    d, batch, sel_i, lanes, plain,
-                    scope_d[i, :int(counts_c[d])] if scope is not None
-                    else None,
-                    scope[int(counts_c[:d].sum()):][:int(counts_c[d])]
-                    if scope is not None else None,
-                )
+                rows_c = scope_g = None
+                if scope is not None:
+                    rows_c = scope_d[i * Cb:i * Cb + counts_c[d]]
+                    scope_g = scope[c_at:c_at + counts_c[d]]
+                    c_at += counts_c[d]
+                out, ch, mv = self._solve_shard(d, batch, sel_i, lanes,
+                                                plain, rows_c, scope_g)
                 outs.append(out)
                 if ch is not None:
                     changed.append(ch)
                 if mv is not None:
                     moved.append(mv)
-            slab = [torch.cat(outs)]
+            slab = [cat_rows(outs)]
             if track:
-                ch = torch.cat(changed)
-                slab.append(self._mask_rows(ch, -(-ch.shape[0] // kfill),
-                                            kfill))
+                slab.append(self._mask_rows(cat_rows(changed), kfill))
             if scope is not None:
-                mv = torch.cat(moved)
-                slab.append(self._mask_rows(mv, -(-mv.shape[0] // kfill),
-                                            kfill))
+                slab.append(self._mask_rows(cat_rows(moved), kfill))
             count_launch()
-            parts.append(transfer.start_download(torch.cat(slab)))
-        ph.lap("fused" if fused else "solve")
+            parts.append(transfer.start_download(cat_rows(slab)))
+        ph.lap("fused" if self._fused else "solve")
         self.last_fused = {"windows": fwin, "rows": rows_hit}
         cfg = self._config
         return TickHandle(
-            out=None,
+            parts=parts,
             sel_rows=sel,
             rids=self._rids[sel],
             versions=self._uploaded_versions[sel],
@@ -847,7 +570,6 @@ class ResidentDenseSolver(TickEngineBase):
             fused_rows=rows_hit,
             scope_ids=scope,
             seq=self._seq,
-            parts=parts,
             shard_counts=counts_sel,
             scope_counts=counts_c,
             tracked=track,
@@ -864,13 +586,11 @@ class ResidentDenseSolver(TickEngineBase):
 
     def _solve_shard(self, d, batch, sel_i, lanes, plain, rows_c, scope_g):
         """Shard d's solve and delivery: (delivered rows in the download
-        dtype, changed mask or None, solve-moved mask or None). The
-        single-device tick's arithmetic on the shard's rows."""
+        dtype, changed mask or None, solve-moved mask or None)."""
         kfill = self._kfill
         out_dt = self._out_tdtype
         dev = batch.wants.device
         if rows_c is not None:
-            moved = torch.zeros(0, dtype=torch.bool, device=dev)
             if rows_c.shape[0]:
                 lane_rows = None
                 if plain:
@@ -879,12 +599,17 @@ class ResidentDenseSolver(TickEngineBase):
                     lane_rows = _lane_rows(
                         layout, torch.from_numpy(pos) if pos is not None
                         else None)
-                h_c = self._has[d][rows_c.long()]
+                rows_l = rows_c.long()
+                h_c = self._has[d][rows_l]
                 gets_c = solve_dense_k1(batch, rows=rows_c, lanes=lanes,
                                         lane_rows=lane_rows)
                 self._count_shard("k1", d, dev)
+                # The fixpoint test, in the solve dtype: a scope row
+                # whose fresh solve equals its input has is back at rest.
                 moved = (gets_c != h_c).any(dim=1)
-                self._has[d].index_copy_(0, rows_c.long(), gets_c)
+                self._has[d].index_copy_(0, rows_l, gets_c)
+            else:
+                moved = torch.zeros(0, dtype=torch.bool, device=dev)
             out = self._has[d][sel_i, :kfill].to(out_dt)
             changed = None
             if self._track_deltas:
@@ -910,7 +635,7 @@ class ResidentDenseSolver(TickEngineBase):
         out = gets[sel_i, :kfill].to(out_dt)
         changed = None
         if self._track_deltas:
-            # The round-trip tick compares in plain ops, as on one device.
+            # The round-trip tick compares in plain torch ops, not K2.
             changed = (out != self._prev[d][sel_i, :kfill]).any(dim=1)
             self._prev[d][sel_i, :kfill] = out
         return out, changed, None

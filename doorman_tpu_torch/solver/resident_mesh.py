@@ -3,10 +3,11 @@ doorman_tpu/solver/resident_mesh.py).
 
 The resident solvers (solver/resident.py, solver/resident_wide.py) keep
 the [R, W] demand tables on the device and move only deltas across the
-host link. With a parallel.mesh Mesh the same tables shard their ROW
-axis over every mesh axis — contiguous equal row blocks, one per shard
-in mesh order — and this module owns the host-side layout math both
-solvers share:
+host link. Their tables always shard their ROW axis over a mesh — the
+caller's parallel.mesh Mesh, or without one a one-shard mesh over the
+solver's device, which is the single-device layout — contiguous equal
+row blocks, one per shard in mesh order (every mesh axis flattened).
+This module owns the host-side layout math both solvers share:
 
   * `MeshRows` — the partition itself: padded row counts, the device
     groups (the shards that share a device lie side by side in one
@@ -14,18 +15,19 @@ solvers share:
     download a tick), and the per-shard rotation cursors (each shard
     walks its OWN real rows, so every tick's delivery download is
     balanced across shards instead of one contiguous window marching
-    through them);
-  * `group_by_shard` / `pad_shard_blocks` / `pad_shard_indices` — turn a
-    tick's global dirty-row (or dirty-slot) and delivery sets into
-    per-shard [n_dev, U] blocks with shard-LOCAL indices. A device
-    group's upload carries only its own shards' rows of each block: a
-    dirty slot's upload reaches the device of the shard that owns it.
+    through them; one shard walks the whole table);
+  * `split_rows` / `pad_shard_block` — turn a tick's global dirty-row
+    (or dirty-slot) and delivery sets into per-shard [n_dev, U] blocks
+    with shard-LOCAL indices. A device group's upload carries only its
+    own shards' rows of each block: a dirty slot's upload reaches the
+    device of the shard that owns it. On one shard they permute nothing
+    and copy each block once, with its cast to the wire dtype.
 
-Per-shard blocks pad to one width (the max across shards). The host
-knows each shard's real count, so the device side slices every block
-to it and padded slots are never read (the reference instead aims
-padded scatter slots out of range and drops them, `mode="drop"`).
-Padded gather slots repeat the shard's last index, as the reference's.
+Per-shard blocks pad to one width (the max across shards, rounded up to
+a multiple of 8). The host knows each shard's real count, so the device
+side slices every block to it and padded slots are never read (the
+reference instead aims padded scatter slots out of range and drops
+them, `mode="drop"`), so padding is only ever the fill.
 """
 
 from __future__ import annotations
@@ -95,57 +97,47 @@ class MeshRows:
         return np.concatenate(parts)
 
 
-def group_by_shard(
-    owner: np.ndarray, n_dev: int, arrays: Sequence[np.ndarray]
-) -> Tuple[np.ndarray, List[np.ndarray]]:
-    """Stable-partition parallel per-item arrays by owning shard.
+def split_rows(
+    rows: np.ndarray, block: int, n_dev: int, cols: Sequence = ()
+) -> Tuple[List[int], np.ndarray, List[np.ndarray]]:
+    """Stable-partition global indices by owning shard (shard d owns
+    [d * block, (d + 1) * block)), with parallel per-item columns.
 
-    Returns (counts [n_dev], arrays reordered shard-major). The sort is
-    stable, so a globally sorted index column (owner nondecreasing, e.g.
-    a sorted delivery set) comes back in EXACTLY its input order — the
-    property that keeps a TickHandle's global row bookkeeping aligned
-    with the shard-major download blocks."""
-    owner = np.asarray(owner)
-    counts = np.bincount(owner, minlength=n_dev).astype(np.int64)
-    perm = np.argsort(owner, kind="stable")
-    return counts, [np.asarray(a)[perm] for a in arrays]
-
-
-def pad_shard_blocks(
-    counts: np.ndarray,
-    width: int,
-    arrays_fills: Sequence[Tuple[np.ndarray, object]],
-) -> List[np.ndarray]:
-    """Scatter shard-major packed rows into padded [n_dev, width, ...]
-    blocks (one fill value per array)."""
-    n_dev = len(counts)
-    outs: List[np.ndarray] = []
-    for arr, fill in arrays_fills:
-        arr = np.asarray(arr)
-        out = np.full((n_dev, width) + arr.shape[1:], fill, arr.dtype)
-        pos = 0
-        for d in range(n_dev):
-            c = int(counts[d])
-            out[d, :c] = arr[pos: pos + c]
-            pos += c
-        outs.append(out)
-    return outs
+    Returns (per-shard counts, shard-local indices, columns), shard-
+    major.
+    The sort is stable, so a sorted index column (e.g. a delivery set)
+    comes back in EXACTLY its input order — the property that keeps a
+    TickHandle's global row bookkeeping aligned with the shard-major
+    download blocks. Items already in shard order (sorted indices, or
+    every item on one shard) come back as given, with no permutation or
+    copy."""
+    owner, local = np.divmod(rows, block)
+    counts = np.bincount(owner, minlength=n_dev).tolist()
+    if (owner[1:] < owner[:-1]).any():
+        perm = np.argsort(owner, kind="stable")
+        return counts, local[perm], [np.asarray(c)[perm] for c in cols]
+    return counts, local, list(cols)
 
 
-def pad_shard_indices(
-    counts: np.ndarray, width: int, idx: np.ndarray
+def pad_shard_block(
+    counts: Sequence[int],
+    arr: np.ndarray,
+    width: int = 0,
+    fill=0,
+    *,
+    dtype=None,
+    out: "np.ndarray | None" = None,
 ) -> np.ndarray:
-    """Per-shard GATHER index blocks [n_dev, width], padded by repeating
-    the shard's last index — each block stays sorted and always in
-    range. Empty shards pad with 0; their gathered rows are sliced off
-    at collect."""
-    idx = np.asarray(idx)
-    out = np.zeros((len(counts), width), idx.dtype)
+    """Scatter shard-major packed rows into a padded [n_dev, width, ...]
+    block (or into `out`), cast to its dtype on the copy: shard d's
+    rows, then `fill`."""
+    arr = np.asarray(arr)
+    if out is None:
+        out = np.empty((len(counts), width) + arr.shape[1:],
+                       dtype or arr.dtype)
     pos = 0
-    for d in range(len(counts)):
-        c = int(counts[d])
-        if c:
-            out[d, :c] = idx[pos: pos + c]
-            out[d, c:] = idx[pos + c - 1]
-            pos += c
+    for d, c in enumerate(counts):
+        out[d, :c] = arr[pos: pos + c]
+        out[d, c:] = fill
+        pos += c
     return out

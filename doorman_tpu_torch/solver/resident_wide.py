@@ -1,15 +1,15 @@
 """Device-resident tick solver for WIDE resources, the chunked layout
 (port of doorman_tpu/solver/resident_wide.py: the fused tick and the
-round-trip tick, on one device or row-sharded over a mesh).
+round-trip tick).
 
 Doorman's headline shape is ONE shared resource with a huge client
 population. The narrow resident solver (solver.resident) maps one
 resource to one table row, which caps a resource at DENSE_MAX_K
 clients; this solver lets a resource span CONSECUTIVE rows ("chunks")
 of an [R, W] table — slot s of a resource based at row b lives at flat
-index b*W + s — and solves with the two-level reduction of
-solver.dense.solve_chunked (plain PyTorch on either device, with fixed
-reduction orders).
+index b*W + s — and solves with a two-level reduction: a row reduction,
+then a segment reduction over the row totals (solver.dense's chunked
+layout; plain PyTorch on either device, with fixed reduction orders).
 
 What crosses the host<->device link per tick:
 
@@ -18,7 +18,8 @@ What crosses the host<->device link per tick:
             resources). Wants-only churn ships just the wants value;
             slots whose shape changed (membership, has, subclients)
             ship all four lanes. Every block of a tick is packed into
-            ONE uint8 buffer and sent with one host->device copy; flat
+            ONE uint8 buffer (the scoped tick's compact layout in it)
+            and sent with one host->device copy; flat
             slot indices ship as int32 when the table fits
             (engine.compact_index_dtype), the wants block as bf16 when
             that round-trips exactly (engine.bf16_exact).
@@ -46,16 +47,19 @@ The round-trip tick (fused=False) places each staged block on its own
 and solves the full table every tick (scope reason "round-trip"): the
 same scatters and the same chunked solve, so byte-identical stores.
 
-With `mesh=` (a parallel.mesh Mesh) the chunk rows shard over the
-mesh's shards and chunks straddle shard boundaries. Each device group
-(the shards one device holds, one row block) stages one buffer and one
-host->device copy a tick, scatters its slots with shard-local indices
-and runs the chunked solve over its rows; per-segment totals come from
-parallel.sharded.resident_chunk_reduces (scoped ticks:
+There is one tail (`_stage`). The chunk rows shard over a mesh
+(solver.resident_mesh): the caller's parallel.mesh Mesh (`mesh=`), or
+without one a one-shard mesh over `device`, whose tick is the
+single-device tick. Chunks may straddle shard boundaries. Each device
+group (the shards one device holds, one row block) stages one buffer and
+one host->device copy a tick, scatters its slots with shard-local
+indices and runs the chunked solve over its rows; per-segment totals
+come from parallel.sharded.resident_chunk_reduces (scoped ticks:
 scoped_chunk_reduces): each group writes its per-row totals into the
 GLOBAL row vector at its own offset, the mesh combine adds disjoint
-supports, and every group runs the same sorted segment op — so the
-stores are byte-identical to the single-device tick.
+supports (a lone group's totals are the whole vector), and every group
+runs the same sorted segment op — so the stores are byte-identical
+whatever the partition.
 
 Write-back safety: chunk membership versions are read after the slot
 drain and before the pack (StoreEngine.chunk_versions), so an apply's
@@ -75,29 +79,24 @@ import torch
 from doorman_tpu_torch.core.resource import Resource
 from doorman_tpu_torch.core.snapshot import _bucket
 from doorman_tpu_torch.obs.phases import PhaseRecorder
-from doorman_tpu_torch.solver.dense import (
-    ChunkedDenseBatch,
-    chunked_reduces,
-    solve_chunked,
-)
+from doorman_tpu_torch.solver.dense import ChunkedDenseBatch
 from doorman_tpu_torch.solver.engine import (
     TickEngineBase,
     TickHandle,
     bf16_bytes,
     bf16_exact,
+    cat_rows,
     ceil_to,
     compact_index_dtype,
     count_launch,
-    place,
     pow2_bucket,
 )
 from doorman_tpu_torch.solver.lanes import solve_lanes
 from doorman_tpu_torch.solver.resident import DENSE_MAX_K, _round_rows
 from doorman_tpu_torch.solver.resident_mesh import (
-    group_by_shard,
     mesh_device,
-    pad_shard_blocks,
-    pad_shard_indices,
+    pad_shard_block,
+    split_rows,
 )
 from doorman_tpu_torch.utils import transfer
 from doorman_tpu_torch.utils.backend import resolve_device
@@ -177,14 +176,7 @@ class WideResidentSolver(TickEngineBase):
         np.cumsum(self._n_chunks, out=self._base_row[1:])
         self._R = int(self._base_row[-1])
         # +1 reserves a padding row for no-op scatters.
-        self._Rp = _round_rows(self._R + 1)
-        if self._meshrows is not None:
-            # Equal chunk-row blocks per shard; fresh per-shard rotation
-            # cursors (the old ones indexed the old layout).
-            self._Rp = self._meshrows.round_rows(self._Rp)
-            self._rotation.reset(self._meshrows.n_dev)
-        else:
-            self._rotation.reset()
+        self._Rp = self._reset_layout(_round_rows(self._R + 1))
         # Flat device indices (slot s of the segment at row b lives at
         # b*W + s): int32 halves the index-upload bytes when it fits.
         self._idx_dtype = compact_index_dtype((self._Rp + 1) * W)
@@ -217,22 +209,16 @@ class WideResidentSolver(TickEngineBase):
         )
         dtype = self._dtype
         pad = ((0, self._Rp - self._R), (0, 0))
-        # Mesh: one row block per device group (its shards' rows).
-        put = self._put if self._meshrows is None else self._put_groups
-        self._wants = put(np.pad(w, pad).astype(dtype))
-        self._has = put(np.pad(h, pad).astype(dtype))
-        self._sub = put(np.pad(s, pad).astype(dtype))
-        self._act = put(np.pad(act, pad).astype(bool))
-        if self._meshrows is None:
-            self._row_seg_d = self._put(self._row_seg_h.astype(np.int64))
-            self._seg_len_d = self._put(seg_len.astype(np.int64))
-        else:
-            # Every group runs the segment op over the whole row vector:
-            # the global row->segment map and lengths on each device,
-            # beside the group's own rows' segments.
-            self._row_seg_d = self._put_rep(self._row_seg_h.astype(np.int64))
-            self._seg_len_d = self._put_rep(seg_len.astype(np.int64))
-            self._row_seg_g = self._put_groups(self._row_seg_h.astype(np.int64))
+        # One row block per device group (its shards' rows).
+        self._wants = self._put_groups(np.pad(w, pad).astype(dtype))
+        self._has = self._put_groups(np.pad(h, pad).astype(dtype))
+        self._sub = self._put_groups(np.pad(s, pad).astype(dtype))
+        self._act = self._put_groups(np.pad(act, pad).astype(bool))
+        # Every group runs the segment op over the whole row vector: the
+        # global row->segment map and lengths on each device (a group's
+        # own rows' segments are its slice of the map).
+        self._row_seg_d = self._put_rep(self._row_seg_h.astype(np.int64))
+        self._seg_len_d = self._put_rep(seg_len.astype(np.int64))
         self._config.reset(self._Sp)
         self._refresh_config(res, self._config._epoch, self._clock())
         self._just_rebuilt = True
@@ -249,25 +235,18 @@ class WideResidentSolver(TickEngineBase):
                 return True
         return False
 
-    def _fused_layout(self, Dw: int, Df: int, Sb: int, use_bf16: bool):
-        """Byte sizes of the staged blocks in the one upload buffer, in
-        order: flat wants-only slot indices and values (bf16 when
-        exact), full slots' indices and wants / has / subclients, the
-        delivery rows (int32), then the full slots' active flags as raw
-        uint8 last. Every offset is a multiple of the next block's
-        element size (Dw, Df and Sb are multiples of 32)."""
-        idt_size = int(np.dtype(self._idx_dtype).itemsize)
-        itemsize = int(self._dtype.itemsize)
-        wval_item = 2 if use_bf16 else itemsize
-        return (
-            Dw * idt_size,   # w_idx
-            Dw * wval_item,  # w_val
-            Df * idt_size,   # f_idx
-            Df * itemsize,   # f_w
-            Df * itemsize,   # f_h
-            Df * itemsize,   # f_s
-            Sb * 4,          # sel (int32)
-            Df,              # f_a (uint8)
+    def table(self) -> ChunkedDenseBatch:
+        """The whole resident table as one ChunkedDenseBatch, rows in
+        table order: a mesh's device groups joined, one group's own
+        tensors (no copy); the per-segment config and the row->segment
+        map are replicated, so any group's copy is the whole."""
+        cfg = self._config
+        return ChunkedDenseBatch(
+            wants=cat_rows(self._wants), has=cat_rows(self._has),
+            subclients=cat_rows(self._sub), active=cat_rows(self._act),
+            row_seg=self._row_seg_d[0], capacity=cfg.cap_d[0],
+            algo_kind=cfg.kind_d[0], learning=cfg.learn_d[0],
+            static_capacity=cfg.statc_d[0], lengths=self._seg_len_d[0],
         )
 
     # -- phases -------------------------------------------------------
@@ -345,10 +324,7 @@ class WideResidentSolver(TickEngineBase):
             }
         else:
             self.last_scope = {"rows": self._R, "resources": self._S}
-        rot = self._rotation_rows(
-            self._R,
-            self._Rp // self._meshrows.n_dev if self._meshrows else 0,
-        )
+        rot = self._rotation_rows(self._R)
         # Delivery set (chunk rows): full-dirty rows and config-changed
         # segments always deliver same-tick; wants-dirty rows only while
         # the set stays small (beyond the budget the rotation covers
@@ -413,197 +389,20 @@ class WideResidentSolver(TickEngineBase):
         if n_sel:
             keep = self._config.learn_h[self._row_seg_h[sel]].astype(np.uint8)
         ph.lap("pack")
-        if self._meshrows is not None:
-            return self._stage_mesh(
-                (w_idx, w_val, f_idx, f_w, f_h, f_s, f_a), sel, sel_rids,
-                sel_chunks, versions, keep, now, ph, scope,
-            )
-
-        Dw = ceil_to(n_w, 1024)
-        Df = ceil_to(n_f, 256)
-        Sb = ceil_to(n_sel, 32)
-        pad_slot = self._R * W  # the reserved padding row's slot 0
-        idt = self._idx_dtype
-
-        def padded(arr, width, fill):
-            out = np.full(width, fill, arr.dtype)
-            out[: len(arr)] = arr
-            return out
-
-        w_val_block = padded(w_val, Dw, 0)
-        use_bf16 = bf16_exact(w_val_block)
-        sel_pad = np.resize(sel, Sb) if n_sel else np.zeros(Sb, np.int64)
-        host_blocks = (
-            padded(w_idx, Dw, pad_slot).astype(idt),
-            bf16_bytes(w_val_block).view(np.int16) if use_bf16
-            else w_val_block,
-            padded(f_idx, Df, pad_slot).astype(idt),
-            padded(f_w, Df, 0),
-            padded(f_h, Df, 0),
-            padded(f_s, Df, 0),
-            sel_pad.astype(np.int32),
-            padded(f_a, Df, False),
-        )
-        handle = TickHandle(
-            out=None,
-            sel_rows=sel,
-            rids=sel_rids,
-            versions=versions,
-            keep_has=keep,
-            n_sel=n_sel,
-            dispatched_at=now,
-            chunks=sel_chunks,
-            scope_ids=scope,
-            seq=self._seq,
-        )
-        if not self._fused:
-            return self._launch_round_trip(ph, host_blocks, use_bf16, handle)
-        buf = np.concatenate([b.view(np.uint8) for b in host_blocks])
-        scope_host = None
-        if scope is not None:
-            # The closure's whole chunk-row span, its compact segment
-            # map, the scoped segment ids and the compact segments'
-            # lengths, in one int32 buffer. Scb reserves a compact
-            # padding segment (seg id Sp-1: capacity 0, inactive) above
-            # every real one; padding slots point at the reserved
-            # padding row.
-            scope_rows = self._scope_rows(scope)
-            Cb = min(pow2_bucket(max(len(scope_rows), 1), 8), self._Rp)
-            Scb = pow2_bucket(len(scope) + 1, 8)
-            rows_c = np.full(Cb, self._R, np.int32)
-            rows_c[: len(scope_rows)] = scope_rows
-            row_seg_c = np.full(Cb, Scb - 1, np.int32)
-            row_seg_c[: len(scope_rows)] = np.repeat(
-                np.arange(len(scope), dtype=np.int32), self._n_chunks[scope]
-            )
-            seg_ids = np.full(Scb, self._Sp - 1, np.int32)
-            seg_ids[: len(scope)] = scope
-            seg_len = np.bincount(row_seg_c, minlength=Scb).astype(np.int32)
-            scope_host = np.concatenate([rows_c, row_seg_c, seg_ids, seg_len])
-            buf = np.concatenate([buf, scope_host.view(np.uint8)])
-        ph.lap("staging")
-
-        # One host->device copy, viewed apart at static offsets.
-        buf_d = self._put(buf)
-        tdt = self._tdtype
-        o = 0
-
-        def take(nbytes):
-            nonlocal o
-            part = buf_d[o: o + nbytes]
-            o += nbytes
-            return part
-
-        sizes = self._fused_layout(Dw, Df, Sb, use_bf16)
-        it_t = torch.int32 if idt == np.int32 else torch.int64
-        w_i = take(sizes[0]).view(it_t).long()
-        w_v = take(sizes[1]).view(torch.bfloat16 if use_bf16 else tdt).to(tdt)
-        f_i = take(sizes[2]).view(it_t).long()
-        f_wv, f_hv, f_sv = (take(n).view(tdt) for n in sizes[3:6])
-        sel_i = take(sizes[6]).view(torch.int32).long()
-        f_av = take(sizes[7]) != 0
-        self._scatter(w_i, w_v, f_i, f_wv, f_hv, f_sv, f_av)
-        cfg = self._config
-        out_dt = self._out_tdtype
-        lanes = cfg.lanes()
-        moved_rows = 0
-        if scope is not None:
-            sc = take(scope_host.nbytes).view(torch.int32).long()
-            rows, row_seg_c = sc[:Cb], sc[Cb: 2 * Cb]
-            seg_c, len_c = sc[2 * Cb: 2 * Cb + Scb], sc[2 * Cb + Scb:]
-            h_c = self._has[rows]
-            gets_c = solve_chunked(
-                ChunkedDenseBatch(
-                    wants=self._wants[rows], has=h_c,
-                    subclients=self._sub[rows], active=self._act[rows],
-                    row_seg=row_seg_c, capacity=cfg.cap_d[seg_c],
-                    algo_kind=cfg.kind_d[seg_c], learning=cfg.learn_d[seg_c],
-                    static_capacity=cfg.statc_d[seg_c], lengths=len_c,
-                ),
-                lanes=lanes,
-            )
-            # Per-segment fixpoint test: a segment moved when any of
-            # its chunk rows' fresh solve differs from its input has.
-            segsum, _ = chunked_reduces(row_seg_c, Scb, len_c)
-            moved_seg = segsum(
-                (gets_c != h_c).any(dim=1).to(tdt)[:, None]
-            ) > 0
-            # Padding slots repeat the padding row, whose grants are 0.
-            self._has.index_copy_(0, rows, gets_c)
-            out = self._has[sel_i].to(out_dt)
-            moved_rows = -(-Scb // W)
-            mvd = torch.zeros(moved_rows * W, dtype=out_dt, device=self._device)
-            mvd[:Scb] = moved_seg.to(out_dt)
-            slab = torch.cat([out, mvd.reshape(moved_rows, W)], dim=0)
-        else:
-            gets = self._solve_full()
-            # `gets` IS the next tick's has: grants chain on device.
-            self._has = gets
-            slab = gets[sel_i].to(out_dt)
-        count_launch()
-        handle.out = transfer.start_download(slab)
-        handle.moved_rows = moved_rows
-        ph.lap("fused")
-        return handle
-
-    def _scatter(self, w_i, w_v, f_i, f_wv, f_hv, f_sv, f_av) -> None:
-        """This tick's slot scatters into the resident tables (flat
-        slot indices), wants-only slots first."""
-        wants = self._wants.view(-1)
-        wants[w_i] = w_v
-        wants[f_i] = f_wv
-        self._has.view(-1)[f_i] = f_hv
-        self._sub.view(-1)[f_i] = f_sv
-        self._act.view(-1)[f_i] = f_av
-
-    def _solve_full(self) -> torch.Tensor:
-        """The chunked solve over the whole resident table."""
-        cfg = self._config
-        return solve_chunked(
-            ChunkedDenseBatch(
-                wants=self._wants, has=self._has, subclients=self._sub,
-                active=self._act, row_seg=self._row_seg_d,
-                capacity=cfg.cap_d, algo_kind=cfg.kind_d,
-                learning=cfg.learn_d, static_capacity=cfg.statc_d,
-                lengths=self._seg_len_d,
-            ),
-            lanes=cfg.lanes(),
+        return self._stage(
+            (w_idx, w_val, f_idx, f_w, f_h, f_s, f_a), sel, sel_rids,
+            sel_chunks, versions, keep, now, ph, scope,
         )
 
-    def _launch_round_trip(self, ph, host_blocks, use_bf16, handle):
-        """The round-trip tail (reference solver/resident_wide.py
-        `_tick_fn` :329 and `_launch`'s unfused branch): one placement
-        per staged block, the slot scatters, the chunked solve over the
-        full table, the delivered rows in the download dtype, one
-        download."""
-        ph.lap("staging")
-        w_i, w_v, f_i, f_wv, f_hv, f_sv, sel_i, f_av = (
-            self._put(b) for b in host_blocks
-        )
-        ph.lap("upload")
-        if use_bf16:
-            w_v = w_v.view(torch.bfloat16)
-        self._scatter(w_i.long(), w_v.to(self._tdtype), f_i.long(), f_wv,
-                      f_hv, f_sv, f_av)
-        gets = self._solve_full()
-        # `gets` IS the next tick's has: grants chain on device.
-        self._has = gets
-        slab = gets[sel_i.long()].to(self._out_tdtype)
-        count_launch()
-        handle.out = transfer.start_download(slab)
-        ph.lap("solve")
-        return handle
-
-    # -- the mesh tick -------------------------------------------------
-
-    def _stage_mesh(self, packed, sel, sel_rids, sel_chunks, versions, keep,
-                    now, ph, scope):
-        """The mesh tail of the launch: slot scatters and the delivery
-        set grouped by owning shard (shard-local indices, padded per
-        shard to one width; padded slots are never read), one staged
-        buffer and one host->device copy per device group, the chunked
-        solve per group in lockstep with the bit-exact combine, and one
-        delivery slab per group."""
+    def _stage(self, packed, sel, sel_rids, sel_chunks, versions, keep,
+               now, ph, scope):
+        """The tail of the launch: slot scatters and the delivery set
+        grouped by owning shard (shard-local indices, padded per shard
+        to one width; padded slots are never read), staged per device
+        group (engine `_upload`: one buffer and one host->device copy on
+        a fused tick, the scope plan in it), the chunked solve per group
+        in lockstep with the bit-exact combine, and one delivery slab per
+        group."""
         w_idx, w_val, f_idx, f_w, f_h, f_s, f_a = packed
         mr = self._meshrows
         n_dev = mr.n_dev
@@ -611,77 +410,62 @@ class WideResidentSolver(TickEngineBase):
         Rl = self._Rp // n_dev
         span = Rl * W
         idt = self._idx_dtype
-        ow = w_idx // span
-        counts_w, (w_idx_l, w_val_l) = group_by_shard(
-            ow, n_dev, [w_idx - ow * span, w_val])
-        of = f_idx // span
-        counts_f, f_cols = group_by_shard(
-            of, n_dev, [f_idx - of * span, f_w, f_h, f_s, f_a])
-        # sel is sorted, so the stable grouping keeps its order exactly.
-        owner_sel = sel // Rl
-        counts_sel, (sel_l,) = group_by_shard(
-            owner_sel, n_dev, [sel - owner_sel * Rl])
-        Dw = ceil_to(int(counts_w.max()), 8)
-        Df = ceil_to(int(counts_f.max()), 8)
-        Sb = ceil_to(int(counts_sel.max()), 8)
-        w_idx_b, w_val_b = pad_shard_blocks(
-            counts_w, Dw, [(w_idx_l.astype(idt), 0), (w_val_l, 0)])
+        counts_w, w_idx_l, (w_val_l,) = split_rows(
+            w_idx, span, n_dev, [w_val])
+        counts_f, f_idx_l, f_cols = split_rows(
+            f_idx, span, n_dev, [f_w, f_h, f_s, f_a])
+        # sel is sorted, so its shard-major order is its own.
+        counts_sel, sel_l, _ = split_rows(sel, Rl, n_dev)
+        Dw = ceil_to(max(counts_w), 8)
+        Df = ceil_to(max(counts_f), 8)
+        Sb = ceil_to(max(counts_sel), 8)
+        w_val_b = pad_shard_block(counts_w, w_val_l, Dw)
         use_bf16 = bf16_exact(w_val_b)
-        f_idx_b, f_w_b, f_h_b, f_s_b, f_a_b = pad_shard_blocks(
-            counts_f, Df, [(f_cols[0].astype(idt), 0), (f_cols[1], 0),
-                           (f_cols[2], 0), (f_cols[3], 0), (f_cols[4], False)])
-        sel_b = pad_shard_indices(counts_sel, Sb, sel_l).astype(np.int32)
+        blocks = [
+            pad_shard_block(counts_w, w_idx_l, Dw, dtype=idt),
+            bf16_bytes(w_val_b).view(np.int16).reshape(w_val_b.shape)
+            if use_bf16 else w_val_b,
+            pad_shard_block(counts_f, f_idx_l, Df, dtype=idt),
+            pad_shard_block(counts_f, f_cols[0], Df),
+            pad_shard_block(counts_f, f_cols[1], Df),
+            pad_shard_block(counts_f, f_cols[2], Df),
+            pad_shard_block(counts_sel, sel_l, Sb, dtype=np.int32),
+            pad_shard_block(counts_f, f_cols[3], Df, False),
+        ]
         itemsize = self._dtype.itemsize
         idx_bytes = np.dtype(idt).itemsize
-        ph.shard_bytes(
-            "upload",
-            counts_w * (idx_bytes + itemsize)
-            + counts_f * (idx_bytes + 3 * itemsize + 1)
-            + counts_sel * 4,
-        )
-        ph.shard_bytes(
-            "download", counts_sel * W * self._out_tdtype.itemsize)
-        scope_plan = self._mesh_scope(scope, Rl) if scope is not None else None
+
+        def per_shard():
+            w, f, sl = map(np.asarray, (counts_w, counts_f, counts_sel))
+            return (w * (idx_bytes + itemsize)
+                    + f * (idx_bytes + 3 * itemsize + 1) + sl * 4,
+                    sl * W * self._out_tdtype.itemsize)
+
+        self._account_shards(ph, per_shard)
+        plan, scope_blocks = (self._mesh_scope(scope, Rl)
+                              if scope is not None else (None, None))
+        staged = self._upload(ph, blocks, scope_blocks)
         tdt = self._tdtype
         it_t = torch.int32 if idt == np.int32 else torch.int64
-        cfg = self._config
-        lanes = cfg.lanes()
-        staged = []
-        for gi, (dev, first, n) in enumerate(mr.groups):
-            grp = slice(first, first + n)
-            blocks = [
-                w_idx_b[grp],
-                bf16_bytes(w_val_b[grp]).view(np.int16) if use_bf16
-                else w_val_b[grp],
-                f_idx_b[grp], f_w_b[grp], f_h_b[grp], f_s_b[grp],
-                sel_b[grp], f_a_b[grp],
-            ]
-            if self._fused:
-                # One buffer, one host->device copy for the group; block
-                # widths are multiples of 8, so every offset is aligned.
-                buf_d = place(np.concatenate(
-                    [np.ascontiguousarray(b).view(np.uint8).ravel()
-                     for b in blocks]), dev)
-                views, o = [], 0
-                for b in blocks:
-                    views.append(buf_d[o: o + b.size * b.itemsize])
-                    o += b.size * b.itemsize
-            else:
-                views = [place(b, dev).view(torch.uint8).reshape(-1)
-                         for b in blocks]
+        sels = []
+        for gi, ((_dev, first, n), views) in enumerate(zip(mr.groups,
+                                                           staged)):
             w_i = views[0].view(it_t).reshape(n, Dw).long()
             w_v = views[1].view(torch.bfloat16 if use_bf16 else tdt).reshape(
                 n, Dw).to(tdt)
             f_i = views[2].view(it_t).reshape(n, Df).long()
             f_wv, f_hv, f_sv = (v.view(tdt).reshape(n, Df)
                                 for v in views[3:6])
-            sel_i = views[6].view(torch.int32).reshape(n, Sb).long()
-            f_av = (views[7] != 0).reshape(n, Df)
+            sels.append(views[6].view(torch.int32).reshape(n, Sb).long())
+            f_av = views[7].view(torch.bool).reshape(n, Df)
+            if plan is not None:
+                plan["groups"][gi]["block"] = views[8].view(
+                    torch.int32).long()
             wants, has = self._wants[gi].view(-1), self._has[gi].view(-1)
             sub, act = self._sub[gi].view(-1), self._act[gi].view(-1)
             for i in range(n):
                 d = first + i
-                cw, cf = int(counts_w[d]), int(counts_f[d])
+                cw, cf = counts_w[d], counts_f[d]
                 base = i * span  # the shard's slots in the group's block
                 wants[base + w_i[i, :cw]] = w_v[i, :cw]
                 fi = base + f_i[i, :cf]
@@ -689,15 +473,15 @@ class WideResidentSolver(TickEngineBase):
                 has[fi] = f_hv[i, :cf]
                 sub[fi] = f_sv[i, :cf]
                 act[fi] = f_av[i, :cf]
-            staged.append(sel_i)
-        ph.lap("staging")
 
-        if scope_plan is None:
+        cfg = self._config
+        lanes = cfg.lanes()
+        if plan is None:
             def body(g):
                 return self._solve_group_full(g, lanes)
         else:
             def body(g):
-                return self._solve_group_scoped(g, lanes, scope_plan)
+                return self._solve_group_scoped(g, lanes, plan)
         results = self._combine.run(body)
         out_dt = self._out_tdtype
         parts = []
@@ -705,9 +489,10 @@ class WideResidentSolver(TickEngineBase):
         for gi, (dev, first, n) in enumerate(mr.groups):
             moved_seg = results[gi]
             has = self._has[gi]
-            rows = [has[i * Rl + staged[gi][i, :int(counts_sel[first + i])]]
+            rows = [has[i * Rl:(i + 1) * Rl][
+                        sels[gi][i, :counts_sel[first + i]]]
                     for i in range(n)]
-            slab = [torch.cat(rows).to(out_dt)]
+            slab = [cat_rows(rows).to(out_dt)]
             if moved_seg is not None and gi == 0:
                 Scb = moved_seg.shape[0]
                 moved_rows = -(-Scb // W)
@@ -715,10 +500,10 @@ class WideResidentSolver(TickEngineBase):
                 mvd[:Scb] = moved_seg.to(out_dt)
                 slab.append(mvd.reshape(moved_rows, W))
             count_launch()
-            parts.append(transfer.start_download(torch.cat(slab)))
+            parts.append(transfer.start_download(cat_rows(slab)))
         ph.lap("fused" if self._fused else "solve")
         return TickHandle(
-            out=None,
+            parts=parts,
             sel_rows=sel,
             rids=sel_rids,
             versions=versions,
@@ -729,7 +514,6 @@ class WideResidentSolver(TickEngineBase):
             scope_ids=scope,
             moved_rows=moved_rows,
             seq=self._seq,
-            parts=parts,
             shard_counts=counts_sel,
         )
 
@@ -738,14 +522,15 @@ class WideResidentSolver(TickEngineBase):
         bit-exact cross-shard reduction; grants chain into has."""
         from doorman_tpu_torch.parallel.sharded import resident_chunk_reduces
 
-        _dev, first, _n = self._meshrows.groups[g]
+        _dev, first, n = self._meshrows.groups[g]
         Rl = self._Rp // self._meshrows.n_dev
         cfg = self._config
+        row_seg = self._row_seg_d[g]
         segsum, segmax = resident_chunk_reduces(
-            self._combine, g, self._row_seg_d[g], self._seg_len_d[g],
-            first * Rl, self._Rp,
+            self._combine, g, row_seg, self._seg_len_d[g], first * Rl,
+            self._Rp,
         )
-        seg = self._row_seg_g[g]
+        seg = row_seg[first * Rl:(first + n) * Rl]
         self._has[g] = solve_lanes(
             self._wants[g], self._has[g], self._sub[g], self._act[g],
             cfg.cap_d[g], cfg.kind_d[g], cfg.learn_d[g], cfg.statc_d[g],
@@ -754,41 +539,38 @@ class WideResidentSolver(TickEngineBase):
         )
         return None
 
-    def _mesh_scope(self, scope: np.ndarray, Rl: int) -> dict:
-        """The scoped tick's compact layout over the mesh: the closure's
-        chunk rows (global order), its compact segment map, the scoped
-        segment ids and lengths — the single-device tick's — and per
-        device group its local scoped rows and their global compact
-        positions. A group's gather pads to the pow2 bucket of its row
-        count (padding rows repeat a real one and are never written
-        back), so on a one-device mesh the compact shapes are the single
-        device's."""
+    def _mesh_scope(self, scope: np.ndarray, Rl: int):
+        """The scoped tick's compact layout: the closure's chunk rows
+        (global order), its compact segment map, the scoped segment ids
+        and lengths, and per device group where its scoped rows sit
+        among them (`start`, `count`: consecutive, since the rows are
+        sorted) and its local gather of them, padded to the pow2 bucket
+        of its row count (padding rows repeat a real one and are never
+        written back). Returns (plan, one int32 host block per group:
+        the compact map, ids, lengths, then the group's gather)."""
         scope_rows = self._scope_rows(scope)
         Cbg = min(pow2_bucket(max(len(scope_rows), 1), 8), self._Rp)
         Scb = pow2_bucket(len(scope) + 1, 8)
-        row_seg_cg = np.full(Cbg, Scb - 1, np.int64)
+        row_seg_cg = np.full(Cbg, Scb - 1, np.int32)
         row_seg_cg[: len(scope_rows)] = np.repeat(
-            np.arange(len(scope), dtype=np.int64), self._n_chunks[scope])
-        seg_ids = np.full(Scb, self._Sp - 1, np.int64)
+            np.arange(len(scope), dtype=np.int32), self._n_chunks[scope])
+        seg_ids = np.full(Scb, self._Sp - 1, np.int32)
         seg_ids[: len(scope)] = scope
-        seg_len = np.bincount(row_seg_cg, minlength=Scb).astype(np.int64)
-        host = np.concatenate([row_seg_cg, seg_ids, seg_len])
-        groups = []
-        for dev, first, n in self._meshrows.groups:
+        seg_len = np.bincount(row_seg_cg, minlength=Scb).astype(np.int32)
+        groups, blocks = [], []
+        for _dev, first, n in self._meshrows.groups:
             lo, hi = first * Rl, (first + n) * Rl
-            pos = np.nonzero((scope_rows >= lo) & (scope_rows < hi))[0]
-            rows_l = scope_rows[pos] - lo
-            count = len(rows_l)
+            start, stop = (int(i) for i in np.searchsorted(scope_rows,
+                                                           [lo, hi]))
+            count = stop - start
             Cbl = min(pow2_bucket(max(count, 1), 8), n * Rl)
-            gather = np.resize(rows_l, Cbl) if count else np.zeros(Cbl, np.int64)
-            block = place(np.concatenate([host, gather, pos]), dev)
-            groups.append(dict(
-                row_seg=block[:Cbg], seg_ids=block[Cbg:Cbg + Scb],
-                seg_len=block[Cbg + Scb:Cbg + 2 * Scb],
-                gather=block[Cbg + 2 * Scb:Cbg + 2 * Scb + Cbl],
-                gpos=block[Cbg + 2 * Scb + Cbl:], count=count,
-            ))
-        return dict(Cbg=Cbg, Scb=Scb, groups=groups)
+            rows_l = scope_rows[start:stop] - lo
+            gather = (np.resize(rows_l, Cbl) if count
+                      else np.zeros(Cbl, np.int64))
+            blocks.append(np.concatenate(
+                [row_seg_cg, seg_ids, seg_len, gather.astype(np.int32)]))
+            groups.append(dict(start=start, count=count))
+        return dict(Cbg=Cbg, Scb=Scb, groups=groups), blocks
 
     def _solve_group_scoped(self, g: int, lanes, plan: dict):
         """Device group g's scoped solve: its scoped rows gathered,
@@ -797,18 +579,20 @@ class WideResidentSolver(TickEngineBase):
         from doorman_tpu_torch.parallel.sharded import scoped_chunk_reduces
 
         sp = plan["groups"][g]
+        Cbg, Scb = plan["Cbg"], plan["Scb"]
+        block = sp["block"]
+        row_seg, sid = block[:Cbg], block[Cbg:Cbg + Scb]
+        rows = block[Cbg + 2 * Scb:]
+        start, count = sp["start"], sp["count"]
         cfg = self._config
-        count = sp["count"]
-        rows = sp["gather"]
         segsum, segmax = scoped_chunk_reduces(
-            self._combine, g, sp["gpos"], sp["row_seg"], sp["seg_len"],
-            plan["Cbg"], count,
+            self._combine, g, start, row_seg, block[Cbg + Scb:Cbg + 2 * Scb],
+            Cbg, count,
         )
-        seg_l = sp["row_seg"][sp["gpos"]]
+        seg_l = row_seg[start:start + count]
         if rows.shape[0] > count:
             seg_l = torch.cat([seg_l, seg_l.new_full(
-                (rows.shape[0] - count,), plan["Scb"] - 1)])
-        sid = sp["seg_ids"]
+                (rows.shape[0] - count,), Scb - 1)])
         h_c = self._has[g][rows]
         gets_c = solve_lanes(
             self._wants[g][rows], h_c, self._sub[g][rows], self._act[g][rows],

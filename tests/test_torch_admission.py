@@ -835,8 +835,8 @@ def test_fused_device_tables_equal_the_unfused_twin_in_a_deep_pipeline():
                     await server.tick_once()
                 assert _wire(prev[True]) == _wire(prev[False]), rnd
                 assert _store_rows(side[True]) == _store_rows(side[False])
-                assert torch.equal(side[True]._resident._has,
-                                   side[False]._resident._has), rnd
+                assert torch.equal(side[True]._resident.table().has,
+                                   side[False]._resident.table().has), rnd
                 hits += side[True]._resident.last_fused["rows"]
                 clock.t += 1.0
             assert hits > 0

@@ -1,6 +1,7 @@
 """The port's mesh-sharded resident ticks (`mesh=`) on an 8-shard CPU mesh
-against the port's single-device ticks and the JAX package's mesh ticks
-on its 8 virtual CPU devices (tests/conftest.py forces them).
+against the port's unmeshed ticks (the same tail on a one-shard mesh)
+and the JAX package's mesh ticks on its 8 virtual CPU devices
+(tests/conftest.py forces them).
 
 The contract is the reference's (tests/test_resident_mesh.py):
 BYTE-IDENTICAL store contents versus the single-device solver over
@@ -154,7 +155,7 @@ def test_wide_rotation_reaches_the_single_device_fixpoint():
         for solver, (_e, res) in zip((sm, so, sj), worlds):
             solver.step(res)
         np.testing.assert_array_equal(
-            torch.cat(sm._has).numpy(), so._has.numpy())
+            sm.table().has.numpy(), so.table().has.numpy())
         assert all_leases(res_m) == all_leases(res_j), f"quiet {quiet}"
         t[0] += 1.0
     a, b = all_leases(res_m), all_leases(res_o)
@@ -179,8 +180,8 @@ def test_mesh_rotation_is_balanced_across_shards():
     assert handle.shard_counts is not None
     # 12 real rows over shards of 2 -> 6 populated shards; rotate=2
     # delivers 1 row per populated shard per tick.
-    assert int(handle.shard_counts.max()) <= 1 + 1  # rotation + dirty
-    assert (handle.shard_counts[:6] >= 1).all()
+    assert max(handle.shard_counts) <= 1 + 1  # rotation + dirty
+    assert all(c >= 1 for c in handle.shard_counts[:6])
     solver.collect(handle)
 
 
@@ -288,7 +289,7 @@ def test_mesh_scope_extents_and_frontier_follow_the_reference():
         handles.append(s.dispatch(res, 0))
     hm, hj = handles
     assert hm.scope_counts is not None
-    assert int(hm.scope_counts.sum()) == len(hm.scope_ids)
+    assert sum(hm.scope_counts) == len(hm.scope_ids)
     np.testing.assert_array_equal(hm.scope_ids, hj.scope_ids)
     np.testing.assert_array_equal(hm.scope_counts, hj.scope_counts)
     sm.collect(hm)
